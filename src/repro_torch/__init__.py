@@ -1,0 +1,36 @@
+"""`repro_torch` — Active Search for Nearest Neighbors in PyTorch + CUDA.
+
+The PyTorch port of the JAX + Pallas package `repro`, laid out file for file
+beside it (`repro_torch/core/grid.py` mirrors `repro/core/grid.py`, and so
+on).  It imports `torch` and `numpy` only — never `jax`, never `repro`.
+The JAX package stays the reference: the port's tests run both packages on
+the same numpy inputs and hold the port to the reference's results.
+
+Backend names (the `ExecutionPlan.backend` registry) map from the reference
+as follows:
+
+    reference        port
+    ---------        ----
+    jnp              torch
+    pallas           hopper          (this package's default plan)
+    pallas_gather    hopper_gather
+    pallas_q8        hopper_q8
+    pallas_stacked   hopper_stacked
+    exact            exact
+    sharded          sharded
+
+Registered so far: `hopper` (the batched main path on the hand-written
+Hopper kernels in `repro_torch/csrc/`) and `exact` (the brute-force
+comparator).  The others follow in later slices.
+
+Devices: the entry points (`api.ActiveSearcher.build`, `.from_index`,
+`convert.index_from_numpy`, ...) take `device=None`, which means "cuda".
+Without a card they raise unless the caller passes `device="cpu"`; on the
+CPU every kernel wrapper runs its plain PyTorch version instead
+(`repro_torch/kernels/ops.py`).
+
+    from repro_torch import api
+    s = api.ActiveSearcher.build(points, labels=labels,
+                                 cfg=api.GridConfig(n_classes=3))
+    res = s.search(queries, k=11)
+"""

@@ -1,0 +1,56 @@
+"""Carry a built index across from the JAX package as numpy arrays.
+
+The index is the port's "weights": the tests build it once with the
+reference, turn it into numpy (`jax.tree.map(np.asarray, index)._asdict()`)
+and load it here, so that both packages search the very same arrays.
+Nothing here imports the reference: it takes plain arrays.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import as_tensor, resolve_device
+from repro_torch.core.grid import GridConfig, GridIndex
+from repro_torch.core.projection import Projection
+
+
+def projection_from_numpy(matrix, lo, hi, device=None) -> Projection:
+    """A Projection from its (d, gd) matrix and (gd,) extents, float32, on
+    `device` (None = the card)."""
+    dev = resolve_device(device)
+    return Projection(*(as_tensor(np.asarray(a), torch.float32, dev) for a in (matrix, lo, hi)))
+
+
+def index_from_numpy(
+    fields: Mapping[str, np.ndarray | Sequence[np.ndarray]],
+    cfg: GridConfig,
+    device=None,
+) -> GridIndex:
+    """The port's GridIndex from the fields of a reference GridIndex as numpy
+    arrays: proj (matrix, lo, hi), points_sorted, coords_sorted,
+    labels_sorted, ids_sorted, offsets, pyramid (a sequence), sat and
+    pyr_tiles (either may be None).  Float fields become float32 and
+    integer fields int32, on `device` (None = the card)."""
+    dev = resolve_device(device)
+    f32 = lambda a: as_tensor(np.asarray(a), torch.float32, dev)  # noqa: E731
+    i32 = lambda a: None if a is None else as_tensor(np.asarray(a), torch.int32, dev)  # noqa: E731
+    pyramid = tuple(i32(a) for a in fields["pyramid"])
+    if len(pyramid) != cfg.levels:
+        raise ValueError(
+            f"pyramid has {len(pyramid)} levels; cfg expects {cfg.levels}"
+        )
+    return GridIndex(
+        proj=Projection(*(f32(a) for a in fields["proj"])),
+        points_sorted=f32(fields["points_sorted"]),
+        coords_sorted=f32(fields["coords_sorted"]),
+        labels_sorted=i32(fields["labels_sorted"]),
+        ids_sorted=i32(fields["ids_sorted"]),
+        offsets=i32(fields["offsets"]),
+        pyramid=pyramid,
+        sat=i32(fields.get("sat")),
+        pyr_tiles=i32(fields.get("pyr_tiles")),
+    )

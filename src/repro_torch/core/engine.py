@@ -1,0 +1,416 @@
+"""One searcher handle over every execution path (exported as `repro_torch.api`).
+
+Port of `repro/core/engine.py`:
+
+  plan = ExecutionPlan(backend="hopper", chunk_size=2048)
+  s = ActiveSearcher.build(points, labels=labels,
+                           cfg=GridConfig(n_classes=3), plan=plan)
+  res   = s.search(queries, k=11)            # batched SearchResult
+  preds = s.classify(queries, k=11)
+  cnts  = s.count_at(queries, radii)         # (B, C) circle counts
+  s2    = s.with_plan(backend="exact")       # same index, new execution plan
+
+HOW a search executes lives in the frozen `ExecutionPlan` (backend name,
+chunked streaming, accumulation cap, adaptive start radius); WHAT is
+searched lives in the (index, cfg) pair the handle carries, on the
+handle's device.  Backends are uniform `BackendImpl` adapters resolved
+from a registry.  This slice registers `hopper` (the main path, the
+default) and `exact` (the brute-force comparator).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core import batched
+from repro_torch.core import exact as exact_lib
+from repro_torch.core import projection as proj_lib
+from repro_torch.core.active_search import SearchResult, empty_result, run_chunked
+from repro_torch.core.grid import (
+    GridConfig,
+    GridIndex,
+    build_index,
+    flatten_pyramid_tiles,
+)
+
+_MODES = ("refined", "paper")
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device=None` means the card; a CUDA device without a card raises
+    (the port never carries on quietly on the CPU)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the port "
+            "on the CPU through the kernels' plain versions"
+        )
+    return dev
+
+
+def as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A numpy array (copied) or tensor as a `dtype` tensor on `device`."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.array(x))
+    return torch.as_tensor(x).to(device=device, dtype=dtype)
+
+
+# ------------------------------------------------------------------ plan -----
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPlan:
+    """HOW a search executes — frozen and hashable.
+
+    backend:    registered backend name ("hopper" | "exact" | anything added
+                via `register_backend`).
+    chunk_size: stream query batches through fixed-size chunks so every
+                launch keeps one shape.  Bit-identical for any value.
+    d_chunk:    split the candidate distance sum into blocks of d_chunk
+                features, summed per block and then across blocks (kernel
+                backends only; None = one sum).
+    adaptive_r0: seed each query's Eq.-1 start radius from the pyramid's
+                top levels (`pyramid.seed_radius`) instead of cfg.r0;
+                backends that run the Eq.-1 loop only.
+    """
+
+    backend: str = "hopper"
+    chunk_size: int | None = None
+    d_chunk: int | None = None
+    adaptive_r0: bool = False
+
+    def __post_init__(self):
+        if self.chunk_size is not None and self.chunk_size <= 0:
+            raise ValueError(
+                f"chunk_size must be positive, got {self.chunk_size}"
+            )
+        if self.d_chunk is not None and self.d_chunk <= 0:
+            raise ValueError(
+                f"d_chunk must be positive, got {self.d_chunk}"
+            )
+
+
+# -------------------------------------------------------------- registry -----
+
+
+@dataclasses.dataclass(frozen=True)
+class BackendImpl:
+    """Uniform adapter a backend registers.  Each callable takes the
+    searcher handle first:
+
+      search(searcher, queries, k, mode)   -> SearchResult   (batched)
+      classify(searcher, queries, k, mode) -> (B,) int32
+      count_at(searcher, q_grid, radii)    -> (B, C) int32 circle counts
+
+    Any of the three may be None; the facade raises eagerly when an op is
+    missing.  `supports_d_chunk` gates `plan.d_chunk`, and
+    `supports_adaptive_r0` gates `plan.adaptive_r0`.
+    """
+
+    search: Callable[..., SearchResult] | None = None
+    classify: Callable[..., torch.Tensor] | None = None
+    count_at: Callable[..., torch.Tensor] | None = None
+    supports_d_chunk: bool = False
+    supports_adaptive_r0: bool = False
+    description: str = ""
+
+
+_REGISTRY: dict[str, BackendImpl] = {}
+
+
+def register_backend(name: str, impl: BackendImpl) -> None:
+    """Register (or replace) an execution backend under `name`."""
+    if not isinstance(impl, BackendImpl):
+        raise TypeError(f"impl must be a BackendImpl, got {type(impl).__name__}")
+    _REGISTRY[name] = impl
+
+
+def get_backend(name: str) -> BackendImpl:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown backend {name!r}; registered backends: "
+            f"{sorted(_REGISTRY)}"
+        ) from None
+
+
+def registered_backends() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+# ------------------------------------------------------------------ handle ---
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ActiveSearcher:
+    """The one handle: (index, cfg) = WHAT is searched, plan = HOW.
+
+    Frozen and cheap to re-plan: `with_plan` returns a new handle sharing
+    the same index tensors.  Queries are moved to the index's device."""
+
+    index: GridIndex
+    cfg: GridConfig
+    plan: ExecutionPlan = ExecutionPlan()
+
+    # -------------------------------------------------------- construction --
+    @classmethod
+    def build(
+        cls,
+        points,
+        *,
+        labels=None,
+        ids=None,
+        cfg: GridConfig | None = None,
+        plan: ExecutionPlan | None = None,
+        proj: proj_lib.Projection | None = None,
+        device=None,
+    ) -> "ActiveSearcher":
+        """Build the paper's grid image + CSR buckets on `device` (None =
+        the card) and wrap them in a handle.  proj defaults to a PCA
+        projection to the grid plane."""
+        dev = resolve_device(device)
+        cfg = cfg or GridConfig()
+        pts = as_tensor(points, torch.float32, dev)
+        if labels is not None:
+            labels = as_tensor(labels, torch.int32, dev)
+        if ids is not None:
+            ids = as_tensor(ids, torch.int32, dev)
+        proj = proj_lib.pca_projection(pts, grid_dim=2) if proj is None else proj.to(dev)
+        index = build_index(pts, cfg, proj, labels=labels, ids=ids)
+        return cls(index=index, cfg=cfg, plan=plan or ExecutionPlan())
+
+    @classmethod
+    def from_index(
+        cls,
+        index: GridIndex,
+        cfg: GridConfig,
+        plan: ExecutionPlan | None = None,
+        device=None,
+    ) -> "ActiveSearcher":
+        """Wrap an already-built GridIndex, moved to `device` (None = the
+        card).  A pre-layout index (pyr_tiles=None) is laid out here, once."""
+        index = index.to(resolve_device(device))
+        if cfg.counter == "pyramid" and index.pyr_tiles is None:
+            index = index._replace(
+                pyr_tiles=flatten_pyramid_tiles(index.pyramid, cfg.tile)
+            )
+        return cls(index=index, cfg=cfg, plan=plan or ExecutionPlan())
+
+    @property
+    def device(self) -> torch.device:
+        return self.index.device
+
+    def with_plan(
+        self, plan: ExecutionPlan | None = None, **overrides
+    ) -> "ActiveSearcher":
+        """Same index, new execution plan (full plan or field overrides).
+
+        Switching `backend=` drops the `d_chunk` and `adaptive_r0` knobs
+        when the new backend does not support them (unless explicitly
+        overridden too)."""
+        if plan is not None and overrides:
+            raise ValueError("pass a full ExecutionPlan OR field overrides")
+        if plan is None and "backend" in overrides:
+            impl = _REGISTRY.get(overrides["backend"])
+            if impl is not None:
+                if not impl.supports_d_chunk and "d_chunk" not in overrides:
+                    overrides = {**overrides, "d_chunk": None}
+                if (not impl.supports_adaptive_r0
+                        and "adaptive_r0" not in overrides):
+                    overrides = {**overrides, "adaptive_r0": False}
+        new = plan if plan is not None else dataclasses.replace(self.plan, **overrides)
+        return dataclasses.replace(self, plan=new)
+
+    # ------------------------------------------------------------- dispatch --
+    def _impl(self, op: str) -> Callable:
+        """Resolve the plan's backend and validate the plan EAGERLY, so
+        every backend raises the same errors for the same misuses."""
+        impl = get_backend(self.plan.backend)
+        if self.plan.d_chunk is not None and not impl.supports_d_chunk:
+            raise ValueError(
+                f"d_chunk= only applies to kernel candidate-ranking "
+                f"backends; backend {self.plan.backend!r} does not "
+                f"support it"
+            )
+        if self.plan.adaptive_r0 and not impl.supports_adaptive_r0:
+            raise ValueError(
+                f"adaptive_r0= only applies to backends that run the Eq.-1 "
+                f"radius loop; backend {self.plan.backend!r} does not "
+                f"support it"
+            )
+        fn = getattr(impl, op)
+        if fn is None:
+            raise ValueError(
+                f"backend {self.plan.backend!r} does not implement {op}()"
+            )
+        return fn
+
+    @staticmethod
+    def _check_mode(mode: str) -> None:
+        if mode not in _MODES:
+            raise ValueError(f"unknown mode {mode!r}; expected one of {_MODES}")
+
+    # ------------------------------------------------------------------ ops --
+    def search(self, queries, k: int, mode: str = "refined") -> SearchResult:
+        """Batched active search: queries (B, d) -> SearchResult, leading B.
+
+        mode="paper":   members of the final Eq.-1 circle, ranked by
+                        grid-pixel distance.
+        mode="refined": candidates re-ranked by the true metric in the
+                        original space (recommended).
+        """
+        self._check_mode(mode)
+        fn = self._impl("search")
+        q = as_tensor(queries, torch.float32, self.device)
+        return run_chunked(
+            lambda c: fn(self, c, k, mode), q, self.plan.chunk_size,
+            empty=lambda: empty_result(k, self.device),
+        )
+
+    def classify(self, queries, k: int, mode: str = "refined") -> torch.Tensor:
+        """kNN classification: (B, d) -> (B,) int32 class predictions."""
+        self._check_mode(mode)
+        if self.cfg.n_classes <= 0:
+            raise ValueError("classify() needs an index built with n_classes > 0")
+        fn = self._impl("classify")
+        q = as_tensor(queries, torch.float32, self.device)
+        return run_chunked(
+            lambda c: fn(self, c, k, mode), q, self.plan.chunk_size,
+            empty=lambda: torch.zeros((0,), dtype=torch.int32, device=self.device),
+        )
+
+    def count_at(self, queries, radii) -> torch.Tensor:
+        """Per-class circle counts (B, C) at the given integer radii
+        (pixels).  queries are ORIGINAL-space (B, d); projection happens
+        here.  plan.chunk_size streams (q_grid, radius) pairs."""
+        fn = self._impl("count_at")
+        q = as_tensor(queries, torch.float32, self.device)
+        q_grid = proj_lib.to_grid_coords(self.index.proj, q, self.cfg.grid_size)
+        c = self.cfg.n_channels
+        return run_chunked(
+            lambda qr: fn(self, qr[0], qr[1]),
+            (q_grid, as_tensor(radii, torch.int32, self.device)),
+            self.plan.chunk_size,
+            empty=lambda: torch.zeros((0, c), dtype=torch.int32, device=self.device),
+        )
+
+    def stats(self) -> dict[str, Any]:
+        """Static facts about the handle: index shape/memory + plan."""
+        idx, cfg = self.index, self.cfg
+        nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
+        return {
+            "n_points": int(idx.offsets[-1]),
+            "dim": int(idx.points_sorted.shape[-1]),
+            "grid_size": cfg.grid_size,
+            "padded_size": cfg.padded_size,
+            "levels": cfg.levels,
+            "n_classes": cfg.n_classes,
+            "metric": cfg.metric,
+            "counter": cfg.counter,
+            "backend": self.plan.backend,
+            "plan": self.plan,
+            "device": str(self.device),
+            "pyramid_bytes": sum(nbytes(a) for a in idx.pyramid),
+            "pyr_tiles_bytes": 0 if idx.pyr_tiles is None else nbytes(idx.pyr_tiles),
+            "csr_bytes": sum(
+                nbytes(a) for a in (idx.points_sorted, idx.coords_sorted,
+                                    idx.labels_sorted, idx.ids_sorted, idx.offsets)
+            ),
+        }
+
+    @functools.cached_property
+    def _exact_ordered(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """CSR arrays restored to original-id order, so the exact comparator
+        sees the datastore as the caller supplied it (same tie breaks as an
+        `exact.knn(points, ...)` call).  Computed once per handle."""
+        index = self.index
+        order = torch.argsort(index.ids_sorted, stable=True)
+        return (
+            index.points_sorted[order],
+            index.labels_sorted[order],
+            index.ids_sorted[order],
+        )
+
+
+# ------------------------------------------------------ built-in backends ----
+
+
+def _hopper_search(s: ActiveSearcher, queries, k, mode):
+    return batched.search(
+        s.index, s.cfg, queries, k, mode=mode, d_chunk=s.plan.d_chunk,
+        adaptive_r0=s.plan.adaptive_r0,
+    )
+
+
+def _hopper_classify(s: ActiveSearcher, queries, k, mode):
+    return batched.classify(
+        s.index, s.cfg, queries, k, mode=mode, d_chunk=s.plan.d_chunk,
+        adaptive_r0=s.plan.adaptive_r0,
+    )
+
+
+def _hopper_count_at(s: ActiveSearcher, q_grid, radii):
+    return batched.batched_counts(s.index, s.cfg, q_grid, radii)
+
+
+def _exact_search(s: ActiveSearcher, queries, k, mode):
+    """Brute-force comparator folded into the uniform SearchResult: the
+    paper-stat fields are defaulted since exact kNN has no Eq.-1 loop.
+    `mode` is accepted for interface uniformity."""
+    pts, labels, ids = s._exact_ordered
+    res = exact_lib.knn(queries, pts, k, metric=s.cfg.metric)
+    b = res.ids.shape[0]
+    valid = torch.isfinite(res.dists) & (res.ids >= 0)
+    pos = torch.clamp(res.ids, 0, pts.shape[0] - 1).long()
+    none = torch.full_like(res.ids, -1)
+    i32 = dict(dtype=torch.int32, device=pts.device)
+    return SearchResult(
+        ids=torch.where(valid, ids[pos], none),
+        dists=torch.where(valid, res.dists, torch.full_like(res.dists, float("inf"))),
+        labels=torch.where(valid, labels[pos], none),
+        valid=valid,
+        radius=torch.zeros((b,), **i32),
+        count=valid.sum(dim=1, dtype=torch.int32),
+        iters=torch.zeros((b,), **i32),
+        converged=torch.ones((b,), dtype=torch.bool, device=pts.device),
+        truncated=torch.zeros((b,), dtype=torch.bool, device=pts.device),
+    )
+
+
+def _exact_classify(s: ActiveSearcher, queries, k, mode):
+    pts, labels, _ = s._exact_ordered
+    return exact_lib.classify(
+        queries, pts, labels, k, s.cfg.n_classes, metric=s.cfg.metric,
+    )
+
+
+register_backend("hopper", BackendImpl(
+    search=_hopper_search, classify=_hopper_classify, count_at=_hopper_count_at,
+    supports_d_chunk=True, supports_adaptive_r0=True,
+    description="batched kernel pipeline: level-scheduled "
+                "tile_count_multilevel + fused csr_candidate_topk, both "
+                "hand-written for Hopper (core/batched.py, csrc/)",
+))
+register_backend("exact", BackendImpl(
+    search=_exact_search, classify=_exact_classify,
+    description="blocked brute-force kNN — the paper's 'original kNN' "
+                "comparator (core/exact.py)",
+))
+
+
+__all__ = [
+    "ActiveSearcher",
+    "BackendImpl",
+    "ExecutionPlan",
+    "SearchResult",
+    "get_backend",
+    "register_backend",
+    "registered_backends",
+    "resolve_device",
+]

@@ -1,0 +1,111 @@
+// Level-scheduled circle count on Hopper (sm_90a).
+//
+// Replaces the TPU kernel repro/kernels/tile_count_multilevel.py::
+// tile_count_multilevel (its body _kernel inlines repro/kernels/tile_count.py::
+// circle_window_sum).  For each query b, at its own pyramid level
+// l = levels[b], it sums each class channel over the level cells (x, y) of the
+// clamped window [ox, ox+T) x [oy, oy+T) whose centers ((x+0.5)*2^l,
+// (y+0.5)*2^l) lie inside the l1/l2 circle of radius r[b] around q[b].  Lanes
+// with active[b] == 0 write zeros.  Output (B, C) int32, equal to the plain
+// version repro_torch/kernels/ref.py::tile_count_multilevel.
+//
+// What bounds it on this card: bytes.  A live lane reads T*T*C int32 of the
+// flattened pyramid (3 KB at T=16, C=3) at a data-dependent address and does
+// about ten float operations per cell, far below the compute rate; at the
+// loop's batch sizes the launch itself is a large share.
+//
+// Design: one block per query, one thread per window cell (threads stride
+// when T*T exceeds the block).  Each thread reads its cell once, straight
+// from the tile layout (tile off_l + (x/T)*nblk_l + (y/T), in-tile
+// (x%T, y%T)); neighbouring threads read neighbouring in-tile cells, so a
+// warp's loads fall in a few cache lines.  This reads exactly the window
+// cells that the TPU kernel's 2x2 tile cover plus duplicate guard keep.  The
+// TPU's lane compaction and tile aliasing (DMA elision by block revisiting)
+// have no counterpart: a parked block writes zeros and returns.  Per-channel
+// int32 sums reduce exactly (integer adds commute): warp shuffles, then
+// shared-memory atomics.
+//
+// Numerics: built with -fmad=false, and the mask is written with __fmul_rn /
+// __fadd_rn, so (ci-qx)^2 + (cj-qy)^2 rounds as the reference rounds it; an
+// FMA there would move boundary cells, and a count that moves is a wrong
+// integer.
+
+#include <cuda_runtime.h>
+
+#define MAX_C 32
+#define THREADS 256
+
+__global__ void tile_count_multilevel_kernel(
+    const int* __restrict__ tiles,            // (sum_l nblk_l^2, T, T, C)
+    const float* __restrict__ q,              // (B, 2)
+    const float* __restrict__ radii,          // (B,)
+    const int* __restrict__ levels,           // (B,)
+    const unsigned char* __restrict__ active, // (B,) or nullptr
+    int* __restrict__ out,                    // (B, C)
+    int T, int C, int L, int metric_l1) {
+  const int b = blockIdx.x;
+  if (active != nullptr && active[b] == 0) {
+    for (int c = threadIdx.x; c < C; c += blockDim.x) out[(long long)b * C + c] = 0;
+    return;
+  }
+  __shared__ int red[MAX_C];
+  for (int c = threadIdx.x; c < C; c += blockDim.x) red[c] = 0;
+
+  int lv = levels[b];
+  lv = lv < 0 ? 0 : (lv > L - 1 ? L - 1 : lv);
+  const int nblk = 1 << (L - 1 - lv);
+  long long off = 0;  // first tile of level lv
+  for (int j = 0; j < lv; ++j) {
+    const long long nb = 1LL << (L - 1 - j);
+    off += nb * nb;
+  }
+  const float scale = (float)(1 << lv);
+  const float qx = q[2 * b], qy = q[2 * b + 1];
+  const float r = radii[b];
+  const int s_l = nblk * T;
+  const int cx = (int)floorf(qx / scale);
+  const int cy = (int)floorf(qy / scale);
+  const int ox = min(max(cx - T / 2, 0), s_l - T);
+  const int oy = min(max(cy - T / 2, 0), s_l - T);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int cells = T * T;
+  for (int cell0 = 0; cell0 < cells; cell0 += blockDim.x) {
+    const int cell = cell0 + threadIdx.x;
+    bool inside = false;
+    long long base = 0;
+    if (cell < cells) {
+      const int x = ox + cell / T;
+      const int y = oy + cell % T;
+      const float dx = __fsub_rn(__fmul_rn(__fadd_rn((float)x, 0.5f), scale), qx);
+      const float dy = __fsub_rn(__fmul_rn(__fadd_rn((float)y, 0.5f), scale), qy);
+      if (metric_l1) {
+        inside = __fadd_rn(fabsf(dx), fabsf(dy)) <= r;
+      } else {
+        inside = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)) <= __fmul_rn(r, r);
+      }
+      const long long tid = off + (long long)(x / T) * nblk + (y / T);
+      base = ((tid * T + (x % T)) * T + (y % T)) * C;
+    }
+    for (int c = 0; c < C; ++c) {
+      int v = inside ? tiles[base + c] : 0;
+      for (int s = 16; s > 0; s >>= 1) v += __shfl_down_sync(0xffffffffu, v, s);
+      if (lane == 0 && v != 0) atomicAdd(&red[c], v);
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += blockDim.x) out[(long long)b * C + c] = red[c];
+}
+
+extern "C" int tile_count_multilevel_launch(
+    const void* tiles, const void* q, const void* radii, const void* levels,
+    const void* active, void* out, int B, int T, int C, int L, int metric_l1,
+    void* stream) {
+  if (C > MAX_C) return (int)cudaErrorInvalidValue;
+  tile_count_multilevel_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)tiles, (const float*)q, (const float*)radii,
+      (const int*)levels, (const unsigned char*)active, (int*)out, T, C, L,
+      metric_l1);
+  return (int)cudaGetLastError();
+}

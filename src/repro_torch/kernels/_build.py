@@ -1,0 +1,107 @@
+"""Build the port's CUDA sources with nvcc and load them through ctypes.
+
+Each `csrc/<name>.cu` exposes plain C launch functions and is compiled on
+first use into `build/repro_torch/<name>-<digest>.so` under the checkout
+(the digest covers the source and the flags, so an edited source builds
+anew).  `build` starts one nvcc per source, all at once, and waits for
+them; nothing is compiled when a module is imported.
+
+Flags: sm_90a (Hopper), -O3, and -fmad=false so no multiply-add is fused
+into an FMA — the kernels' float arithmetic rounds exactly as the plain
+versions' does, which keeps integer counts and masks bit-equal.  No fast
+math.  -Xptxas -v reports registers, shared memory and spills;
+`BUILD_LOG` keeps that report and the build time per source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+BUILD_LOG: dict[str, dict] = {}  # name -> {"seconds": float, "ptxas": str}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(home) / "bin" / "nvcc"
+    found = str(candidate) if candidate.exists() else shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and on PATH): the "
+            "Hopper kernels are built from repro_torch/csrc on a machine "
+            "with the CUDA toolkit"
+        )
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(names) -> None:
+    """Compile every named source that is not built yet, one nvcc process
+    per source, all started together; raise with nvcc's output on failure."""
+    pending = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        pending[name] = (proc, time.perf_counter(), tmp, out)
+    failures = []
+    for name, (proc, t0, tmp, out) in pending.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)
+        BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def check_tensor(t, name: str, dtype, shape: tuple, device) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on `device`."""
+    if (t.device != device or t.dtype != dtype or tuple(t.shape) != shape
+            or not t.is_contiguous()):
+        raise ValueError(
+            f"{name}: expected a contiguous {dtype} tensor of shape {shape} on "
+            f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device} "
+            f"(contiguous={t.is_contiguous()})"
+        )
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if a C launch function returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

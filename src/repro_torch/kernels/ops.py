@@ -1,0 +1,34 @@
+"""Dispatch between each Hopper kernel and its plain PyTorch version.
+
+A tensor on the CPU goes to the plain version (`ref.py`); a CUDA tensor
+goes to the kernel, which launches or raises — there is no fallback from
+the card to the plain version.  Port of `repro/kernels/ops.py`, whose
+`interpret` switch has no counterpart here: the device decides.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import csr_candidate_topk as _csr
+from repro_torch.kernels import ref
+from repro_torch.kernels import tile_count_multilevel as _tcm
+
+
+def tile_count_multilevel(
+    tiles: torch.Tensor, queries, radii, levels, tile, nblks, metric="l2",
+    active=None,
+):
+    fn = _tcm.tile_count_multilevel if tiles.is_cuda else ref.tile_count_multilevel
+    return fn(tiles, queries, radii, levels, tile, nblks, metric=metric, active=active)
+
+
+def csr_candidate_topk(
+    store: torch.Tensor, starts, ends, queries, k, n, row_cap, metric="l2",
+    radii=None, center_cells=False, d_chunk=None,
+):
+    fn = _csr.csr_candidate_topk if store.is_cuda else ref.csr_candidate_topk
+    return fn(
+        store, starts, ends, queries, k, n, row_cap, metric=metric,
+        radii=radii, center_cells=center_cells, d_chunk=d_chunk,
+    )

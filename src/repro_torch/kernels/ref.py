@@ -1,0 +1,207 @@
+"""Plain PyTorch versions of the port's kernels (the correctness ground truth).
+
+Mirrors `repro/kernels/ref.py`.  Each function computes exactly what its
+Hopper kernel computes; `ops.py` runs these for tensors on the CPU, the
+tests hold them against the JAX package, and `chip_smoke.py` holds each
+kernel against its plain version on the card.  They also carry the
+argument checks that the kernel wrappers share.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Dynamic shared memory one block may use on an H100 (227 KB).
+MAX_SHARED_BYTES = 232_448
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root on every device.
+
+    PyTorch's vectorized CPU sqrt can miss the correctly rounded float32
+    result by an ulp; CUDA's sqrtf, XLA's and the kernels' do not.  The
+    float64 root rounded to float32 is the correctly rounded one (53 bits
+    leave room for the double rounding)."""
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
+def level_tile_offsets(nblks: tuple[int, ...]) -> tuple[int, ...]:
+    """Start row of each level in the flattened tile array."""
+    offs, acc = [], 0
+    for nb in nblks:
+        offs.append(acc)
+        acc += nb * nb
+    return tuple(offs)
+
+
+def check_tile_layout(tiles: torch.Tensor, tile: int, nblks: tuple[int, ...]) -> None:
+    nb_total = sum(nb * nb for nb in nblks)
+    if tiles.ndim != 4 or tiles.shape[0] != nb_total or tuple(tiles.shape[1:3]) != (tile, tile):
+        raise ValueError(
+            f"tiles shape {tuple(tiles.shape)} does not match nblks={nblks}, tile={tile}"
+        )
+
+
+def check_csr_args(store, starts, ends, queries, row_cap, radii) -> None:
+    n_pad, d = store.shape
+    b, w = starts.shape
+    if n_pad < row_cap:
+        raise ValueError(
+            f"store has {n_pad} rows but row_cap={row_cap}; pad the store "
+            f"(active_search.padded_csr) so every span slice is in bounds"
+        )
+    if tuple(ends.shape) != (b, w):
+        raise ValueError(f"ends shape {tuple(ends.shape)} != starts {(b, w)}")
+    if tuple(queries.shape) != (b, d):
+        raise ValueError(
+            f"queries shape {tuple(queries.shape)} does not match spans batch "
+            f"{b} x store dim {d}"
+        )
+    if radii is not None and tuple(radii.shape) != (b,):
+        raise ValueError(
+            f"radii shape {tuple(radii.shape)} does not match spans batch ({b},)"
+        )
+
+
+def d_chunks(d: int, d_chunk: int | None) -> list[tuple[int, int]]:
+    """(start, width) of each feature-dim block the distance sums over."""
+    dc = d if d_chunk is None else max(1, min(d_chunk, d))
+    return [(c0, min(dc, d - c0)) for c0 in range(0, d, dc)]
+
+
+def _circle_mask(ci, cj, qx, qy, r, metric):
+    """Cell centers (ci, cj) inside the circle around (qx, qy); float32."""
+    dx = ci - qx
+    dy = cj - qy
+    if metric == "l1":
+        return dx.abs() + dy.abs() <= r
+    return dx * dx + dy * dy <= r * r
+
+
+def tile_count(
+    level_arr: torch.Tensor,  # (S, S, C) int32 — one pyramid level
+    queries: torch.Tensor,    # (B, 2) float32 — positions in BASE-pixel units
+    radii: torch.Tensor,      # (B,) float32 — radii in base-pixel units
+    scale: int,               # 2**level
+    tile: int,                # T — window side in level cells
+    metric: str = "l2",
+) -> torch.Tensor:
+    """Circle-masked counts (B, C) from one level: count of points whose
+    level-cell center lies within radius of the query, over the clamped
+    T x T window.  Matches pyramid._count_at_level."""
+    s = level_arr.shape[0]
+    q = queries.to(torch.float32)
+    r = radii.to(torch.float32)
+    cx = torch.floor(q[:, 0] / scale).to(torch.int64)
+    cy = torch.floor(q[:, 1] / scale).to(torch.int64)
+    ox = torch.clamp(cx - tile // 2, 0, s - tile)
+    oy = torch.clamp(cy - tile // 2, 0, s - tile)
+    ar = torch.arange(tile, device=q.device)
+    xs = ox[:, None] + ar                                   # (B, T)
+    ys = oy[:, None] + ar
+    window = level_arr[xs[:, :, None], ys[:, None, :]]      # (B, T, T, C)
+    ci = (xs.to(torch.float32) + 0.5) * scale
+    cj = (ys.to(torch.float32) + 0.5) * scale
+    mask = _circle_mask(ci[:, :, None], cj[:, None, :], q[:, 0, None, None],
+                        q[:, 1, None, None], r[:, None, None], metric)
+    return (window * mask[..., None]).sum(dim=(1, 2), dtype=torch.int32)
+
+
+def tile_count_multilevel(
+    tiles: torch.Tensor,     # (sum_l nblk_l^2, T, T, C) int32 flattened pyramid
+    queries: torch.Tensor,   # (B, 2) float32, base-pixel units
+    radii: torch.Tensor,     # (B,) float32, base-pixel units
+    levels: torch.Tensor,    # (B,) int32 pyramid level per query
+    tile: int,
+    nblks: tuple[int, ...],  # per-level block counts S_l // T
+    metric: str = "l2",
+    active: torch.Tensor | None = None,  # (B,) bool lane mask (None = all live)
+) -> torch.Tensor:
+    """Level-scheduled counts (B, C): each query counted at its OWN level.
+
+    Reads each query's clamped T x T window at its level straight from the
+    flattened tile layout (tile off_l + (x//T)*nblk_l + (y//T), in-tile
+    (x%T, y%T)), masks by the circle and sums.  Parked lanes (active False)
+    give 0."""
+    check_tile_layout(tiles, tile, nblks)
+    dev = queries.device
+    nblk_tab = torch.tensor(nblks, dtype=torch.int64, device=dev)
+    off_tab = torch.tensor(level_tile_offsets(nblks), dtype=torch.int64, device=dev)
+
+    lv = torch.clamp(levels.to(torch.int64), 0, len(nblks) - 1)
+    nblk = nblk_tab[lv]                                     # (B,)
+    scale = (1 << lv).to(torch.float32)
+    q = queries.to(torch.float32)
+    r = radii.to(torch.float32)
+    s_l = nblk * tile
+    cx = torch.floor(q[:, 0] / scale).to(torch.int64)
+    cy = torch.floor(q[:, 1] / scale).to(torch.int64)
+    ox = torch.minimum(torch.clamp_min(cx - tile // 2, 0), s_l - tile)
+    oy = torch.minimum(torch.clamp_min(cy - tile // 2, 0), s_l - tile)
+    ar = torch.arange(tile, device=dev)
+    xs = (ox[:, None] + ar)[:, :, None]                     # (B, T, 1)
+    ys = (oy[:, None] + ar)[:, None, :]                     # (B, 1, T)
+    tid = off_tab[lv][:, None, None] + (xs // tile) * nblk[:, None, None] + ys // tile
+    vals = tiles[tid, xs % tile, ys % tile]                 # (B, T, T, C)
+
+    sc = scale[:, None, None]
+    mask = _circle_mask((xs.to(torch.float32) + 0.5) * sc,
+                        (ys.to(torch.float32) + 0.5) * sc,
+                        q[:, 0, None, None], q[:, 1, None, None],
+                        r[:, None, None], metric)
+    out = (vals * mask[..., None]).sum(dim=(1, 2), dtype=torch.int32)
+    if active is not None:
+        out = torch.where(active[:, None], out, torch.zeros_like(out))
+    return out
+
+
+def csr_candidate_topk(
+    store: torch.Tensor,    # (n_pad, d) float32 — CSR-sorted ranking vectors
+    starts: torch.Tensor,   # (B, w) int32 window-row span starts
+    ends: torch.Tensor,     # (B, w) int32 window-row span ends
+    queries: torch.Tensor,  # (B, d) float32
+    k: int,
+    n: int,                 # live CSR rows
+    row_cap: int,
+    metric: str = "l2",
+    radii: torch.Tensor | None = None,  # (B,) float32 paper-mode circle mask
+    center_cells: bool = False,
+    d_chunk: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused-gather plain version: materialize the (B, w*row_cap) window,
+    rank it with first-index ties, and map the selected slots back to
+    GLOBAL CSR row indices.  The distance is summed per `d_chunk` block,
+    then across blocks, as the kernel sums it.
+    Returns dists (B, k) float32 (inf pads) and idx (B, k) int32 (-1 pads)."""
+    check_csr_args(store, starts, ends, queries, row_cap, radii)
+    n_pad, d = store.shape
+    b, w = starts.shape
+    dev = store.device
+    s_cl = torch.clamp(starts.to(torch.int64), 0, max(n_pad - row_cap, 0))
+    j = s_cl[:, :, None] + torch.arange(row_cap, device=dev)   # (B, w, cap)
+    ok = (j >= starts[:, :, None]) & (j < ends[:, :, None]) & (j < n)
+    flat = j.reshape(b, w * row_cap)
+    cand = store[flat]                                      # (B, w*cap, d)
+    if center_cells:
+        cand = torch.floor(cand) + 0.5
+    diff = cand - queries[:, None, :].to(torch.float32)
+    acc = None
+    for c0, dc in d_chunks(d, d_chunk):
+        part = diff[:, :, c0:c0 + dc]
+        s = part.abs().sum(dim=-1) if metric == "l1" else (part * part).sum(dim=-1)
+        acc = s if acc is None else acc + s
+    dist = acc if metric == "l1" else sqrt_rn(torch.clamp_min(acc, 0.0))
+    valid = ok.reshape(b, w * row_cap)
+    if radii is not None:
+        valid = valid & (dist <= radii[:, None].to(torch.float32))
+    dist = torch.where(valid, dist, torch.full_like(dist, float("inf")))
+
+    k_eff = min(k, dist.shape[1])
+    order = torch.sort(dist, dim=1, stable=True).indices[:, :k_eff]
+    dists = torch.gather(dist, 1, order)
+    gidx = torch.gather(flat, 1, order).to(torch.int32)
+    if k_eff < k:  # k exceeds the window: pad like the kernel does
+        pad = k - k_eff
+        dists = torch.cat([dists, dists.new_full((b, pad), float("inf"))], dim=1)
+        gidx = torch.cat([gidx, gidx.new_full((b, pad), -1)], dim=1)
+    return dists, torch.where(torch.isfinite(dists), gidx, torch.full_like(gidx, -1))

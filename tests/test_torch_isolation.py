@@ -1,0 +1,87 @@
+"""The port stands alone: it imports neither JAX nor the reference package,
+and its entry points refuse to fall back to the CPU without being asked."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import jax  # noqa: F401  (the suite imports both packages; the port must not)
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import api
+from repro_torch.convert import index_from_numpy, projection_from_numpy
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _port_modules() -> list[str]:
+    return sorted(
+        m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
+    )
+
+
+def test_port_imports_neither_jax_nor_reference():
+    mods = ["repro_torch", "repro_torch.api", *_port_modules()]
+    code = (
+        "import sys, importlib\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.'))\n"
+        "print(len(sys.modules)); assert not bad, bad\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert len(mods) >= 16
+
+
+def test_chip_smoke_imports_neither_jax_nor_reference():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    roots = {n.split(".")[0] for n in names}
+    assert "jax" not in roots and "repro" not in roots, sorted(names)
+    assert "repro_torch" in roots
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: device=None resolves to it")
+    pts = np.random.default_rng(0).normal(size=(50, 2)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.ActiveSearcher.build(pts)
+    built = api.ActiveSearcher.build(pts, cfg=api.GridConfig(grid_size=32, tile=8, r0=4),
+                                     device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.ActiveSearcher.from_index(built.index, built.cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        projection_from_numpy(np.eye(2), np.zeros(2), np.ones(2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        index_from_numpy({}, built.cfg)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """A kernel wrapper never runs a plain version: CPU tensors raise."""
+    from repro_torch.kernels import csr_candidate_topk as csr
+    from repro_torch.kernels import tile_count_multilevel as tcm
+
+    with pytest.raises(ValueError, match="CUDA"):
+        tcm.tile_count_multilevel(torch.zeros((1, 4, 4, 1), dtype=torch.int32),
+                                  torch.zeros((1, 2)), torch.ones(1),
+                                  torch.zeros(1, dtype=torch.int32), 4, (1,))
+    with pytest.raises(ValueError, match="CUDA"):
+        csr.csr_candidate_topk(torch.zeros((4, 2)), torch.zeros((1, 1), dtype=torch.int32),
+                               torch.ones((1, 1), dtype=torch.int32), torch.zeros((1, 2)),
+                               2, 4, 4)
+    assert tcm.launches == 0 and csr.launches == 0

@@ -1,0 +1,289 @@
+"""The port's kernels against the JAX package's.
+
+On the CPU each port wrapper runs its plain PyTorch version
+(repro_torch/kernels/ref.py); it is held against the reference's Pallas
+kernels, run in interpret mode as the reference's own tests run them.
+Counts and selected indices are exact; f32 distances within DIST_RTOL.
+The `gpu` cases hold each Hopper kernel against its plain version on the
+card and skip where there is none.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _torch_port import assert_dists_close, np_, require_cuda
+
+from repro.core import pyramid as jpyr
+from repro.core.grid import GridConfig as JGridConfig
+from repro.core.grid import build_index as jbuild_index
+from repro.core.projection import identity_projection as jidentity
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops, ref
+
+# ------------------------------------------------------------ tile counts ----
+
+
+def _pyramid_fixture(seed=0, grid=64, tile=8, c=3, n=800):
+    rng = np.random.default_rng(seed)
+    pts = jnp.asarray(rng.normal(size=(n, 2)), jnp.float32)
+    labels = jnp.asarray(rng.integers(0, c, size=n), jnp.int32)
+    cfg = JGridConfig(grid_size=grid, tile=tile, n_classes=c, r0=8)
+    idx = jbuild_index(pts, cfg, jidentity(pts), labels=labels)
+    return cfg, idx, rng
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("s,tile,c", [(32, 8, 1), (64, 16, 3), (64, 8, 4)])
+@pytest.mark.parametrize("scale", [1, 4])
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_plain_tile_count_matches_reference(s, tile, c, scale, metric):
+    rng = np.random.default_rng(s + tile + c + scale)
+    level = rng.integers(0, 5, size=(s, s, c)).astype(np.int32)
+    q = rng.uniform(0, s * scale, size=(9, 2)).astype(np.float32)
+    r = rng.uniform(0.5, scale * (tile / 2 - 1.5), size=(9,)).astype(np.float32)
+    want = jref.tile_count(jnp.asarray(level), jnp.asarray(q), jnp.asarray(r),
+                           scale, tile, metric=metric)
+    got = ref.tile_count(_t(level), _t(q), _t(r), scale, tile, metric=metric)
+    np.testing.assert_array_equal(np_(got), np_(want))
+    assert got.dtype == torch.int32
+
+
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_tile_count_multilevel_matches_reference_kernel(metric):
+    """Radii spanning every pyramid level, integer as on the main path."""
+    cfg, idx, rng = _pyramid_fixture(seed=1)
+    b = 24
+    q = rng.uniform(0, cfg.padded_size, size=(b, 2)).astype(np.float32)
+    r = rng.integers(0, cfg.max_radius + 1, size=(b,)).astype(np.int32)
+    lv = jpyr.level_for_radius(jnp.asarray(r), cfg)
+    want = jops.tile_count_multilevel(
+        idx.pyr_tiles, jnp.asarray(q), jnp.asarray(r, jnp.float32), lv,
+        cfg.tile, cfg.level_nblks, metric=metric, interpret=True,
+    )
+    got = ops.tile_count_multilevel(
+        _t(idx.pyr_tiles), _t(q), _t(r).float(), _t(lv), cfg.tile,
+        cfg.level_nblks, metric=metric,
+    )
+    np.testing.assert_array_equal(np_(got), np_(want))
+
+
+def test_tile_count_multilevel_forced_levels_and_corners():
+    """Level is an input: every query forced to each level in turn, with
+    grid-corner queries where the window clamps, against the reference's
+    single-level count."""
+    cfg, idx, rng = _pyramid_fixture(seed=2)
+    g = cfg.padded_size
+    corners = np.array([[0, 0], [g - 1e-3, g - 1e-3], [0, g - 1e-3],
+                        [g - 1e-3, 0], [g / 2, 0]], np.float32)
+    q = np.concatenate([corners, rng.uniform(0, g, size=(7, 2)).astype(np.float32)])
+    r = rng.uniform(0.5, cfg.max_radius / 2, size=(len(q),)).astype(np.float32)
+    for lv in range(cfg.levels):
+        levels = np.full((len(q),), lv, np.int32)
+        want = jref.tile_count(idx.pyramid[lv], jnp.asarray(q), jnp.asarray(r),
+                               1 << lv, cfg.tile)
+        got = ref.tile_count_multilevel(_t(idx.pyr_tiles), _t(q), _t(r), _t(levels),
+                                        cfg.tile, cfg.level_nblks)
+        np.testing.assert_array_equal(np_(got), np_(want), err_msg=f"level {lv}")
+
+
+def test_tile_count_multilevel_active_mask():
+    """Parked lanes give 0; live lanes equal the unmasked reference."""
+    cfg, idx, rng = _pyramid_fixture(seed=3)
+    b = 16
+    q = rng.uniform(0, cfg.padded_size, size=(b, 2)).astype(np.float32)
+    r = rng.integers(1, cfg.max_radius, size=(b,)).astype(np.int32)
+    active = rng.uniform(size=b) < 0.5
+    lv = jpyr.level_for_radius(jnp.asarray(r), cfg)
+    want = jops.tile_count_multilevel(
+        idx.pyr_tiles, jnp.asarray(q), jnp.asarray(r, jnp.float32), lv,
+        cfg.tile, cfg.level_nblks, interpret=True, active=jnp.asarray(active),
+    )
+    got = ops.tile_count_multilevel(
+        _t(idx.pyr_tiles), _t(q), _t(r).float(), _t(lv), cfg.tile,
+        cfg.level_nblks, active=_t(active),
+    )
+    np.testing.assert_array_equal(np_(got), np_(want))
+    assert (np_(got)[~active] == 0).all()
+
+
+def test_tile_count_multilevel_max_radius_top_level():
+    """r == max_radius counts the whole top level's circle."""
+    cfg, idx, rng = _pyramid_fixture(seed=4)
+    q = rng.uniform(0, cfg.padded_size, size=(5, 2)).astype(np.float32)
+    r = np.full((5,), cfg.max_radius, np.int32)
+    lv = jpyr.level_for_radius(jnp.asarray(r), cfg)
+    assert int(lv[0]) == cfg.levels - 1
+    want = jref.tile_count_multilevel(idx.pyramid, jnp.asarray(q),
+                                      jnp.asarray(r, jnp.float32), lv, cfg.tile)
+    got = ref.tile_count_multilevel(_t(idx.pyr_tiles), _t(q), _t(r).float(),
+                                    _t(lv), cfg.tile, cfg.level_nblks)
+    np.testing.assert_array_equal(np_(got), np_(want))
+
+
+def test_tile_count_multilevel_bad_layout_raises():
+    cfg, idx, _ = _pyramid_fixture()
+    with pytest.raises(ValueError, match="tiles shape"):
+        ops.tile_count_multilevel(
+            _t(idx.pyr_tiles)[:-1], torch.zeros((1, 2)), torch.ones((1,)),
+            torch.zeros((1,), dtype=torch.int32), cfg.tile, cfg.level_nblks,
+        )
+
+
+# ------------------------------------------------------ csr_candidate_topk ----
+
+
+def _csr_fixture(seed, b=6, w=5, rcap=16, n=120, d=6):
+    rng = np.random.default_rng(seed)
+    store = rng.normal(size=(n, d)).astype(np.float32)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    starts = rng.integers(0, n - 4, size=(b, w)).astype(np.int32)
+    # spans from empty through overflowing (end - start > rcap)
+    ends = np.minimum(starts + rng.integers(0, rcap + 6, size=(b, w)), n).astype(np.int32)
+    return store, starts, ends, q
+
+
+def _both(store, starts, ends, q, k, n, rcap, **kw):
+    """(port, reference-kernel) results on the same arrays."""
+    jkw = dict(kw)
+    tkw = dict(kw)
+    if kw.get("radii") is not None:
+        jkw["radii"] = jnp.asarray(kw["radii"])
+        tkw["radii"] = _t(kw["radii"])
+    want = jops.csr_candidate_topk(
+        jnp.asarray(store), jnp.asarray(starts), jnp.asarray(ends), jnp.asarray(q),
+        k, n, rcap, interpret=True, **jkw,
+    )
+    got = ops.csr_candidate_topk(_t(store), _t(starts), _t(ends), _t(q), k, n, rcap, **tkw)
+    return got, want
+
+
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+@pytest.mark.parametrize("k", [1, 5, 16])
+def test_csr_candidate_topk_refined_matches_reference(metric, k):
+    store, starts, ends, q = _csr_fixture(seed=k)
+    (gd, gi), (wd, wi) = _both(store, starts, ends, q, k, store.shape[0], 16,
+                               metric=metric)
+    np.testing.assert_array_equal(np_(gi), np_(wi))
+    assert_dists_close(gd, wd)
+    assert gd.dtype == torch.float32 and gi.dtype == torch.int32
+
+
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_csr_candidate_topk_paper_mode_matches_reference(metric):
+    """center_cells + radii: rank floor(coords)+0.5 cell centers, masked to
+    the circle (d = 2, as the grid coordinates are)."""
+    store, starts, ends, _ = _csr_fixture(seed=7, d=2)
+    store = store * 8.0
+    rng = np.random.default_rng(8)
+    q = rng.uniform(-16, 16, size=(6, 2)).astype(np.float32)
+    radii = rng.uniform(1.0, 12.0, size=(6,)).astype(np.float32)
+    (gd, gi), (wd, wi) = _both(store, starts, ends, q, 4, store.shape[0], 16,
+                               metric=metric, radii=radii, center_cells=True)
+    np.testing.assert_array_equal(np_(gi), np_(wi))
+    assert_dists_close(gd, wd)
+
+
+@pytest.mark.parametrize("d_chunk", [1, 4, 5])
+def test_csr_candidate_topk_d_chunk_matches_reference(d_chunk):
+    store, starts, ends, q = _csr_fixture(seed=11, d=11)
+    (gd, gi), (wd, wi) = _both(store, starts, ends, q, 6, store.shape[0], 16,
+                               d_chunk=d_chunk)
+    np.testing.assert_array_equal(np_(gi), np_(wi))
+    assert_dists_close(gd, wd)
+
+
+def test_csr_candidate_topk_k_exceeds_window():
+    """k > w*row_cap: +inf / -1 pads."""
+    store, starts, ends, q = _csr_fixture(seed=12, b=2, w=2, rcap=4)
+    k = 2 * 4 + 3
+    (gd, gi), (wd, wi) = _both(store, starts, ends, q, k, store.shape[0], 4)
+    np.testing.assert_array_equal(np_(gi), np_(wi))
+    assert_dists_close(gd, wd)
+    assert torch.isinf(gd[:, -3:]).all() and (gi[:, -3:] == -1).all()
+
+
+def test_csr_candidate_topk_live_boundary():
+    """Spans reaching past the live CSR length n never surface a pad row."""
+    rng = np.random.default_rng(13)
+    n_live, n_pad = 40, 64
+    store = rng.normal(size=(n_pad, 4)).astype(np.float32)
+    starts = np.array([[30, 38, 0]], np.int32)
+    ends = np.array([[50, 64, 8]], np.int32)
+    q = np.zeros((1, 4), np.float32)
+    (gd, gi), (wd, wi) = _both(store, starts, ends, q, 32, n_live, 16)
+    np.testing.assert_array_equal(np_(gi), np_(wi))
+    assert_dists_close(gd, wd)
+    live = np_(gi)[np_(gi) >= 0]
+    assert len(live) and (live < n_live).all()
+
+
+def test_csr_candidate_topk_ties_take_lowest_slot():
+    """Equal distances resolve to the earlier window slot."""
+    store = np.zeros((32, 3), np.float32)
+    starts = np.array([[8, 0]], np.int32)
+    ends = np.array([[12, 4]], np.int32)
+    q = np.zeros((1, 3), np.float32)
+    (gd, gi), (wd, wi) = _both(store, starts, ends, q, 6, 32, 4)
+    np.testing.assert_array_equal(np_(gi), np_(wi))
+    np.testing.assert_array_equal(np_(gi)[0], [8, 9, 10, 11, 0, 1])
+
+
+def test_csr_candidate_topk_store_too_small_raises():
+    with pytest.raises(ValueError, match="row_cap"):
+        ops.csr_candidate_topk(
+            torch.zeros((2, 3)), torch.zeros((1, 2), dtype=torch.int32),
+            torch.ones((1, 2), dtype=torch.int32), torch.zeros((1, 3)), 2, 2, 8,
+        )
+
+
+# --------------------------------------------------------------- the card ----
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_gpu_tile_count_multilevel_kernel_matches_plain(metric):
+    dev = require_cuda()
+    from repro_torch.kernels import tile_count_multilevel as tcm
+
+    cfg, idx, rng = _pyramid_fixture(seed=20, grid=128, tile=16)
+    b = 512
+    q = _t(rng.uniform(0, cfg.padded_size, size=(b, 2)).astype(np.float32))
+    r = _t(rng.integers(0, cfg.max_radius + 1, size=(b,)).astype(np.int32))
+    lv = _t(jpyr.level_for_radius(jnp.asarray(np_(r)), cfg))
+    active = _t(rng.uniform(size=b) < 0.5)
+    tiles = _t(idx.pyr_tiles)
+    want = ref.tile_count_multilevel(tiles, q, r.float(), lv, cfg.tile,
+                                     cfg.level_nblks, metric=metric, active=active)
+    got = tcm.tile_count_multilevel(
+        tiles.to(dev), q.to(dev), r.float().to(dev), lv.to(dev), cfg.tile,
+        cfg.level_nblks, metric=metric, active=active.to(dev),
+    )
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(np_(got), np_(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paper", [False, True])
+def test_gpu_csr_candidate_topk_kernel_matches_plain(paper):
+    dev = require_cuda()
+    from repro_torch.kernels import csr_candidate_topk as csr
+
+    store, starts, ends, q = _csr_fixture(seed=21, b=64, w=8, d=2 if paper else 6)
+    kw = {}
+    if paper:
+        store = store * 8.0
+        kw = dict(radii=_t(np.full((64,), 6.0, np.float32)), center_cells=True)
+    args = [_t(a) for a in (store, starts, ends, q)]
+    wd, wi = ref.csr_candidate_topk(*args, 9, store.shape[0], 16, **kw)
+    gd, gi = csr.csr_candidate_topk(
+        *[a.to(dev) for a in args], 9, store.shape[0], 16,
+        **{key: (v.to(dev) if isinstance(v, torch.Tensor) else v) for key, v in kw.items()},
+    )
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(np_(gi), np_(wi))
+    assert_dists_close(gd, wd)
