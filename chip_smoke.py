@@ -4,32 +4,45 @@
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout on a machine with one card and the CUDA
-toolkit.  It builds the Hopper kernels from src/repro_torch/csrc with
+toolkit.  It builds the five Hopper kernels from src/repro_torch/csrc with
 nvcc (one process per source, all at once) and prints one JSON line per
 phase:
 
-  0  device: name, count, power limit; both kernels built for sm_90a, with
+  0  device: name, count, power limit; every kernel built for sm_90a, with
      build seconds and ptxas's registers / shared memory / spills;
   1  each kernel against its plain PyTorch version on the card, on random
-     inputs at the shapes of phases 2 and 3 (counts, paper-mode and d=2
-     results exact; d=128 distances within rtol 1e-5, ids equal up to
-     near-ties, which are counted);
+     inputs at the shapes of phases 2 and 3 (counts, int8 shortlists,
+     paper-mode and d=2 results exact; d=128 float distances within rtol
+     1e-5, ids equal up to near-ties, which are counted), and
+     candidate_topk bit-equal to csr_candidate_topk on the same rows;
   2  the paper's setup at full scale (PAPER_GRID, 1M 2-D points, 4096
      queries): build, search, classify in both modes on `hopper`, recall
      and class agreement against `exact`, launch counts, and the first
      256 queries re-run on the CPU through the plain versions (exactly
-     equal); both kernels timed at this path's shapes, their outputs held
-     exactly against the plain versions';
+     equal); then `hopper_stacked.count_at` at the loop's final radii
+     (equal to `hopper`'s, one tile_count launch per level),
+     `hopper_gather` (both modes equal to `hopper` in every field) and
+     `hopper_q8` (paper mode equal to `hopper`, refined recall); the count
+     kernels timed at this path's first pass, exact against their plain
+     versions;
   3  a SIFT1M-shaped datastore (1M points, d=128, 10,000 queries; planted
      data, nothing downloaded): PROD_GRID, PCA projection, k=10, chunks of
      2048; recall against `exact`, a 256-query CPU cross-check (ids
-     equal for >= 99% of queries), and the candidate kernel timed on one
-     chunk, its output held against the plain version's as in phase 1.
+     equal for >= 99% of queries); then `hopper_q8` on the same index at
+     full size (recall, the share of lanes whose shortlist holds
+     `hopper`'s top-10 and those lanes equal to `hopper` in every field,
+     candidate bytes float32 against int8, times, idle share, peak memory,
+     its own CPU cross-check) and `hopper_gather` on one chunk (equal to
+     `hopper`); the candidate kernels timed on one chunk, each output held
+     against its plain version's as in phase 1.
 
-Then one {"kernels": [...]} line (per kernel: launches on the main path,
-largest error against the plain version, kernel and plain time, the
-bound over the distinct bytes the timed call must move), the card's name and power limit as nvidia-smi prints them, and
-the final {"ok": true, ...} line.  Any failed check raises and the
+Each path runs with every launch counter set to 0 just before it and read
+just after; a kernel of the path that was never launched fails the run.
+Then one {"kernels": [...]} line (per kernel: launches on the paths,
+largest error against the plain version, kernel and plain time, the bound
+over the distinct bytes the timed call must move), the card's name and
+power limit as nvidia-smi prints them, and the final {"ok": true, ...}
+line.  Any failed check raises and the
 script exits non-zero; so does a machine without a card, or a directory
 without the repo's src/.
 """
@@ -37,6 +50,7 @@ without the repo's src/.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import re
 import subprocess
@@ -55,11 +69,16 @@ DEV = torch.device("cuda")
 # distinct input byte read once and each output byte written once.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-SOURCES = ("tile_count_multilevel", "csr_candidate_topk")
-REPLACES = {
-    "tile_count_multilevel": "src/repro/kernels/tile_count_multilevel.py:95",
-    "csr_candidate_topk": "src/repro/kernels/csr_candidate_topk.py:148",
+# kernel name -> (wrapper module and CUDA source under repro_torch, the TPU kernel it replaces)
+KERNELS = {
+    "tile_count_multilevel": ("tile_count_multilevel", "src/repro/kernels/tile_count_multilevel.py:95"),
+    "csr_candidate_topk": ("csr_candidate_topk", "src/repro/kernels/csr_candidate_topk.py:148"),
+    "tile_count": ("tile_count", "src/repro/kernels/tile_count.py:111"),
+    "candidate_topk": ("candidate_topk", "src/repro/kernels/candidate_topk.py:72"),
+    "csr_shortlist_q8": ("csr_candidate_topk_q8", "src/repro/kernels/csr_candidate_topk_q8.py:179"),
 }
+SOURCES = tuple(src for src, _ in KERNELS.values())
+FUSED_PATH = ("tile_count_multilevel", "csr_candidate_topk")  # the kernels `hopper` runs
 
 
 def emit(obj) -> None:
@@ -177,6 +196,33 @@ def compare_topk(got, want, store, queries, metric, rtol):
     return err, int(differ.sum())
 
 
+def compare_dense(got, want, cand, queries, metric, rtol):
+    """compare_topk for candidate_topk's LOCAL slots over dense candidates
+    (B, C, d): slots become rows of the flattened (B*C, d) candidates."""
+    b, c, d = cand.shape
+    off = torch.arange(b, device=cand.device)[:, None] * c
+
+    def flat(ids):
+        return torch.where(ids >= 0, ids + off, torch.full_like(off, -1).expand_as(ids))
+
+    return compare_topk((got[0], flat(got[1])), (want[0], flat(want[1])),
+                        cand.reshape(b * c, d), queries, metric, rtol)
+
+
+def check_equal_pair(got, want, what: str) -> None:
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"{what} not exactly equal")
+
+
+def same_result(a, b, what: str, lanes=None) -> None:
+    """Every SearchResult field bit-equal (on `lanes`, or all of them)."""
+    for field in a._fields:
+        x, y = getattr(a, field), getattr(b, field)
+        if lanes is not None:
+            x, y = x[lanes], y[lanes]
+        check(torch.equal(x, y), f"{what}: {field} differs")
+
+
 def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
     from repro_torch.core import pyramid
     from repro_torch.kernels import ref
@@ -184,8 +230,8 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
     tcm, csr = mods["tile_count_multilevel"], mods["csr_candidate_topk"]
     dev = DEV
     gen = torch.Generator(device=dev).manual_seed(seed)
-    out = {"phase": 1, "tile_count_multilevel": [], "csr_candidate_topk": []}
-    max_err = {"tile_count_multilevel": 0.0, "csr_candidate_topk": 0.0}
+    out = {"phase": 1, **{name: [] for name in KERNELS}}
+    max_err = {name: 0.0 for name in KERNELS}
 
     for name, cfg in cfgs.items():
         c = cfg.n_channels
@@ -256,6 +302,106 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
                                           "smem_bytes": csr.shared_bytes(args[0].shape[1],
                                                                          args[1].shape[1], args[6]),
                                           "max_abs_err": err, "tie_swaps": swaps})
+
+    # tile_count: every level of PAPER_GRID's pyramid shape, l1 and l2, the
+    # grid corners among the queries
+    tc = mods["tile_count"]
+    c = paper.n_channels
+    g = paper.padded_size
+    q = torch.rand((b, 2), generator=gen, device=dev) * g
+    q[:4] = torch.tensor([[0, 0], [g - 1e-3, g - 1e-3], [0, g - 1e-3], [g - 1e-3, 0]], device=dev)
+    radii = torch.rand((b,), generator=gen, device=dev) * paper.max_radius
+    for lv in range(paper.levels):
+        side = g >> lv
+        level = torch.randint(0, 4, (side, side, c), generator=gen, device=dev, dtype=torch.int32)
+        for metric in ("l2", "l1"):
+            args = (level, q, radii, 1 << lv, paper.tile)
+            check(torch.equal(tc.tile_count(*args, metric=metric),
+                              ref.tile_count(*args, metric=metric)),
+                  f"tile_count level {lv} {metric} differs")
+    out["tile_count"].append({"grid": "PAPER_GRID", "B": b, "C": c, "levels": paper.levels,
+                              "metrics": ["l2", "l1"], "exact": True})
+
+    # csr_shortlist_q8: a random int8 store with per-row scales; queries
+    # large enough that some codes clip at QCLIP.  Bit-equal.
+    q8 = mods["csr_shortlist_q8"]
+
+    def q8_store(rows, d):
+        codes = torch.randint(-127, 128, (rows, d), generator=gen, device=dev).to(torch.int8)
+        return codes, torch.rand((rows, 1), generator=gen, device=dev) * 0.05 + 0.001
+
+    codes128, scales128 = q8_store(n, 128)
+    codes2, scales2 = q8_store(n, 2)
+    st128, en128 = spans(b128, prod.window, prod.row_cap, n)
+    st2, en2 = spans(b, paper.window, paper.row_cap, n)
+    stb, enb = spans(b128, prod.window, prod.row_cap, 4096)
+    q2 = torch.randn((b, 2), generator=gen, device=dev) * 2.0
+    qcases = []
+    for metric in ("l2", "l1"):
+        for dc in (None, 48):
+            qcases.append((f"d128_{metric}_dchunk{dc}", (codes128, scales128, st128, en128,
+                                                         q128 * 2.0, 40, n, prod.row_cap),
+                           dict(metric=metric, d_chunk=dc)))
+        for dc in (None, 1):
+            qcases.append((f"d2_{metric}_dchunk{dc}", (codes2, scales2, st2, en2, q2, 44, n,
+                                                       paper.row_cap),
+                           dict(metric=metric, d_chunk=dc)))
+    qcases.append(("live_boundary", (codes128[:4096], scales128[:4096], stb, enb, q128 * 2.0,
+                                     40, 3000, prod.row_cap), {}))
+    for label, args, kw in qcases:
+        got = q8.csr_shortlist_q8(*args, **kw)
+        check_equal_pair(got, ref.csr_shortlist_q8(*args, **kw), f"csr_shortlist_q8 {label}")
+        if label == "live_boundary":
+            live = got[1][got[1] >= 0]
+            check(bool((live < 3000).all()), "q8: a pad row surfaced past the live count")
+        out["csr_shortlist_q8"].append({"case": label, "B": args[2].shape[0],
+                                        "w": args[2].shape[1], "row_cap": args[7],
+                                        "d": args[0].shape[1], "rerank_k": args[5],
+                                        "exact": True})
+
+    # candidate_topk: dense candidates at the gather shape (C = w*row_cap at
+    # d=128 and at d=2) and the q8 re-rank shape (C = rerank_k)
+    ctk = mods["candidate_topk"]
+    dcases = [
+        ("gather_d128_l2", (b128, prod.window * prod.row_cap, 128), 10, "l2", 1e-5),
+        ("gather_d128_l1", (b128, prod.window * prod.row_cap, 128), 10, "l1", 1e-5),
+        ("rerank_d128", (2048, 40, 128), 10, "l2", 1e-5),
+        ("gather_d2", (b, paper.window * paper.row_cap, 2), 11, "l2", 0.0),
+        ("gather_d2_l1", (b, paper.window * paper.row_cap, 2), 11, "l1", 0.0),
+    ]
+    for label, shape, k, metric, rtol in dcases:
+        cand = torch.randn(shape, generator=gen, device=dev)
+        valid = torch.rand(shape[:2], generator=gen, device=dev) < 0.8
+        qd = torch.randn((shape[0], shape[2]), generator=gen, device=dev)
+        args = (cand, valid, qd, k)
+        got = ctk.candidate_topk(*args, metric=metric)
+        want = ref.candidate_topk(*args, metric=metric)
+        if rtol == 0.0:
+            check_equal_pair(got, want, f"candidate_topk {label}")
+            err, swaps = 0.0, 0
+        else:
+            err, swaps = compare_dense(got, want, cand, qd, metric, rtol)
+        max_err["candidate_topk"] = max(max_err["candidate_topk"], err)
+        out["candidate_topk"].append({"case": label, "B": shape[0], "C": shape[1], "d": shape[2],
+                                      "k": k, "metric": metric,
+                                      "smem_bytes": ctk.shared_bytes(shape[2], shape[1]),
+                                      "max_abs_err": err, "tie_swaps": swaps})
+        del cand
+
+    # candidate_topk and csr_candidate_topk on the SAME rows: the fused
+    # window's rows, materialised, give bit-equal distances and rows
+    st, en = spans(b128, prod.window, prod.row_cap, n)
+    flat, valid = ref.window_slots(st, en, n, n, prod.row_cap)
+    cand = pts[flat]
+    for dc in (None, 48):
+        fused = csr.csr_candidate_topk(pts, st, en, q128, 10, n, prod.row_cap, d_chunk=dc)
+        dense = ctk.candidate_topk(cand, valid, q128, 10, d_chunk=dc or 128)
+        check(torch.equal(dense[0], fused[0])
+              and torch.equal(ref.take_slots(flat, dense[1]), fused[1]),
+              f"candidate_topk and csr_candidate_topk differ on the same rows (d_chunk={dc})")
+    out["candidate_topk"].append({"case": "same_rows_as_csr_candidate_topk", "B": b128,
+                                  "C": prod.window * prod.row_cap, "d": 128,
+                                  "d_chunks": [None, 48], "bit_equal": True})
     emit(out)
     return max_err
 
@@ -300,10 +446,11 @@ def search_wall_ms(searcher, queries, k, reps: int = 5) -> dict:
     return {"median": float(np.median(walls)), "min": min(walls), "max": max(walls)}
 
 
-def run_main_path(label, searcher, queries, k, mods, classify: bool):
+def run_main_path(label, searcher, queries, k, mods, classify: bool, expect=None):
     """Search (and classify) on the card with the launch counters zeroed
     just before; returns the results, timings and the counts just after,
-    then the wall time of five more searches (not counted)."""
+    then the wall time of five more searches (not counted).  Every kernel
+    in `expect` (default: all) must have launched."""
     searcher.search(queries, k)                             # warm-up, not counted
     torch.cuda.synchronize()
     reset(mods)
@@ -320,8 +467,8 @@ def run_main_path(label, searcher, queries, k, mods, classify: bool):
         check(on_card(out["paper"], out["refined"]), f"{label}: classes left the card")
     out["launches"] = counts(mods)
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    for name, n in out["launches"].items():
-        check(n > 0, f"{label}: kernel {name} was never launched on the main path")
+    for name in expect or mods:
+        check(out["launches"][name] > 0, f"{label}: kernel {name} was never launched on its path")
     out["search_wall_ms"] = search_wall_ms(searcher, queries, k)
     return out
 
@@ -344,7 +491,7 @@ def phase2(seed, api, cfg, k, mods, timings, n=1_000_000, b=4096):
     build_s = time.perf_counter() - t0
     check(s.device.type == DEV.type, "index is not on the card")
 
-    run = run_main_path("phase 2", s, q, k, mods, classify=True)
+    run = run_main_path("phase 2", s, q, k, mods, classify=True, expect=FUSED_PATH)
     res = run["search"]
 
     # after the counted run: where one search's device time goes, and the
@@ -403,6 +550,45 @@ def phase2(seed, api, cfg, k, mods, timings, n=1_000_000, b=4096):
     check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
           "csr_candidate_topk differs at phase 2's paper-mode shape")
 
+    # tile_count at the same first pass (one level for every lane), exact
+    lv0 = int(levels[0])
+    check(bool((levels == lv0).all()), "the first pass spans several levels")
+    targs = (s.index.pyramid[lv0], q_grid.contiguous(), radii, 1 << lv0, cfg.tile)
+    tc_ms, got = time_ms(lambda: mods["tile_count"].tile_count(*targs))
+    tc_plain_ms, want = time_ms(lambda: ref.tile_count(*targs))
+    check(torch.equal(got, want), "tile_count differs at phase 2's first pass")
+    timings["tile_count"] = {"ms": tc_ms, "plain_ms": tc_plain_ms, "bound_ms": b_ms,
+                             "bound_by": b_by, "max_abs_err": 0.0,
+                             "shape": f"PAPER_GRID B={b} level {lv0}", "distinct_cells": distinct}
+
+    # hopper_stacked: count_at at the loop's final radii, one tile_count
+    # launch per pyramid level, equal to hopper's level-scheduled count
+    stacked = s.with_plan(backend="hopper_stacked")
+    reset(mods)
+    cnt = stacked.count_at(q, res.radius)
+    torch.cuda.synchronize()
+    stacked_launches = counts(mods)
+    check(stacked_launches["tile_count"] == cfg.levels
+          and sum(stacked_launches.values()) == cfg.levels,
+          f"hopper_stacked.count_at launched {stacked_launches}")
+    check(on_card(cnt) and torch.equal(cnt, s.count_at(q, res.radius)),
+          "hopper_stacked.count_at differs from hopper's")
+
+    # hopper_gather: both modes equal to hopper in every field
+    gather = s.with_plan(backend="hopper_gather")
+    run_g = run_main_path("phase 2 hopper_gather", gather, q, k, mods, classify=False,
+                          expect=("tile_count_multilevel", "candidate_topk"))
+    same_result(run_g["search"], res, "phase 2 hopper_gather refined")
+    paper = s.search(q, k, mode="paper")
+    same_result(gather.search(q, k, mode="paper"), paper, "phase 2 hopper_gather paper")
+
+    # hopper_q8: paper mode (the fused stage) equal to hopper; refined recall
+    q8s = s.with_plan(backend="hopper_q8")
+    run_q = run_main_path("phase 2 hopper_q8", q8s, q, k, mods, classify=False,
+                          expect=("tile_count_multilevel", "csr_shortlist_q8", "candidate_topk"))
+    same_result(q8s.search(q, k, mode="paper"), paper, "phase 2 hopper_q8 paper")
+    torch.cuda.synchronize()
+
     emit({
         "phase": 2, "config": "PAPER_GRID", "n": n, "d": 2, "B": b, "k": k,
         "build_s": build_s, "search_ms": run["search_wall_ms"],
@@ -421,8 +607,17 @@ def phase2(seed, api, cfg, k, mods, timings, n=1_000_000, b=4096):
         "csr_candidate_topk_paper_mode_ms": csr_ms,
         "peak_mem_gb": run["peak_mem_gb"],
         "index_bytes": {key: v for key, v in s.stats().items() if key.endswith("_bytes")},
+        "hopper_stacked": {"count_at_equal": True, "launches_per_count_at": stacked_launches},
+        "hopper_gather": {"equal_to_hopper": ["refined", "paper"],
+                          "launches_per_search": run_g["per_search"],
+                          "search_ms": run_g["search_wall_ms"], "peak_mem_gb": run_g["peak_mem_gb"]},
+        "hopper_q8": {"paper_equal_to_hopper": True,
+                      "rerank_k": batched.resolve_rerank_k(cfg, k, None),
+                      "recall_at_k_vs_exact": recall(run_q["search"].ids, truth.ids, k),
+                      "launches_per_search": run_q["per_search"],
+                      "search_ms": run_q["search_wall_ms"], "peak_mem_gb": run_q["peak_mem_gb"]},
     })
-    return run["launches"]
+    return [run["launches"], stacked_launches, run_g["launches"], run_q["launches"]]
 
 
 def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
@@ -447,7 +642,7 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
 
-    run = run_main_path("phase 3", s, q, k, mods, classify=False)
+    run = run_main_path("phase 3", s, q, k, mods, classify=False, expect=FUSED_PATH)
     res = run["search"]
     prof = device_profile(lambda: s.search(q, k))
     stats = batched.radius_search_batched(
@@ -492,6 +687,78 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
         "valid_pairs": pairs, "distinct_rows": distinct, "tie_swaps": swaps,
     }
 
+    # ---- hopper_q8 on the same index, at full size
+    q8s = s.with_plan(backend="hopper_q8")
+    run_q = run_main_path("phase 3 hopper_q8", q8s, q, k, mods, classify=False,
+                          expect=("tile_count_multilevel", "csr_shortlist_q8", "candidate_topk"))
+    res_q = run_q["search"]
+    prof_q = device_profile(lambda: q8s.search(q, k))
+    store = q8s._quantized_store
+    rk = batched.resolve_rerank_k(cfg, k, None)
+    # lanes whose shortlist holds hopper's top-k are hopper's, bit for bit
+    _, sl = batched.q8_shortlist(s.index, store, cfg, q, rk)
+    ids_pad = padded_csr(s.index, cfg.row_cap)[3]
+    sl_ids = torch.where(sl >= 0, ids_pad[sl.clamp_min(0).long()], torch.full_like(sl, -2))
+    covered = ((res.ids[:, :, None] == sl_ids[:, None, :]).any(-1) | ~res.valid).all(-1)
+    same_result(res_q, res, "phase 3 hopper_q8 on covered lanes", lanes=covered)
+
+    cpu_q8 = api.ActiveSearcher.from_index(s.index, cfg, plan=q8s.plan, device="cpu")
+    before = counts(mods)
+    rcq = cpu_q8.search(q[:256].cpu(), k)
+    check(counts(mods) == before, "the CPU run launched a kernel")
+    same_q = (rcq.ids == res_q.ids[:256].cpu()).all(dim=1)
+    frac_q = float(same_q.float().mean())
+    check(frac_q >= 0.99, f"phase 3 hopper_q8 CPU cross-check: only {frac_q:.4f} of id lists equal")
+
+    # the int8 shortlist on the timed chunk, bit-equal to its plain version;
+    # its bytes are the distinct int8 rows and their scales
+    qargs = (store.q_points, store.row_scales, st, en, qc, rk, n_live, cfg.row_cap)
+    q8_ms, got = time_ms(lambda: mods["csr_shortlist_q8"].csr_shortlist_q8(*qargs))
+    q8_plain_ms, want = time_ms(lambda: ref.csr_shortlist_q8(*qargs), reps=3)
+    check_equal_pair(got, want, "csr_shortlist_q8 at phase 3's chunk")
+    b_ms, b_by = bound(distinct * (d + 4) + chunk * (cfg.window * 8 + d * 4 + rk * 8),
+                       6 * pairs * d)
+    timings["csr_shortlist_q8"] = {
+        "ms": q8_ms, "plain_ms": q8_plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": 0.0, "shape": f"PROD_GRID d={d} B={chunk} rerank_k={rk}",
+    }
+
+    # candidate_topk at the re-rank shape: the chunk's sorted shortlist rows
+    sl_c = got[1]
+    key = torch.where(sl_c >= 0, sl_c, torch.full_like(sl_c, n_pad))
+    sl_c = torch.gather(sl_c, 1, torch.sort(key, dim=1, stable=True).indices)
+    rr = (pts_pad[sl_c.clamp_min(0).long()], sl_c >= 0, qc, k)
+    rr_ms, got = time_ms(lambda: mods["candidate_topk"].candidate_topk(*rr, d_chunk=d))
+    rr_plain_ms, want = time_ms(lambda: ref.candidate_topk(*rr, d_chunk=d))
+    rr_err, rr_swaps = compare_dense(got, want, rr[0], qc, "l2", 1e-5)
+    rows = int(rr[1].sum())
+    rr_bound = bound(rows * d * 4 + chunk * (rk + d * 4 + k * 8), 3 * rows * d)
+    # and at the gather shape: the chunk's whole materialised window
+    cand = batched.gather_candidates_batched(s.index, cfg, q_grid, spans=(st, en))
+    ga = (cand.points, cand.valid, qc, k)
+    del cand
+    ga_ms, got = time_ms(lambda: mods["candidate_topk"].candidate_topk(*ga, d_chunk=d))
+    ga_plain_ms, want = time_ms(lambda: ref.candidate_topk(*ga, d_chunk=d), reps=3)
+    ga_err, ga_swaps = compare_dense(got, want, ga[0], qc, "l2", 1e-5)
+    ga_bound = bound(pairs * d * 4 + chunk * (cfg.window * cfg.row_cap + d * 4 + k * 8),
+                     3 * pairs * d)
+    del ga, got, want
+    timings["candidate_topk"] = {
+        "ms": rr_ms, "plain_ms": rr_plain_ms, "bound_ms": rr_bound[0], "bound_by": rr_bound[1],
+        "max_abs_err": max(rr_err, ga_err),
+        "shape": f"PROD_GRID d={d} B={chunk} C={rk} (hopper_q8 re-rank)",
+        "tie_swaps": rr_swaps + ga_swaps,
+        "gather_shape": {"shape": f"B={chunk} C={cfg.window * cfg.row_cap}", "ms": ga_ms,
+                         "plain_ms": ga_plain_ms, "bound_ms": ga_bound[0],
+                         "bound_by": ga_bound[1], "max_abs_err": ga_err},
+    }
+
+    # ---- hopper_gather on one chunk, equal to hopper in every field
+    gather = s.with_plan(backend="hopper_gather")
+    run_g = run_main_path("phase 3 hopper_gather", gather, qc, k, mods, classify=False,
+                          expect=("tile_count_multilevel", "candidate_topk"))
+    same_result(run_g["search"], type(res)(*(f[:chunk] for f in res)), "phase 3 hopper_gather")
+
     emit({
         "phase": 3, "config": "PROD_GRID, SIFT1M-shaped planted data", "n": n, "d": d,
         "B": b, "k": k, "chunk_size": chunk, "build_s": build_s,
@@ -509,8 +776,30 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
                         "max_abs_err": err, "tie_swaps": swaps},
         "peak_mem_gb": run["peak_mem_gb"],
         "index_bytes": {key: v for key, v in s.stats().items() if key.endswith("_bytes")},
+        "hopper_q8": {
+            "rerank_k": rk, "search_ms": run_q["search_wall_ms"],
+            "queries_per_s": 1e3 * b / run_q["search_wall_ms"]["median"],
+            "launches_per_search": run_q["per_search"],
+            **idle(prof_q, run_q["search_wall_ms"]["median"]),
+            "recall_at_k_vs_exact": recall(res_q.ids, truth.ids, k),
+            "recall_at_k_vs_hopper": recall(res_q.ids, res.ids, k),
+            "shortlist_contains_hopper_topk_frac": float(covered.float().mean()),
+            "covered_lanes_bit_equal_to_hopper": True,
+            "candidate_bytes_timed_chunk": {
+                "valid_pairs": pairs, "fp32": pairs * d * 4, "int8": pairs * (d + 4),
+                "int8_plus_rerank": pairs * (d + 4) + chunk * rk * d * 4,
+                "ratio": pairs * d * 4 / (pairs * (d + 4)),
+                "ratio_with_rerank": pairs * d * 4 / (pairs * (d + 4) + chunk * rk * d * 4)},
+            "store_bytes": sum(t.numel() * t.element_size() for t in store),
+            "peak_mem_gb": run_q["peak_mem_gb"],
+            "cpu_crosscheck": {"queries": 256, "id_lists_equal_frac": frac_q},
+        },
+        "hopper_gather_one_chunk": {"B": chunk, "equal_to_hopper": True,
+                                    "launches_per_search": run_g["per_search"],
+                                    "search_ms": run_g["search_wall_ms"],
+                                    "peak_mem_gb": run_g["peak_mem_gb"]},
     })
-    return run["launches"]
+    return [run["launches"], run_q["launches"], run_g["launches"]]
 
 
 # -------------------------------------------------------------------- main ---
@@ -532,12 +821,11 @@ def main() -> int:
     from repro_torch import api
     from repro_torch.configs.paper_active_search import K, PAPER_GRID, PROD_GRID
     from repro_torch.kernels import _build
-    from repro_torch.kernels import csr_candidate_topk as csr
-    from repro_torch.kernels import tile_count_multilevel as tcm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    mods = {"tile_count_multilevel": tcm, "csr_candidate_topk": csr}
+    mods = {name: importlib.import_module(f"repro_torch.kernels.{src}")
+            for name, (src, _) in KERNELS.items()}
     smi = nvidia_smi()
 
     t0 = time.perf_counter()
@@ -561,20 +849,21 @@ def main() -> int:
 
     max_err = phase1(seed, {"PAPER_GRID": PAPER_GRID, "PROD_GRID": PROD_GRID}, mods)
     timings: dict = {}
-    # launches on the main path: phase 2's counted run plus phase 3's
-    p2 = phase2(seed, api, PAPER_GRID, K, mods, timings)
-    p3 = phase3(seed, api, PROD_GRID, 10, mods, timings)
-    launches = {name: p2[name] + p3[name] for name in SOURCES}
+    # launches on the paths: the sum of every counted run of phases 2 and 3
+    runs = phase2(seed, api, PAPER_GRID, K, mods, timings)
+    runs += phase3(seed, api, PROD_GRID, 10, mods, timings)
+    launches = {name: sum(r[name] for r in runs) for name in KERNELS}
 
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
-         "replaces": REPLACES[name], "launches": launches[name],
+        {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}.cu",
+         "replaces": replaces, "launches": launches[name],
          "max_abs_err": max(max_err[name], timings[name]["max_abs_err"]),
          "ms": timings[name]["ms"],
          "plain_ms": timings[name]["plain_ms"], "bound_ms": timings[name]["bound_ms"],
          "bound_by": timings[name]["bound_by"], "library_ms": None,
-         "shape": timings[name]["shape"]}
-        for name in SOURCES
+         "shape": timings[name]["shape"],
+         **({"gather_shape": timings[name]["gather_shape"]} if "gather_shape" in timings[name] else {})}
+        for name, (src, replaces) in KERNELS.items()
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

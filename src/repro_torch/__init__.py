@@ -19,9 +19,13 @@ as follows:
     exact            exact
     sharded          sharded
 
-Registered so far: `hopper` (the batched main path on the hand-written
-Hopper kernels in `repro_torch/csrc/`) and `exact` (the brute-force
-comparator).  The others follow in later slices.
+Registered: `hopper` (the batched main path on the hand-written Hopper
+kernels in `repro_torch/csrc/`, the default), `hopper_gather` (the
+materialised-window candidate stage, a baseline and second oracle),
+`hopper_q8` (the int8 shortlist and its exact float32 re-rank),
+`hopper_stacked` (count_at only, one `tile_count` launch per pyramid level)
+and `exact` (the brute-force comparator).  `torch` and `sharded` follow in
+later slices.
 
 Devices: the entry points (`api.ActiveSearcher.build`, `.from_index`,
 `convert.index_from_numpy`, ...) take `device=None`, which means "cuda".

@@ -1,26 +1,34 @@
-"""Batched, kernel-backed active search — the `hopper` execution path.
+"""Batched, kernel-backed active search — the `hopper*` execution paths.
 
-Port of the main path of `repro/core/batched.py`.  The whole batch moves
-through the paper's algorithm together on two hand-written Hopper kernels
-(CPU tensors take their plain versions, `kernels/ops.py`):
+Port of `repro/core/batched.py`.  The whole batch moves through the
+paper's algorithm together on hand-written Hopper kernels (CPU tensors
+take their plain versions, `kernels/ops.py`):
 
   1. Eq.-1 radius adaptation for the whole batch: each iteration is ONE
      `tile_count_multilevel` launch that counts every live query's circle
-     at its own pyramid level;
-  2. the candidate stage as a pluggable `CandidatePipeline`; "fused" runs
-     `csr_candidate_topk`, which reads candidate rows straight from the
-     CSR-sorted store and emits (dists, GLOBAL CSR rows), so record
-     assembly is one (B, k) gather per field.
+     at its own pyramid level (`batched_counts_stacked` keeps the per-level
+     `tile_count` stack as the `hopper_stacked` baseline);
+  2. the candidate stage as a pluggable `CandidatePipeline`:
+       "fused"  (default) — `csr_candidate_topk` reads candidate rows
+                straight from the CSR-sorted store and emits (dists, GLOBAL
+                CSR rows), so record assembly is one (B, k) gather per field;
+       "gather" — one (B, w*row_cap) gather of the window's records, then
+                the dense `candidate_topk` (`hopper_gather`: benchmark
+                baseline and second oracle, bit-equal to "fused");
+  3. the quantized stage (`search_q8` / `classify_q8`, `hopper_q8`): the
+     int8 `csr_shortlist_q8` keeps the best `rerank_k` rows by approximate
+     score, and `candidate_topk` re-ranks them exactly in float32.
 
 `search`/`classify` take `chunk_size=` to stream large batches through
-fixed-size launches; results are bit-identical for any value.  Reach this
-path through `repro_torch.api.ActiveSearcher` with
-`ExecutionPlan(backend="hopper")`.
+fixed-size launches; results are bit-identical for any value.  Reach these
+paths through `repro_torch.api.ActiveSearcher` with
+`ExecutionPlan(backend="hopper" | "hopper_gather" | "hopper_q8")`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable
 
@@ -30,7 +38,9 @@ from repro_torch.core import integral as integral_lib
 from repro_torch.core import projection as proj_lib
 from repro_torch.core import pyramid as pyr
 from repro_torch.core.active_search import (
+    Candidates,
     SearchResult,
+    _metric_dist,
     empty_result,
     majority_vote,
     padded_csr,
@@ -39,6 +49,7 @@ from repro_torch.core.active_search import (
 )
 from repro_torch.core.grid import GridConfig, GridIndex
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import take_slots, window_slots
 
 
 # --------------------------------------------------------------- counting ----
@@ -73,6 +84,28 @@ def batched_counts(
         tiles, q_grid.contiguous(), radii.to(torch.float32), levels, cfg.tile,
         cfg.level_nblks, metric=cfg.metric, active=active,
     )
+
+
+def batched_counts_stacked(
+    index: GridIndex,
+    cfg: GridConfig,
+    q_grid: torch.Tensor,
+    radii: torch.Tensor,
+) -> torch.Tensor:
+    """The per-level counting path: `tile_count` on EVERY pyramid level
+    (one launch each), then each query's own level selected from the
+    (L, B, C) stack.  L-fold more kernel work than `batched_counts`; kept
+    as the `hopper_stacked` benchmark baseline and as a second oracle for
+    the level-scheduled kernel."""
+    if cfg.counter == "sat":
+        return batched_counts(index, cfg, q_grid, radii)
+    levels = pyr.level_for_radius(radii, cfg)
+    q, r = q_grid.contiguous(), radii.to(torch.float32)
+    per_level = torch.stack([
+        ops.tile_count(arr, q, r, 1 << lv, cfg.tile, metric=cfg.metric)
+        for lv, arr in enumerate(index.pyramid)
+    ])                                                      # (L, B, C)
+    return torch.take_along_dim(per_level, levels.long()[None, :, None], dim=0)[0]
 
 
 def radius_search_batched(
@@ -160,6 +193,33 @@ def radius_search_batched(
     }
 
 
+# ----------------------------------------------------------------- gather ----
+
+
+def gather_candidates_batched(
+    index: GridIndex,
+    cfg: GridConfig,
+    q_grid: torch.Tensor,
+    spans: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> Candidates:
+    """CSR window gather for the whole batch: the (B, w*row_cap) records of
+    every window slot in one gather per field (the "gather" pipeline's
+    stage; the fused pipeline never materialises any of it).  `spans` lets
+    a caller that already computed the window spans pass them in."""
+    pts, crd, lab, ids, n, n_pad = padded_csr(index, cfg.row_cap)
+    start, end = spans if spans is not None else window_spans(index, cfg, q_grid)
+    # the one slot -> CSR-row map (clamped span start + in-row offset) of
+    # every candidate stage, kernels' plain versions included
+    flat, valid = window_slots(start, end, n_pad, n, cfg.row_cap)   # (B, w*rcap)
+    return Candidates(
+        points=pts[flat],      # (B, w*rcap, d)
+        coords=crd[flat],      # (B, w*rcap, 2)
+        labels=lab[flat],      # (B, w*rcap)
+        ids=ids[flat],         # (B, w*rcap)
+        valid=valid,
+    )
+
+
 # -------------------------------------------------------- candidate stage ----
 
 
@@ -219,12 +279,117 @@ def _fused_select(index, cfg, q_grid, queries, spans, k, mode, radius, d_chunk):
     )
 
 
+def _gather_select(index, cfg, q_grid, queries, spans, k, mode, radius, d_chunk):
+    """gather_candidates_batched + dense candidate_topk, with the selected
+    LOCAL slots mapped back to global CSR rows so both pipelines share one
+    record-assembly step."""
+    cand = gather_candidates_batched(index, cfg, q_grid, spans=spans)
+    if mode == "paper":
+        centers = torch.floor(cand.coords) + 0.5                    # (B, C, 2)
+        gd = _metric_dist(centers, q_grid[:, None, :], cfg.metric)
+        valid = cand.valid & (gd <= radius[:, None].to(torch.float32))
+        rank_points, rank_queries = centers, q_grid
+    else:
+        valid = cand.valid
+        rank_points, rank_queries = cand.points, queries.to(torch.float32)
+    # the fused kernel's d_chunk decomposition (None: one block), so both
+    # pipelines give the same float for the same row
+    outd, outi = ops.candidate_topk(
+        rank_points.contiguous(), valid, rank_queries.contiguous(), k,
+        metric=cfg.metric, d_chunk=d_chunk,
+    )
+    _pts, _crd, _lab, _ids, n, n_pad = padded_csr(index, cfg.row_cap)
+    flat, _valid = window_slots(spans[0], spans[1], n_pad, n, cfg.row_cap)
+    return outd, take_slots(flat, outi)
+
+
 register_candidate_pipeline(CandidatePipeline(
     name="fused",
     select=_fused_select,
     description="csr_candidate_topk: candidate rows read from the CSR store "
                 "inside the kernel, no (B, w*row_cap, d) intermediate",
 ))
+register_candidate_pipeline(CandidatePipeline(
+    name="gather",
+    select=_gather_select,
+    description="one (B, w*row_cap) gather of the window's records + dense "
+                "candidate_topk (benchmark baseline / second oracle)",
+))
+
+
+# ---------------------------------------------------- quantized (q8) stage ---
+
+
+def q8_shortlist(
+    index: GridIndex,
+    store,  # QuantizedStore
+    cfg: GridConfig,
+    queries: torch.Tensor,
+    rerank_k: int,
+    spans: tuple[torch.Tensor, torch.Tensor] | None = None,
+    d_chunk: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The coarse int8 stage alone: approximate scores + global CSR
+    shortlist (B, rerank_k).  `search_q8` is the full coarse -> re-rank
+    path; this is exposed for the tests and chip_smoke's containment
+    count."""
+    if spans is None:
+        q_grid = proj_lib.to_grid_coords(index.proj, queries, cfg.grid_size)
+        spans = window_spans(index, cfg, q_grid)
+    start, end = spans
+    return ops.csr_shortlist_q8(
+        store.q_points, store.row_scales, start, end,
+        queries.to(torch.float32).contiguous(), rerank_k,
+        index.points_sorted.shape[0], cfg.row_cap, metric=cfg.metric,
+        d_chunk=d_chunk,
+    )
+
+
+def _q8_select(index, cfg, q_grid, queries, spans, k, mode, radius, d_chunk,
+               *, store, rerank_k):
+    """int8 coarse shortlist -> exact float32 re-rank of `rerank_k` rows.
+
+    Not a registered CandidatePipeline: pipelines promise bit-equal
+    interchange, the q8 stage promises recall.  Paper mode delegates to the
+    fused stage (it ranks 2-d cell centers; nothing to gain from int8).
+
+    The shortlist is sorted ascending by global CSR row (stable, -1 pads
+    last) before the re-rank, so `candidate_topk`'s first-index tie-break
+    means lowest global row: the fused kernel's tie-break, since its window
+    enumerates valid rows in ascending CSR order.  With the same d_chunk
+    decomposition both compute the same distance, so wherever the shortlist
+    contains the exact top-k the result equals `hopper` bit for bit."""
+    if mode == "paper":
+        return _fused_select(index, cfg, q_grid, queries, spans, k, mode, radius, d_chunk)
+    pts, _crd, _lab, _ids, _n, n_pad = padded_csr(index, cfg.row_cap)
+    _scores, sli = q8_shortlist(index, store, cfg, queries, rerank_k,
+                                spans=spans, d_chunk=d_chunk)
+    # approximate scores only chose the shortlist; the re-rank is exact
+    key = torch.where(sli >= 0, sli, torch.full_like(sli, n_pad))
+    sl = torch.gather(sli, 1, torch.sort(key, dim=1, stable=True).indices)
+    cand = pts[torch.clamp_min(sl, 0).long()]               # (B, rerank_k, d)
+    outd, outi = ops.candidate_topk(
+        cand, sl >= 0, queries.to(torch.float32).contiguous(), k,
+        metric=cfg.metric, d_chunk=d_chunk,
+    )
+    return outd, take_slots(sl, outi)
+
+
+def resolve_rerank_k(cfg: GridConfig, k: int, rerank_k: int | None) -> int:
+    """The shortlist length the q8 path runs with.
+
+    None -> min(max(4k, 32), window*row_cap); explicit values must be >= k
+    (a shortlist shorter than k cannot return k exact rows) and are capped
+    at the window."""
+    cap = cfg.window * cfg.row_cap
+    if rerank_k is None:
+        return min(max(4 * k, 32), cap)
+    if rerank_k < k:
+        raise ValueError(
+            f"rerank_k={rerank_k} < k={k}: the exact re-rank can only "
+            f"return rows the shortlist contains"
+        )
+    return min(rerank_k, cap)
 
 
 # -------------------------------------------------------------- entry points -
@@ -236,7 +401,7 @@ def _search_impl(
     queries: torch.Tensor,
     k: int,
     mode: str,
-    pipeline: CandidatePipeline,
+    select: Callable[..., tuple[torch.Tensor, torch.Tensor]],
     d_chunk: int | None,
     adaptive_r0: bool,
 ) -> SearchResult:
@@ -246,9 +411,7 @@ def _search_impl(
     start, end = window_spans(index, cfg, q_grid)                   # (B, w)
     truncated = ((2 * r + 1) > cfg.window) | torch.any(end - start > cfg.row_cap, dim=-1)
 
-    outd, outi = pipeline.select(
-        index, cfg, q_grid, queries, (start, end), k, mode, r, d_chunk,
-    )
+    outd, outi = select(index, cfg, q_grid, queries, (start, end), k, mode, r, d_chunk)
 
     # record assembly: one (B, k) gather per field from the padded CSR arrays
     _pts, _crd, lab, ids, _n, _n_pad = padded_csr(index, cfg.row_cap)
@@ -283,7 +446,7 @@ def search(
     with leading B (the facade's `ActiveSearcher.search` contract)."""
     pipe = get_candidate_pipeline(pipeline)  # eager: bad names raise here
     return run_chunked(
-        lambda q: _search_impl(index, cfg, q, k, mode, pipe, d_chunk, adaptive_r0),
+        lambda q: _search_impl(index, cfg, q, k, mode, pipe.select, d_chunk, adaptive_r0),
         queries,
         chunk_size,
         empty=lambda: empty_result(k, queries.device),
@@ -296,7 +459,7 @@ def _classify_impl(
     queries: torch.Tensor,
     k: int,
     mode: str,
-    pipeline: CandidatePipeline,
+    select: Callable[..., tuple[torch.Tensor, torch.Tensor]],
     d_chunk: int | None,
     adaptive_r0: bool,
 ) -> torch.Tensor:
@@ -307,7 +470,7 @@ def _classify_impl(
         counts = batched_counts(index, cfg, q_grid, stats["radius"])
         return torch.argmax(counts, dim=-1).to(torch.int32)
 
-    res = _search_impl(index, cfg, queries, k, "refined", pipeline, d_chunk, adaptive_r0)
+    res = _search_impl(index, cfg, queries, k, "refined", select, d_chunk, adaptive_r0)
     refined = majority_vote(res.labels, res.valid, cfg.n_classes)
     # graceful degradation: where the window vote is under-sampled (fewer
     # than k valid candidates, or candidates were dropped), fall back to the
@@ -336,7 +499,60 @@ def classify(
         raise ValueError("classify() needs an index built with n_classes > 0")
     pipe = get_candidate_pipeline(pipeline)  # eager: bad names raise here
     return run_chunked(
-        lambda q: _classify_impl(index, cfg, q, k, mode, pipe, d_chunk, adaptive_r0),
+        lambda q: _classify_impl(index, cfg, q, k, mode, pipe.select, d_chunk, adaptive_r0),
+        queries,
+        chunk_size,
+        empty=lambda: torch.zeros((0,), dtype=torch.int32, device=queries.device),
+    )
+
+
+def search_q8(
+    index: GridIndex,
+    store,  # QuantizedStore (core.quantized.quantize_index(index, cfg))
+    cfg: GridConfig,
+    queries: torch.Tensor,
+    k: int,
+    mode: str = "refined",
+    rerank_k: int | None = None,
+    chunk_size: int | None = None,
+    d_chunk: int | None = None,
+    adaptive_r0: bool = False,
+) -> SearchResult:
+    """Quantized-candidate active search (the `hopper_q8` backend): the
+    counting and span stages of `search`, then the int8 shortlist and its
+    exact float32 re-rank.  Returned distances are exact; only WHICH rows
+    made the shortlist is approximate (a recall contract).  Paper mode is
+    exact (it delegates to the fused stage)."""
+    select = functools.partial(_q8_select, store=store,
+                               rerank_k=resolve_rerank_k(cfg, k, rerank_k))
+    return run_chunked(
+        lambda q: _search_impl(index, cfg, q, k, mode, select, d_chunk, adaptive_r0),
+        queries,
+        chunk_size,
+        empty=lambda: empty_result(k, queries.device),
+    )
+
+
+def classify_q8(
+    index: GridIndex,
+    store,  # QuantizedStore
+    cfg: GridConfig,
+    queries: torch.Tensor,
+    k: int,
+    mode: str = "refined",
+    rerank_k: int | None = None,
+    chunk_size: int | None = None,
+    d_chunk: int | None = None,
+    adaptive_r0: bool = False,
+) -> torch.Tensor:
+    """Quantized-candidate kNN classification (the `hopper_q8` backend):
+    `classify`'s contract with `search_q8` as the refined-vote stage."""
+    if cfg.n_classes <= 0:
+        raise ValueError("classify() needs an index built with n_classes > 0")
+    select = functools.partial(_q8_select, store=store,
+                               rerank_k=resolve_rerank_k(cfg, k, rerank_k))
+    return run_chunked(
+        lambda q: _classify_impl(index, cfg, q, k, mode, select, d_chunk, adaptive_r0),
         queries,
         chunk_size,
         empty=lambda: torch.zeros((0,), dtype=torch.int32, device=queries.device),

@@ -14,8 +14,10 @@ HOW a search executes lives in the frozen `ExecutionPlan` (backend name,
 chunked streaming, accumulation cap, adaptive start radius); WHAT is
 searched lives in the (index, cfg) pair the handle carries, on the
 handle's device.  Backends are uniform `BackendImpl` adapters resolved
-from a registry.  This slice registers `hopper` (the main path, the
-default) and `exact` (the brute-force comparator).
+from a registry: `hopper` (the main path, the default), `hopper_gather`
+(materialised-window baseline), `hopper_q8` (int8 shortlist + exact
+re-rank), `hopper_stacked` (count-only, per-level baseline) and `exact`
+(the brute-force comparator).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 from repro_torch.core import batched
 from repro_torch.core import exact as exact_lib
 from repro_torch.core import projection as proj_lib
+from repro_torch.core import quantized as qz
 from repro_torch.core.active_search import SearchResult, empty_result, run_chunked
 from repro_torch.core.grid import (
     GridConfig,
@@ -77,12 +80,19 @@ class ExecutionPlan:
     adaptive_r0: seed each query's Eq.-1 start radius from the pyramid's
                 top levels (`pyramid.seed_radius`) instead of cfg.r0;
                 backends that run the Eq.-1 loop only.
+    rerank_k:   shortlist depth of the quantized candidate stage (backends
+                with `supports_quantized`, i.e. "hopper_q8"): the int8 pass
+                keeps the best `rerank_k` rows by approximate score and the
+                exact float32 re-rank ranks only those.  None =
+                min(max(4k, 32), window*row_cap) at call time; must be >= k
+                (checked at the search call) and is capped at the window.
     """
 
     backend: str = "hopper"
     chunk_size: int | None = None
     d_chunk: int | None = None
     adaptive_r0: bool = False
+    rerank_k: int | None = None
 
     def __post_init__(self):
         if self.chunk_size is not None and self.chunk_size <= 0:
@@ -92,6 +102,10 @@ class ExecutionPlan:
         if self.d_chunk is not None and self.d_chunk <= 0:
             raise ValueError(
                 f"d_chunk must be positive, got {self.d_chunk}"
+            )
+        if self.rerank_k is not None and self.rerank_k <= 0:
+            raise ValueError(
+                f"rerank_k must be positive, got {self.rerank_k}"
             )
 
 
@@ -108,8 +122,9 @@ class BackendImpl:
       count_at(searcher, q_grid, radii)    -> (B, C) int32 circle counts
 
     Any of the three may be None; the facade raises eagerly when an op is
-    missing.  `supports_d_chunk` gates `plan.d_chunk`, and
-    `supports_adaptive_r0` gates `plan.adaptive_r0`.
+    missing.  `supports_d_chunk` gates `plan.d_chunk`,
+    `supports_adaptive_r0` gates `plan.adaptive_r0`, and
+    `supports_quantized` gates `plan.rerank_k`.
     """
 
     search: Callable[..., SearchResult] | None = None
@@ -117,6 +132,7 @@ class BackendImpl:
     count_at: Callable[..., torch.Tensor] | None = None
     supports_d_chunk: bool = False
     supports_adaptive_r0: bool = False
+    supports_quantized: bool = False
     description: str = ""
 
 
@@ -211,9 +227,9 @@ class ActiveSearcher:
     ) -> "ActiveSearcher":
         """Same index, new execution plan (full plan or field overrides).
 
-        Switching `backend=` drops the `d_chunk` and `adaptive_r0` knobs
-        when the new backend does not support them (unless explicitly
-        overridden too)."""
+        Switching `backend=` drops the `d_chunk`, `adaptive_r0` and
+        `rerank_k` knobs when the new backend does not support them (unless
+        explicitly overridden too)."""
         if plan is not None and overrides:
             raise ValueError("pass a full ExecutionPlan OR field overrides")
         if plan is None and "backend" in overrides:
@@ -224,6 +240,8 @@ class ActiveSearcher:
                 if (not impl.supports_adaptive_r0
                         and "adaptive_r0" not in overrides):
                     overrides = {**overrides, "adaptive_r0": False}
+                if not impl.supports_quantized and "rerank_k" not in overrides:
+                    overrides = {**overrides, "rerank_k": None}
         new = plan if plan is not None else dataclasses.replace(self.plan, **overrides)
         return dataclasses.replace(self, plan=new)
 
@@ -243,6 +261,12 @@ class ActiveSearcher:
                 f"adaptive_r0= only applies to backends that run the Eq.-1 "
                 f"radius loop; backend {self.plan.backend!r} does not "
                 f"support it"
+            )
+        if self.plan.rerank_k is not None and not impl.supports_quantized:
+            raise ValueError(
+                f"rerank_k= only applies to quantized-candidate backends "
+                f"(BackendImpl.supports_quantized); backend "
+                f"{self.plan.backend!r} does not support it"
             )
         fn = getattr(impl, op)
         if fn is None:
@@ -337,26 +361,53 @@ class ActiveSearcher:
             index.ids_sorted[order],
         )
 
+    @functools.cached_property
+    def _quantized_store(self) -> qz.QuantizedStore:
+        """The handle's int8 candidate store (core/quantized.py), computed
+        once per handle: the store is a pure function of the index, which
+        the frozen handle never changes."""
+        return qz.quantize_index(self.index, self.cfg)
+
 
 # ------------------------------------------------------ built-in backends ----
 
 
-def _hopper_search(s: ActiveSearcher, queries, k, mode):
+def _hopper_search(s: ActiveSearcher, queries, k, mode, pipeline="fused"):
     return batched.search(
-        s.index, s.cfg, queries, k, mode=mode, d_chunk=s.plan.d_chunk,
-        adaptive_r0=s.plan.adaptive_r0,
+        s.index, s.cfg, queries, k, mode=mode, pipeline=pipeline,
+        d_chunk=s.plan.d_chunk, adaptive_r0=s.plan.adaptive_r0,
     )
 
 
-def _hopper_classify(s: ActiveSearcher, queries, k, mode):
+def _hopper_classify(s: ActiveSearcher, queries, k, mode, pipeline="fused"):
     return batched.classify(
-        s.index, s.cfg, queries, k, mode=mode, d_chunk=s.plan.d_chunk,
-        adaptive_r0=s.plan.adaptive_r0,
+        s.index, s.cfg, queries, k, mode=mode, pipeline=pipeline,
+        d_chunk=s.plan.d_chunk, adaptive_r0=s.plan.adaptive_r0,
     )
 
 
 def _hopper_count_at(s: ActiveSearcher, q_grid, radii):
     return batched.batched_counts(s.index, s.cfg, q_grid, radii)
+
+
+def _hopper_q8_search(s: ActiveSearcher, queries, k, mode):
+    return batched.search_q8(
+        s.index, s._quantized_store, s.cfg, queries, k, mode=mode,
+        rerank_k=s.plan.rerank_k, d_chunk=s.plan.d_chunk,
+        adaptive_r0=s.plan.adaptive_r0,
+    )
+
+
+def _hopper_q8_classify(s: ActiveSearcher, queries, k, mode):
+    return batched.classify_q8(
+        s.index, s._quantized_store, s.cfg, queries, k, mode=mode,
+        rerank_k=s.plan.rerank_k, d_chunk=s.plan.d_chunk,
+        adaptive_r0=s.plan.adaptive_r0,
+    )
+
+
+def _hopper_stacked_count_at(s: ActiveSearcher, q_grid, radii):
+    return batched.batched_counts_stacked(s.index, s.cfg, q_grid, radii)
 
 
 def _exact_search(s: ActiveSearcher, queries, k, mode):
@@ -396,6 +447,28 @@ register_backend("hopper", BackendImpl(
     description="batched kernel pipeline: level-scheduled "
                 "tile_count_multilevel + fused csr_candidate_topk, both "
                 "hand-written for Hopper (core/batched.py, csrc/)",
+))
+register_backend("hopper_gather", BackendImpl(
+    search=functools.partial(_hopper_search, pipeline="gather"),
+    classify=functools.partial(_hopper_classify, pipeline="gather"),
+    count_at=_hopper_count_at, supports_d_chunk=True, supports_adaptive_r0=True,
+    description="benchmark baseline / second oracle: the same counting, but "
+                "the candidate stage gathers the (B, w*row_cap) window and "
+                "ranks it with the dense candidate_topk kernel",
+))
+register_backend("hopper_q8", BackendImpl(
+    search=_hopper_q8_search, classify=_hopper_q8_classify,
+    count_at=_hopper_count_at, supports_d_chunk=True,
+    supports_adaptive_r0=True, supports_quantized=True,
+    description="quantized candidate stage: the int8 csr_shortlist_q8 "
+                "kernel keeps the best rerank_k rows, then candidate_topk "
+                "re-ranks them exactly in float32 (recall contract against "
+                "the exact backends; core/quantized.py + core/batched.py)",
+))
+register_backend("hopper_stacked", BackendImpl(
+    count_at=_hopper_stacked_count_at,
+    description="count-only benchmark baseline: one tile_count launch per "
+                "pyramid level + select",
 ))
 register_backend("exact", BackendImpl(
     search=_exact_search, classify=_exact_classify,

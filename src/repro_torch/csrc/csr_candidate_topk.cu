@@ -29,19 +29,11 @@
 // A thread reads its slot's row alone, so a warp's loads are strided by d;
 // coalescing them is later work.
 //
-// Numerics: built with -fmad=false, and the l2 sum is written with
-// __fmul_rn / __fadd_rn, so no FMA changes a rounding; sqrtf is IEEE
-// (no fast math).
+// Numerics: the distance and the arg-min are kernel_common.cuh's, shared
+// with candidate_topk.cu, so both kernels give the same float for the same
+// row (built with -fmad=false; no FMA, no fast math).
 
-#include <cuda_runtime.h>
-#include <math.h>
-
-#define THREADS 256
-#define WARPS (THREADS / 32)
-
-__device__ __forceinline__ bool better(float v, int s, float bv, int bs) {
-  return v < bv || (v == bv && s < bs);
-}
+#include "kernel_common.cuh"
 
 __global__ void csr_candidate_topk_kernel(
     const float* __restrict__ store,    // (n_pad, d)
@@ -58,8 +50,6 @@ __global__ void csr_candidate_topk_kernel(
   float* qs = smem;                       // d
   float* dist = qs + d;                   // slots
   int* gidx = (int*)(dist + slots);       // slots
-  __shared__ float warp_v[WARPS];
-  __shared__ int warp_s[WARPS];
 
   const int b = blockIdx.x;
   for (int c = threadIdx.x; c < d; c += blockDim.x) qs[c] = queries[(long long)b * d + c];
@@ -74,21 +64,8 @@ __global__ void csr_candidate_topk_kernel(
     const int j = min(max(st, 0), s_max) + (s - row * row_cap);
     float dv = INFINITY;
     if (j >= st && j < en && j < n) {
-      const float* x = store + (long long)j * d;
-      float acc = 0.0f;
-      for (int c0 = 0; c0 < d; c0 += d_chunk) {
-        const int c1 = min(c0 + d_chunk, d);
-        float part = 0.0f;
-        for (int c = c0; c < c1; ++c) {
-          float v = x[c];
-          if (center_cells) v = __fadd_rn(floorf(v), 0.5f);
-          const float df = __fsub_rn(v, qs[c]);
-          part = metric_l1 ? __fadd_rn(part, fabsf(df))
-                           : __fadd_rn(part, __fmul_rn(df, df));
-        }
-        acc = c0 == 0 ? part : __fadd_rn(acc, part);
-      }
-      const float dd = metric_l1 ? acc : sqrtf(fmaxf(acc, 0.0f));
+      const float dd = chunked_distance(store + (long long)j * d, qs, d,
+                                        d_chunk, metric_l1, center_cells);
       if (radii == nullptr || dd <= r) dv = dd;
     }
     dist[s] = dv;
@@ -96,38 +73,8 @@ __global__ void csr_candidate_topk_kernel(
   }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int round = 0; round < k; ++round) {
-    float bv = INFINITY;
-    int bs = slots;  // past every slot: any slot beats it, ties included
-    for (int s = threadIdx.x; s < slots; s += blockDim.x) {
-      if (better(dist[s], s, bv, bs)) { bv = dist[s]; bs = s; }
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, bv, o);
-      const int os = __shfl_down_sync(0xffffffffu, bs, o);
-      if (better(ov, os, bv, bs)) { bv = ov; bs = os; }
-    }
-    if (lane == 0) { warp_v[warp] = bv; warp_s[warp] = bs; }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < WARPS ? warp_v[lane] : INFINITY;
-      bs = lane < WARPS ? warp_s[lane] : slots;
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, bv, o);
-        const int os = __shfl_down_sync(0xffffffffu, bs, o);
-        if (better(ov, os, bv, bs)) { bv = ov; bs = os; }
-      }
-      if (lane == 0) {
-        const long long o = (long long)b * k + round;
-        out_d[o] = bv;
-        out_i[o] = isfinite(bv) ? gidx[bs] : -1;
-        if (bs < slots) dist[bs] = INFINITY;
-      }
-    }
-    __syncthreads();
-  }
+  block_topk(dist, gidx, slots, k, out_d + (long long)b * k,
+             out_i + (long long)b * k);
 }
 
 extern "C" int csr_candidate_topk_launch(
@@ -136,13 +83,9 @@ extern "C" int csr_candidate_topk_launch(
     int w, int row_cap, int d, int n_pad, int n, int k, int d_chunk,
     int metric_l1, int center_cells, void* stream) {
   const size_t smem = (size_t)d * sizeof(float) + (size_t)w * row_cap * 8;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        csr_candidate_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  csr_candidate_topk_kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(
+  const int e = allow_shared_bytes(csr_candidate_topk_kernel, smem);
+  if (e != 0) return e;
+  csr_candidate_topk_kernel<<<B, TOPK_THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)store, (const int*)starts, (const int*)ends,
       (const float*)queries, (const float*)radii, (float*)out_d, (int*)out_i,
       w, row_cap, d, n_pad, n, k, d_chunk, metric_l1, center_cells);

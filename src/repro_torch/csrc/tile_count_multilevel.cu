@@ -25,12 +25,13 @@
 // int32 sums reduce exactly (integer adds commute): warp shuffles, then
 // shared-memory atomics.
 //
-// Numerics: built with -fmad=false, and the mask is written with __fmul_rn /
-// __fadd_rn, so (ci-qx)^2 + (cj-qy)^2 rounds as the reference rounds it; an
-// FMA there would move boundary cells, and a count that moves is a wrong
-// integer.
+// Numerics: the mask is kernel_common.cuh's cell_in_circle (shared with
+// tile_count.cu), written with __fmul_rn / __fadd_rn and built with
+// -fmad=false, so (ci-qx)^2 + (cj-qy)^2 rounds as the reference rounds it;
+// an FMA there would move boundary cells, and a count that moves is a
+// wrong integer.
 
-#include <cuda_runtime.h>
+#include "kernel_common.cuh"
 
 #define MAX_C 32
 #define THREADS 256
@@ -78,13 +79,7 @@ __global__ void tile_count_multilevel_kernel(
     if (cell < cells) {
       const int x = ox + cell / T;
       const int y = oy + cell % T;
-      const float dx = __fsub_rn(__fmul_rn(__fadd_rn((float)x, 0.5f), scale), qx);
-      const float dy = __fsub_rn(__fmul_rn(__fadd_rn((float)y, 0.5f), scale), qy);
-      if (metric_l1) {
-        inside = __fadd_rn(fabsf(dx), fabsf(dy)) <= r;
-      } else {
-        inside = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)) <= __fmul_rn(r, r);
-      }
+      inside = cell_in_circle(x, y, scale, qx, qy, r, metric_l1);
       const long long tid = off + (long long)(x / T) * nblk + (y / T);
       base = ((tid * T + (x % T)) * T + (y % T)) * C;
     }

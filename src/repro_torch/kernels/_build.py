@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` exposes plain C launch functions and is compiled on
 first use into `build/repro_torch/<name>-<digest>.so` under the checkout
-(the digest covers the source and the flags, so an edited source builds
-anew).  `build` starts one nvcc per source, all at once, and waits for
+(the digest covers the source, every shared header `csrc/*.cuh` and the
+flags, so an edited source or header builds anew).  `build` starts one nvcc per source, all at once, and waits for
 them; nothing is compiled when a module is imported.
 
 Flags: sm_90a (Hopper), -O3, and -fmad=false so no multiply-add is fused
@@ -48,8 +48,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -10,9 +10,17 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import candidate_topk as _ctk
 from repro_torch.kernels import csr_candidate_topk as _csr
+from repro_torch.kernels import csr_candidate_topk_q8 as _q8
 from repro_torch.kernels import ref
+from repro_torch.kernels import tile_count as _tc
 from repro_torch.kernels import tile_count_multilevel as _tcm
+
+
+def tile_count(level_arr: torch.Tensor, queries, radii, scale, tile, metric="l2"):
+    fn = _tc.tile_count if level_arr.is_cuda else ref.tile_count
+    return fn(level_arr, queries, radii, scale, tile, metric=metric)
 
 
 def tile_count_multilevel(
@@ -31,4 +39,20 @@ def csr_candidate_topk(
     return fn(
         store, starts, ends, queries, k, n, row_cap, metric=metric,
         radii=radii, center_cells=center_cells, d_chunk=d_chunk,
+    )
+
+
+def candidate_topk(candidates: torch.Tensor, valid, queries, k, metric="l2", d_chunk=512):
+    fn = _ctk.candidate_topk if candidates.is_cuda else ref.candidate_topk
+    return fn(candidates, valid, queries, k, metric=metric, d_chunk=d_chunk)
+
+
+def csr_shortlist_q8(
+    q_store: torch.Tensor, row_scales, starts, ends, queries, rerank_k, n,
+    row_cap, metric="l2", d_chunk=None,
+):
+    fn = _q8.csr_shortlist_q8 if q_store.is_cuda else ref.csr_shortlist_q8
+    return fn(
+        q_store, row_scales, starts, ends, queries, rerank_k, n, row_cap,
+        metric=metric, d_chunk=d_chunk,
     )

@@ -63,9 +63,54 @@ def check_csr_args(store, starts, ends, queries, row_cap, radii) -> None:
         )
 
 
+def check_dense_args(candidates, valid, queries) -> None:
+    b, c, d = candidates.shape
+    if tuple(valid.shape) != (b, c):
+        raise ValueError(f"valid shape {tuple(valid.shape)} != candidates {(b, c)}")
+    if tuple(queries.shape) != (b, d):
+        raise ValueError(
+            f"queries shape {tuple(queries.shape)} does not match candidates "
+            f"batch {b} x dim {d}"
+        )
+
+
+def check_q8_args(q_store, row_scales, starts, ends, queries, rerank_k, row_cap) -> None:
+    n_pad = q_store.shape[0]
+    w = starts.shape[1]
+    if q_store.dtype != torch.int8:
+        raise ValueError(f"q_store must be int8, got {q_store.dtype}")
+    if tuple(row_scales.shape) != (n_pad, 1):
+        raise ValueError(
+            f"row_scales shape {tuple(row_scales.shape)} != ({n_pad}, 1); one "
+            f"scale per padded CSR row (core/quantized.py)"
+        )
+    check_csr_args(q_store, starts, ends, queries, row_cap, None)
+    if not 1 <= rerank_k <= w * row_cap:
+        raise ValueError(
+            f"rerank_k={rerank_k} must be in [1, window*row_cap = "
+            f"{w * row_cap}] (the shortlist is drawn from one window)"
+        )
+
+
 def d_chunks(d: int, d_chunk: int | None) -> list[tuple[int, int]]:
     """(start, width) of each feature-dim block the distance sums over."""
     dc = d if d_chunk is None else max(1, min(d_chunk, d))
+    return [(c0, min(dc, d - c0)) for c0 in range(0, d, dc)]
+
+
+# q8 query codes are clipped to +/-QCLIP cell-ranges; with diff bounded by
+# QCLIP + 127, a chunk of Q8_MAX_CHUNK dims sums |diff|^2 in int32 with ~3x
+# headroom: 512 * (1023 + 127)^2 < 2^31.  Copies of the reference's
+# constants (repro/kernels/csr_candidate_topk_q8.py).
+QCLIP = 1023
+Q8_MAX_CHUNK = 512
+
+
+def q8_d_chunks(d: int, d_chunk: int | None) -> list[tuple[int, int]]:
+    """(start, width) of each int32 accumulation chunk of a q8 score: the
+    chunk is always capped at Q8_MAX_CHUNK (the overflow bound), and
+    d_chunk only tightens it."""
+    dc = min(d if d_chunk is None else max(1, min(d_chunk, d)), Q8_MAX_CHUNK)
     return [(c0, min(dc, d - c0)) for c0 in range(0, d, dc)]
 
 
@@ -155,6 +200,80 @@ def tile_count_multilevel(
     return out
 
 
+def window_slots(starts, ends, n_pad: int, n: int, row_cap: int):
+    """Global CSR row of every window slot, and whether it is valid.
+
+    Window row i covers the row_cap store rows from its span start clamped
+    to [0, n_pad - row_cap]; slot (i, t) is valid when its row lies in
+    [starts[:, i], ends[:, i]) and below the live count n.  Returns flat
+    (B, w*row_cap) int64 rows and the (B, w*row_cap) bool mask, row-major
+    (the candidate order every kernel ranks in)."""
+    b, w = starts.shape
+    s_cl = torch.clamp(starts.to(torch.int64), 0, max(n_pad - row_cap, 0))
+    j = s_cl[:, :, None] + torch.arange(row_cap, device=starts.device)  # (B, w, cap)
+    ok = (j >= starts[:, :, None]) & (j < ends[:, :, None]) & (j < n)
+    return j.reshape(b, w * row_cap), ok.reshape(b, w * row_cap)
+
+
+def chunked_distance(
+    cand: torch.Tensor,     # (B, C, d) float32
+    queries: torch.Tensor,  # (B, d) float32
+    metric: str,
+    d_chunk: int | None,
+) -> torch.Tensor:
+    """l1 / l2 distances (B, C): summed per `d_chunk` block, then across
+    blocks in order, as the kernels sum (csrc/kernel_common.cuh).  Every
+    float32 candidate ranking of this module goes through it, so two plain
+    versions given the same row give the same float."""
+    diff = cand - queries[:, None, :].to(torch.float32)
+    acc = None
+    for c0, dc in d_chunks(cand.shape[-1], d_chunk):
+        part = diff[:, :, c0:c0 + dc]
+        s = part.abs().sum(dim=-1) if metric == "l1" else (part * part).sum(dim=-1)
+        acc = s if acc is None else acc + s
+    return acc if metric == "l1" else sqrt_rn(torch.clamp_min(acc, 0.0))
+
+
+def smallest_k(dist: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest of each row of dist (B, C), smaller slot first on
+    ties: (dists (B, k) with +inf pads, slots (B, k) int64 with -1 where
+    the distance is +inf); k may exceed C."""
+    b, c = dist.shape
+    k_eff = min(k, c)
+    order = torch.sort(dist, dim=1, stable=True).indices[:, :k_eff]
+    dists = torch.gather(dist, 1, order)
+    if k_eff < k:  # k exceeds the candidates: pad like the kernels do
+        pad = k - k_eff
+        dists = torch.cat([dists, dists.new_full((b, pad), float("inf"))], dim=1)
+        order = torch.cat([order, order.new_full((b, pad), -1)], dim=1)
+    return dists, torch.where(torch.isfinite(dists), order, torch.full_like(order, -1))
+
+
+def take_slots(rows: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """rows (B, C) at the selected slots (B, k), -1 where the slot is -1,
+    as int32: maps ranked slots to GLOBAL CSR rows."""
+    g = torch.gather(rows, 1, torch.clamp_min(slots, 0).long())
+    return torch.where(slots >= 0, g, torch.full_like(g, -1)).to(torch.int32)
+
+
+def candidate_topk(
+    candidates: torch.Tensor,  # (B, C, d) float32
+    valid: torch.Tensor,       # (B, C) bool
+    queries: torch.Tensor,     # (B, d) float32
+    k: int,
+    metric: str = "l2",
+    d_chunk: int | None = 512,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k smallest distances among valid dense candidates.
+    Returns dists (B, k) float32 (+inf pads) and idx (B, k) int32 LOCAL
+    candidate slots (-1 pads), smaller slot first on ties."""
+    check_dense_args(candidates, valid, queries)
+    dist = chunked_distance(candidates.to(torch.float32), queries, metric, d_chunk)
+    dist = torch.where(valid, dist, torch.full_like(dist, float("inf")))
+    dists, slots = smallest_k(dist, k)
+    return dists, slots.to(torch.int32)
+
+
 def csr_candidate_topk(
     store: torch.Tensor,    # (n_pad, d) float32 — CSR-sorted ranking vectors
     starts: torch.Tensor,   # (B, w) int32 window-row span starts
@@ -174,34 +293,59 @@ def csr_candidate_topk(
     then across blocks, as the kernel sums it.
     Returns dists (B, k) float32 (inf pads) and idx (B, k) int32 (-1 pads)."""
     check_csr_args(store, starts, ends, queries, row_cap, radii)
-    n_pad, d = store.shape
-    b, w = starts.shape
-    dev = store.device
-    s_cl = torch.clamp(starts.to(torch.int64), 0, max(n_pad - row_cap, 0))
-    j = s_cl[:, :, None] + torch.arange(row_cap, device=dev)   # (B, w, cap)
-    ok = (j >= starts[:, :, None]) & (j < ends[:, :, None]) & (j < n)
-    flat = j.reshape(b, w * row_cap)
+    flat, valid = window_slots(starts, ends, store.shape[0], n, row_cap)
     cand = store[flat]                                      # (B, w*cap, d)
     if center_cells:
         cand = torch.floor(cand) + 0.5
-    diff = cand - queries[:, None, :].to(torch.float32)
-    acc = None
-    for c0, dc in d_chunks(d, d_chunk):
-        part = diff[:, :, c0:c0 + dc]
-        s = part.abs().sum(dim=-1) if metric == "l1" else (part * part).sum(dim=-1)
-        acc = s if acc is None else acc + s
-    dist = acc if metric == "l1" else sqrt_rn(torch.clamp_min(acc, 0.0))
-    valid = ok.reshape(b, w * row_cap)
+    dist = chunked_distance(cand, queries, metric, d_chunk)
     if radii is not None:
         valid = valid & (dist <= radii[:, None].to(torch.float32))
     dist = torch.where(valid, dist, torch.full_like(dist, float("inf")))
+    dists, slots = smallest_k(dist, k)
+    return dists, take_slots(flat, slots)
 
-    k_eff = min(k, dist.shape[1])
-    order = torch.sort(dist, dim=1, stable=True).indices[:, :k_eff]
-    dists = torch.gather(dist, 1, order)
-    gidx = torch.gather(flat, 1, order).to(torch.int32)
-    if k_eff < k:  # k exceeds the window: pad like the kernel does
-        pad = k - k_eff
-        dists = torch.cat([dists, dists.new_full((b, pad), float("inf"))], dim=1)
-        gidx = torch.cat([gidx, gidx.new_full((b, pad), -1)], dim=1)
-    return dists, torch.where(torch.isfinite(dists), gidx, torch.full_like(gidx, -1))
+
+def csr_shortlist_q8(
+    q_store: torch.Tensor,     # (n_pad, d) int8 — quantized CSR store
+    row_scales: torch.Tensor,  # (n_pad, 1) float32 — per-row cell scales
+    starts: torch.Tensor,      # (B, w) int32 window-row span starts
+    ends: torch.Tensor,        # (B, w) int32 window-row span ends
+    queries: torch.Tensor,     # (B, d) float32
+    rerank_k: int,
+    n: int,                    # live CSR rows
+    row_cap: int,
+    metric: str = "l2",
+    d_chunk: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 shortlist: approximate scores of every window slot from
+    integer arithmetic, and the best `rerank_k` of them.
+
+    Per valid slot with row scale s: qs = clip(round(q / s), ±QCLIP),
+    diff = code - qs in int32, summed in int32 within each `q8_d_chunks`
+    chunk; l2 adds the chunks as float32 in order and scores s * sqrt(acc),
+    l1 scores s * (int32 total).  Integer scoring is exact, so the kernel
+    must equal this bit for bit.  Returns scores (B, rerank_k) float32
+    (+inf pads) and GLOBAL CSR rows (B, rerank_k) int32 (-1 pads),
+    best-first."""
+    check_q8_args(q_store, row_scales, starts, ends, queries, rerank_k, row_cap)
+    flat, valid = window_slots(starts, ends, q_store.shape[0], n, row_cap)
+    cand = q_store[flat].to(torch.int32)                    # (B, C, d)
+    s = row_scales[flat]                                    # (B, C, 1)
+    # tensor / tensor: a true division, as the reference's kernel divides
+    qs = torch.clamp(torch.round(queries.to(torch.float32)[:, None, :] / s),
+                     -QCLIP, QCLIP).to(torch.int32)
+    diff = cand - qs
+    acc = 0
+    for c0, dc in q8_d_chunks(q_store.shape[1], d_chunk):
+        part = diff[:, :, c0:c0 + dc]
+        if metric == "l1":
+            acc = acc + part.abs().sum(dim=-1, dtype=torch.int32)
+        else:
+            acc = acc + (part * part).sum(dim=-1, dtype=torch.int32).to(torch.float32)
+    if metric == "l1":
+        score = s[:, :, 0] * acc.to(torch.float32)
+    else:
+        score = s[:, :, 0] * sqrt_rn(acc)
+    score = torch.where(valid, score, torch.full_like(score, float("inf")))
+    dists, slots = smallest_k(score, rerank_k)
+    return dists, take_slots(flat, slots)

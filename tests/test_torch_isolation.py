@@ -85,3 +85,26 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                torch.ones((1, 1), dtype=torch.int32), torch.zeros((1, 2)),
                                2, 4, 4)
     assert tcm.launches == 0 and csr.launches == 0
+
+
+@pytest.mark.parametrize("name", ["tile_count", "candidate_topk", "csr_candidate_topk_q8"])
+def test_slice2_kernel_wrappers_refuse_cpu_tensors(name):
+    """The wrappers of tile_count, candidate_topk and csr_shortlist_q8 raise
+    on CPU tensors and count no launch."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.kernels.{name}")
+    i32 = dict(dtype=torch.int32)
+    calls = {
+        "tile_count": lambda: mod.tile_count(torch.zeros((4, 4, 1), **i32), torch.zeros((1, 2)),
+                                             torch.ones(1), 1, 4),
+        "candidate_topk": lambda: mod.candidate_topk(torch.zeros((1, 3, 2)),
+                                                     torch.ones((1, 3), dtype=torch.bool),
+                                                     torch.zeros((1, 2)), 2),
+        "csr_candidate_topk_q8": lambda: mod.csr_shortlist_q8(
+            torch.zeros((4, 2), dtype=torch.int8), torch.ones((4, 1)),
+            torch.zeros((1, 1), **i32), torch.ones((1, 1), **i32), torch.zeros((1, 2)), 2, 4, 4),
+    }
+    with pytest.raises(ValueError, match="CUDA"):
+        calls[name]()
+    assert mod.launches == 0

@@ -287,3 +287,67 @@ def test_gpu_csr_candidate_topk_kernel_matches_plain(paper):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(np_(gi), np_(wi))
     assert_dists_close(gd, wd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_gpu_tile_count_kernel_matches_plain(metric):
+    """Every level of a 128-grid pyramid, grid corners included: exact."""
+    dev = require_cuda()
+    from repro_torch.kernels import tile_count as tc
+
+    cfg, idx, rng = _pyramid_fixture(seed=22, grid=128, tile=16)
+    g = cfg.padded_size
+    q = np.concatenate([np.array([[0, 0], [g - 1e-3, g - 1e-3], [0, g - 1e-3], [g - 1e-3, 0]],
+                                 np.float32),
+                        rng.uniform(0, g, size=(508, 2)).astype(np.float32)])
+    r = rng.uniform(0.5, cfg.max_radius, size=(512,)).astype(np.float32)
+    for lv, arr in enumerate(idx.pyramid):
+        args = (_t(arr), _t(q), _t(r))
+        want = ref.tile_count(*args, 1 << lv, cfg.tile, metric=metric)
+        got = tc.tile_count(*[a.to(dev) for a in args], 1 << lv, cfg.tile, metric=metric)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(np_(got), np_(want), err_msg=f"level {lv}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_chunk", [None, 4])
+def test_gpu_candidate_topk_kernel_matches_plain_and_csr_kernel(d_chunk):
+    """Against the plain version (slots exact, distances within DIST_RTOL),
+    and bit-equal to the csr_candidate_topk kernel on the same rows."""
+    dev = require_cuda()
+    from repro_torch.kernels import candidate_topk as ctk
+    from repro_torch.kernels import csr_candidate_topk as csr
+
+    store, starts, ends, q = [_t(a) for a in _csr_fixture(seed=23, b=64, w=8, d=11)]
+    flat, valid = ref.window_slots(starts, ends, store.shape[0], store.shape[0], 16)
+    cand = store[flat]
+    dc = 11 if d_chunk is None else d_chunk
+    wd, wi = ref.candidate_topk(cand, valid, q, 9, d_chunk=dc)
+    gd, gi = ctk.candidate_topk(cand.to(dev), valid.to(dev), q.to(dev), 9, d_chunk=dc)
+    fd, fi = csr.csr_candidate_topk(store.to(dev), starts.to(dev), ends.to(dev), q.to(dev), 9,
+                                    store.shape[0], 16, d_chunk=d_chunk)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(np_(gi), np_(wi))
+    assert_dists_close(gd, wd)
+    assert torch.equal(gd, fd)
+    assert torch.equal(ref.take_slots(flat.to(dev), gi), fi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+@pytest.mark.parametrize("d_chunk", [None, 5])
+def test_gpu_csr_shortlist_q8_kernel_matches_plain(metric, d_chunk):
+    """Integer scoring: scores and rows bit-equal to the plain version."""
+    dev = require_cuda()
+    from repro_torch.kernels import csr_candidate_topk_q8 as q8
+
+    store, starts, ends, q = [_t(a) for a in _csr_fixture(seed=24, b=64, w=8, d=11)]
+    scales = store.abs().amax(dim=1, keepdim=True) / 100.0
+    codes = torch.clamp(torch.round(store / scales), -127, 127).to(torch.int8)
+    args = (codes, scales, starts, ends, q * 3.0, 20, store.shape[0] - 7, 16)
+    want = ref.csr_shortlist_q8(*args, metric=metric, d_chunk=d_chunk)
+    got = q8.csr_shortlist_q8(*[a.to(dev) if isinstance(a, torch.Tensor) else a for a in args],
+                              metric=metric, d_chunk=d_chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])

@@ -1,0 +1,250 @@
+"""The port's quantized candidate path (`hopper_q8`) against the JAX
+package's (`pallas_q8`).
+
+Same numpy points, the reference's test configuration (grid 64, window 8,
+row_cap 4, N=256), a coordinate-selecting projection at d=8 so the two
+indexes are equal array for array; the port loads the reference's index
+through `index_from_numpy`.  On the CPU the port runs its plain versions
+and the reference runs Pallas in interpret mode.  Tolerances: the int8
+store, the shortlist's ids and scores, and every search field but `dists`
+exact; `dists` within DIST_RTOL (the float32 re-rank sums in the
+reference's XLA order); inside the port, bit-equal to `hopper`.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _torch_port import assert_dists_close, assert_results_match, np_
+
+from repro import api as japi
+from repro.core.quantized import quantize_index as jquantize_index
+from repro.kernels import ops as jops
+from repro.utils import quantize as jquant
+from repro_torch import api as tapi
+from repro_torch.convert import index_from_numpy
+from repro_torch.core import batched
+from repro_torch.core.active_search import padded_csr, window_spans
+from repro_torch.core.projection import to_grid_coords
+from repro_torch.core.quantized import quantize_index
+from repro_torch.kernels import ops, ref
+from repro_torch.utils import quantize
+
+CFG = dict(grid_size=64, tile=8, n_classes=3, window=8, row_cap=4, r0=4, k_slack=2.0)
+N, B, K, D = 256, 8, 3, 8
+
+
+def _indexes(seed=0, n=N, spread=1.0, **over):
+    """(reference index, cfg, port index, cfg, points, queries) on the same
+    numpy points; grid coordinates are dims 0 and 1."""
+    kw = {**CFG, **over}
+    rng = np.random.default_rng(seed)
+    pts = (rng.normal(size=(n, D)) * spread).astype(np.float32)
+    labels = rng.integers(0, 3, size=n).astype(np.int32)
+    mat = np.zeros((D, 2), np.float32)
+    mat[0, 0] = mat[1, 1] = 1.0
+    g = pts @ mat
+    lo, hi = g.min(0) - 0.05, g.max(0) + 0.05
+    jcfg, tcfg = japi.GridConfig(**kw), tapi.GridConfig(**kw)
+    jidx = japi.build_index(jnp.asarray(pts), jcfg,
+                            japi.Projection(jnp.asarray(mat), jnp.asarray(lo), jnp.asarray(hi)),
+                            labels=jnp.asarray(labels))
+    tidx = index_from_numpy(jax.tree.map(np.asarray, jidx)._asdict(), tcfg, device="cpu")
+    q = rng.normal(size=(B, D)).astype(np.float32) * spread
+    q[:4, :2] = [[-9, -9], [9, 9], [-9, 9], [9, -9]]  # the grid's corners
+    return jidx, jcfg, tidx, tcfg, q
+
+
+@pytest.fixture(scope="module", params=["l2", "l1"])
+def pair(request):
+    """(reference searcher, port searcher, queries) on pallas / hopper."""
+    jidx, jcfg, tidx, tcfg, q = _indexes(seed=1, metric=request.param)
+    js = japi.ActiveSearcher.from_index(
+        jidx, jcfg, plan=japi.ExecutionPlan(backend="pallas", interpret=True))
+    ts = tapi.ActiveSearcher.from_index(tidx, tcfg, device="cpu")
+    return js, ts, q
+
+
+# ------------------------------------------------------------------ store ----
+
+
+@pytest.mark.parametrize("n,spread", [(N, 1.0), (N, 0.05), (3, 1.0)])
+def test_quantize_index_matches_reference(n, spread):
+    """Every array of the store bit-equal, including the per-cell scales
+    (the reference's jitted `/ 127` is a reciprocal multiply) and, at
+    n < row_cap, the padded slack rows."""
+    jidx, jcfg, tidx, tcfg, _ = _indexes(seed=2, n=n, spread=spread)
+    want, got = jquantize_index(jidx, jcfg), quantize_index(tidx, tcfg)
+    for field in want._fields:
+        w, g = np.asarray(getattr(want, field)), np_(getattr(got, field))
+        assert g.dtype == w.dtype and g.shape == w.shape, field
+        np.testing.assert_array_equal(g, w, err_msg=field)
+
+
+def test_codec_matches_reference():
+    """The int8 codec: codes equal the reference's (a true division, round
+    half to even), and the round trip stays within half a step."""
+    rng = np.random.default_rng(3)
+    x = (rng.normal(size=(64, 5)) * 3).astype(np.float32)
+    x[0, :3] = [0.5, 1.5, -2.5]  # ties: half to even
+    scale = np.float32(0.5) * np.ones((64, 1), np.float32)
+    np.testing.assert_array_equal(
+        np_(quantize.quantize_with_scale(torch.from_numpy(x), torch.from_numpy(scale))),
+        np.asarray(jquant.quantize_with_scale(jnp.asarray(x), jnp.asarray(scale))))
+    q, s = quantize.quantize_symmetric(torch.from_numpy(x))
+    jq, js = jax.jit(jquant.quantize_symmetric)(jnp.asarray(x))
+    np.testing.assert_array_equal(np_(q), np.asarray(jq))
+    assert np_(s) == np.asarray(js)
+    back = quantize.dequantize(q, s)
+    assert back.dtype == torch.float32 and (back - torch.from_numpy(x)).abs().max() <= s / 2
+
+
+# ------------------------------------------------------ csr_shortlist_q8 ----
+
+
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+@pytest.mark.parametrize("d_chunk", [None, 1, 3])
+def test_csr_shortlist_q8_matches_reference_exactly(metric, d_chunk):
+    """Integer scoring: ids and scores bit-equal, l1 and l2, each chunking."""
+    jidx, jcfg, tidx, tcfg, q = _indexes(seed=4, metric=metric)
+    jstore, tstore = jquantize_index(jidx, jcfg), quantize_index(tidx, tcfg)
+    st, en = window_spans(tidx, tcfg, to_grid_coords(tidx.proj, torch.from_numpy(q), 64))
+    want = jops.csr_shortlist_q8(jstore.q_points, jstore.row_scales, jnp.asarray(np_(st)),
+                                 jnp.asarray(np_(en)), jnp.asarray(q), 6, N, 4,
+                                 metric=metric, d_chunk=d_chunk, interpret=True)
+    got = ops.csr_shortlist_q8(tstore.q_points, tstore.row_scales, st, en,
+                               torch.from_numpy(q), 6, N, 4, metric=metric, d_chunk=d_chunk)
+    np.testing.assert_array_equal(np_(got[1]), np.asarray(want[1]))
+    np.testing.assert_array_equal(np_(got[0]), np.asarray(want[0]))
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+
+
+def test_q8_d_chunks_cap_the_int32_sum():
+    assert ref.q8_d_chunks(1200, None) == [(0, 512), (512, 512), (1024, 176)]
+    assert ref.q8_d_chunks(8, 3) == [(0, 3), (3, 3), (6, 2)]
+
+
+def test_csr_shortlist_q8_rejects_bad_rerank_k():
+    _, _, tidx, tcfg, q = _indexes(seed=5)
+    store = quantize_index(tidx, tcfg)
+    st, en = window_spans(tidx, tcfg, to_grid_coords(tidx.proj, torch.from_numpy(q), 64))
+    for rk in (0, tcfg.window * tcfg.row_cap + 1):
+        with pytest.raises(ValueError, match="rerank_k"):
+            ops.csr_shortlist_q8(store.q_points, store.row_scales, st, en,
+                                 torch.from_numpy(q), rk, N, tcfg.row_cap)
+
+
+# --------------------------------------------------------- candidate_topk ----
+
+
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+@pytest.mark.parametrize("d,d_chunk,k", [(9, 512, 5), (9, 3, 5), (9, 512, 40), (2, 512, 5)])
+def test_candidate_topk_matches_reference(metric, d, d_chunk, k):
+    """LOCAL slots exact (k > C pads with -1 / +inf); distances within
+    DIST_RTOL (XLA sums a row of 9 in another order, and contracts the l2
+    sum into an FMA), exact for l1 at d = 2."""
+    rng = np.random.default_rng(6)
+    cand = rng.normal(size=(7, 33, d)).astype(np.float32)
+    valid = rng.uniform(size=(7, 33)) < 0.8
+    valid[0] = False  # a lane with no valid candidate
+    q = rng.normal(size=(7, d)).astype(np.float32)
+    want = jops.candidate_topk(jnp.asarray(cand), jnp.asarray(valid), jnp.asarray(q), k,
+                               metric=metric, d_chunk=d_chunk, interpret=True)
+    got = ops.candidate_topk(torch.from_numpy(cand), torch.from_numpy(valid),
+                             torch.from_numpy(q), k, metric=metric, d_chunk=d_chunk)
+    np.testing.assert_array_equal(np_(got[1]), np.asarray(want[1]))
+    assert_dists_close(got[0], want[0])
+    if d == 2 and metric == "l1":
+        np.testing.assert_array_equal(np_(got[0]), np.asarray(want[0]))
+
+
+@pytest.mark.parametrize("d_chunk", [None, 48])
+def test_candidate_topk_sums_like_csr_candidate_topk(d_chunk):
+    """The two plain versions rank the same row to the same float whatever
+    the candidate count: the shortlist re-rank (C = rerank_k) and the fused
+    window (C = w*row_cap) share one summation order at d = 128."""
+    rng = np.random.default_rng(7)
+    store = torch.from_numpy(rng.normal(size=(600, 128)).astype(np.float32))
+    starts = torch.from_numpy(rng.integers(0, 500, size=(5, 6)).astype(np.int32))
+    ends = starts + 16
+    q = torch.from_numpy(rng.normal(size=(5, 128)).astype(np.float32))
+    wd, wi = ref.csr_candidate_topk(store, starts, ends, q, 96, 600, 16, d_chunk=d_chunk)
+    sub = wi[:, 3:40]  # a sub-list of rows, so C differs from the window's
+    gd, gi = ref.candidate_topk(store[sub.long()], sub >= 0, q, 37, d_chunk=d_chunk or 128)
+    assert torch.equal(gd, wd[:, 3:40])
+    assert torch.equal(gi, torch.arange(37, dtype=torch.int32).expand(5, 37))
+
+
+# ---------------------------------------------------------------- backend ----
+
+
+@pytest.mark.parametrize("mode", ["refined", "paper"])
+def test_hopper_q8_search_matches_reference(pair, mode):
+    js, ts, q = pair
+    got = ts.with_plan(backend="hopper_q8").search(q, K, mode=mode)
+    assert_results_match(got, js.with_plan(backend="pallas_q8").search(jnp.asarray(q), K, mode=mode))
+
+
+@pytest.mark.parametrize("mode", ["refined", "paper"])
+def test_hopper_q8_classify_matches_reference(pair, mode):
+    js, ts, q = pair
+    got = ts.with_plan(backend="hopper_q8").classify(q, K, mode=mode)
+    want = js.with_plan(backend="pallas_q8").classify(jnp.asarray(q), K, mode=mode)
+    np.testing.assert_array_equal(np_(got), np.asarray(want))
+    counts = ts.with_plan(backend="hopper_q8").count_at(q, np.full(B, 4, np.int32))
+    np.testing.assert_array_equal(np_(counts), np_(ts.count_at(q, np.full(B, 4, np.int32))))
+
+
+def _assert_lanes_equal(a, b, lanes, msg):
+    for field in a._fields:
+        assert torch.equal(getattr(a, field)[lanes], getattr(b, field)[lanes]), (msg, field)
+
+
+@pytest.mark.parametrize("d_chunk", [None, 3])
+@pytest.mark.parametrize("spread", [0.02, 1.5])
+def test_hopper_q8_containment_implies_bit_parity(pair, d_chunk, spread):
+    """A full-window shortlist is bit-equal to `hopper` on every lane; at the
+    default rerank_k, so is every lane whose shortlist holds hopper's
+    top-k (rows of the shortlist mapped to ids)."""
+    _, ts, _ = pair
+    cfg = ts.cfg
+    _, _, tidx, _, q = _indexes(seed=8, spread=spread, metric=cfg.metric)
+    s = tapi.ActiveSearcher.from_index(tidx, cfg, device="cpu").with_plan(d_chunk=d_chunk)
+    exact = s.search(q, K)
+    q8 = s.with_plan(backend="hopper_q8")
+    full = q8.with_plan(rerank_k=cfg.window * cfg.row_cap).search(q, K)
+    _assert_lanes_equal(exact, full, torch.arange(B), "full window")
+
+    rk = batched.resolve_rerank_k(cfg, K, None)
+    _, sl = batched.q8_shortlist(tidx, q8._quantized_store, cfg, torch.from_numpy(q), rk,
+                                 d_chunk=d_chunk)
+    ids = padded_csr(tidx, cfg.row_cap)[3]
+    sl_ids = torch.where(sl >= 0, ids[sl.clamp_min(0).long()], torch.full_like(sl, -2))
+    covered = ((exact.ids[:, :, None] == sl_ids[:, None, :]).any(-1) | ~exact.valid).all(-1)
+    assert bool(covered.any())
+    _assert_lanes_equal(exact, q8.search(q, K), covered, "covered")
+
+
+def test_hopper_q8_chunked_and_memoised(pair):
+    _, ts, q = pair
+    s = ts.with_plan(backend="hopper_q8")
+    whole = s.search(q, K)
+    _assert_lanes_equal(whole, s.with_plan(chunk_size=3).search(q, K), torch.arange(B), "chunked")
+    assert "_quantized_store" in s.__dict__
+
+
+def test_rerank_k_plan_checks(pair):
+    _, ts, q = pair
+    with pytest.raises(ValueError, match="positive"):
+        tapi.ExecutionPlan(rerank_k=0)
+    with pytest.raises(ValueError, match="supports_quantized"):
+        ts.with_plan(rerank_k=8).search(q, K)
+    with pytest.raises(ValueError, match="rerank_k=2 < k=3"):
+        ts.with_plan(backend="hopper_q8", rerank_k=2).search(q, K)
+    switched = ts.with_plan(backend="hopper_q8", rerank_k=8).with_plan(backend="hopper")
+    assert switched.plan.rerank_k is None
+    kept = ts.with_plan(backend="hopper_q8", rerank_k=8, d_chunk=2).with_plan(backend="hopper_gather")
+    assert kept.plan.rerank_k is None and kept.plan.d_chunk == 2
+    impl = tapi.get_backend("hopper_q8")
+    assert impl.supports_quantized and impl.supports_d_chunk and impl.supports_adaptive_r0
