@@ -4,22 +4,30 @@
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout on a machine with one card and the CUDA
-toolkit.  It builds the five Hopper kernels from src/repro_torch/csrc with
-nvcc (one process per source, all at once) and prints one JSON line per
-phase:
+toolkit.  It builds the seven Hopper kernels from src/repro_torch/csrc
+with nvcc (one process per source, all at once) and prints one JSON line
+per phase:
 
   0  device: name, count, power limit; every kernel built for sm_90a, with
      build seconds and ptxas's registers / shared memory / spills;
   1  each kernel against its plain PyTorch version on the card, on random
-     inputs at the shapes of phases 2 and 3 (counts, int8 shortlists,
+     inputs at the shapes of phases 2-4 (counts, int8 shortlists,
      paper-mode and d=2 results exact; d=128 float distances within rtol
      1e-5, ids equal up to near-ties, which are counted), and
      candidate_topk bit-equal to csr_candidate_topk on the same rows;
+     brute_knn at d = 2 / 128 / 40, k up to its limit, k > N, non-finite
+     rows, and integer lattices (exact, ties to the lower index);
+     flash_attention over head dims 16-128, ragged tiles, causal and full,
+     bf16;
   2  the paper's setup at full scale (PAPER_GRID, 1M 2-D points, 4096
      queries): build, search, classify in both modes on `hopper`, recall
      and class agreement against `exact`, launch counts, and the first
      256 queries re-run on the CPU through the plain versions (exactly
-     equal); then `hopper_stacked.count_at` at the loop's final radii
+     equal); `exact` on the brute_knn kernel (its only launches), held
+     against the plain version it replaced (ids equal on >= 99.9% of
+     queries, squared distances within 8 ulps of ‖q‖² + ‖x‖²; the first
+     chunk's share of id lists equal to float64 distances), both timed;
+     then `hopper_stacked.count_at` at the loop's final radii
      (equal to `hopper`'s, one tile_count launch per level),
      `hopper_gather` (both modes equal to `hopper` in every field) and
      `hopper_q8` (paper mode equal to `hopper`, refined recall); the count
@@ -27,20 +35,29 @@ phase:
      versions;
   3  a SIFT1M-shaped datastore (1M points, d=128, 10,000 queries; planted
      data, nothing downloaded): PROD_GRID, PCA projection, k=10, chunks of
-     2048; recall against `exact`, a 256-query CPU cross-check (ids
+     2048; recall against `exact` (on brute_knn, checked and timed as in
+     phase 2), a 256-query CPU cross-check (ids
      equal for >= 99% of queries); then `hopper_q8` on the same index at
      full size (recall, the share of lanes whose shortlist holds
      `hopper`'s top-10 and those lanes equal to `hopper` in every field,
      candidate bytes float32 against int8, times, idle share, peak memory,
      its own CPU cross-check) and `hopper_gather` on one chunk (equal to
      `hopper`); the candidate kernels timed on one chunk, each output held
-     against its plain version's as in phase 1.
+     against its plain version's as in phase 1;
+  4  flash_attention, which no path of the system calls, at
+     musicgen-medium's attention width (24 heads, head_dim 64) and a 32,768
+     sequence, float32, causal: one counted call, its time, every head
+     held against the plain version (all heads at S = 4096 causal and
+     full too), and scaled_dot_product_attention timed on the same
+     tensors as a yardstick.
 
 Each path runs with every launch counter set to 0 just before it and read
 just after; a kernel of the path that was never launched fails the run.
 Then one {"kernels": [...]} line (per kernel: launches on the paths,
 largest error against the plain version, kernel and plain time, the bound
-over the distinct bytes the timed call must move), the card's name and
+over the distinct bytes and the operations the timed call needs, and the
+library call's time where one PyTorch call computes the same function),
+the card's name and
 power limit as nvidia-smi prints them, and the final {"ok": true, ...}
 line.  Any failed check raises and the
 script exits non-zero; so does a machine without a card, or a directory
@@ -76,9 +93,13 @@ KERNELS = {
     "tile_count": ("tile_count", "src/repro/kernels/tile_count.py:111"),
     "candidate_topk": ("candidate_topk", "src/repro/kernels/candidate_topk.py:72"),
     "csr_shortlist_q8": ("csr_candidate_topk_q8", "src/repro/kernels/csr_candidate_topk_q8.py:179"),
+    "brute_knn": ("brute_knn", "src/repro/kernels/brute_knn.py:77"),
+    "flash_attention": ("flash_attention", "src/repro/kernels/flash_attention.py:89"),
 }
 SOURCES = tuple(src for src, _ in KERNELS.values())
 FUSED_PATH = ("tile_count_multilevel", "csr_candidate_topk")  # the kernels `hopper` runs
+NO_PATH = ("flash_attention",)  # no path of the system calls it: phase 4 only
+F32_EPS = float(np.finfo(np.float32).eps)
 
 
 def emit(obj) -> None:
@@ -194,6 +215,38 @@ def compare_topk(got, want, store, queries, metric, rtol):
         a, b = d64.sort(dim=1).values
         check(torch.allclose(a, b, rtol=rtol, atol=0), f"row {r}: ids differ beyond a tie")
     return err, int(differ.sum())
+
+
+def compare_knn(got, want, queries, points, min_equal_rows=0.999):
+    """brute_knn (dists, ids) against its plain version: the same pads,
+    squared distances within 8 float32 ulps of ‖q‖² + max‖x‖² (the form
+    cancels, and the product sums in another order than torch.matmul's),
+    ids equal on at least `min_equal_rows` of the queries, and every row
+    whose ids differ ranks equally far points within that scale
+    (recomputed in float64).  Returns (max abs dist error, share of equal
+    id rows, rows that differ)."""
+    (gd, gi), (wd, wi) = got, want
+    check(torch.equal(torch.isinf(gd), torch.isinf(wd)), "brute_knn pad pattern differs")
+    check(torch.equal(gi == -1, torch.isinf(gd)), "brute_knn: ids and +inf pads disagree")
+    xx = points.double().pow(2).sum(1)
+    tol = 8 * F32_EPS * (queries.double().pow(2).sum(1, keepdim=True)
+                         + xx[torch.isfinite(xx)].max())
+    fin = torch.isfinite(wd)
+    err2 = (gd.double() ** 2 - wd.double() ** 2).abs()
+    check(bool((err2 <= tol)[fin].all()), "brute_knn squared distances beyond 8 ulps")
+    err = float((gd[fin] - wd[fin]).abs().max()) if bool(fin.any()) else 0.0
+    same = (gi == wi).all(dim=1)
+    frac = float(same.float().mean())
+    check(frac >= min_equal_rows, f"brute_knn: only {frac:.5f} of id rows equal")
+    rows = (~same).nonzero().flatten()
+    for r in rows.tolist():
+        ids = torch.stack([gi[r], wi[r]]).long()
+        d2 = (points[ids.clamp_min(0)].double() - queries[r].double()).pow(2).sum(-1)
+        d2 = torch.where(ids >= 0, d2, torch.full_like(d2, float("inf")))
+        a, b = d2.sort(dim=1).values
+        check(bool(((a == b) | ((a - b).abs() <= tol[r])).all()),
+              f"brute_knn row {r}: ids differ beyond a near-tie")
+    return err, frac, int(rows.numel())
 
 
 def compare_dense(got, want, cand, queries, metric, rtol):
@@ -402,6 +455,57 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
     out["candidate_topk"].append({"case": "same_rows_as_csr_candidate_topk", "B": b128,
                                   "C": prod.window * prod.row_cap, "d": 128,
                                   "d_chunks": [None, 48], "bit_equal": True})
+    del pts, crd, codes128, codes2, cand
+
+    # brute_knn: random points at the exact paths' d (2, 128) and k (11,
+    # 10), the tests' d and largest k, k > N, non-finite rows, and integer
+    # lattices where every distance is exact and ties take the lower index
+    bk = mods["brute_knn"]
+    kcases = [("d2_k11", 4096, 262_147, 2, 11, "normal"), ("d128_k10", 1000, 65_537, 128, 10, "normal"),
+              ("d40_k20", 300, 5000, 40, 20, "normal"), ("k_exceeds_n", 37, 13, 7, 20, "normal"),
+              ("k_max", 50, 777, 9, bk.MAX_K, "normal"), ("non_finite_rows", 64, 500, 4, 8, "nan"),
+              ("lattice_d2", 500, 3000, 2, 11, "lattice"), ("lattice_d5", 200, 3000, 5, 20, "lattice")]
+    for label, kb, kn, kd, kk, kind in kcases:
+        if kind == "lattice":
+            kq = torch.randint(0, 8, (kb, kd), generator=gen, device=dev).float()
+            kx = torch.randint(0, 8, (kn, kd), generator=gen, device=dev).float()
+        else:
+            kq = torch.randn((kb, kd), generator=gen, device=dev)
+            kx = torch.randn((kn, kd), generator=gen, device=dev)
+        if kind == "nan":
+            kx[3] = float("nan")
+            kx[5, 0] = float("inf")
+        got = bk.brute_knn(kq, kx, kk)
+        want = ref.brute_knn(kq, kx, kk)
+        bit = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        if kind == "lattice":
+            check(bit, f"brute_knn {label} not exactly equal")
+        if kind == "nan":
+            check(not bool(((got[1] == 3) | (got[1] == 5)).any()), "brute_knn ranked a non-finite row")
+        err, frac, differ = compare_knn(got, want, kq, kx)
+        max_err["brute_knn"] = max(max_err["brute_knn"], err)
+        out["brute_knn"].append({"case": label, "B": kb, "N": kn, "d": kd, "k": kk,
+                                 "max_abs_err": err, "id_rows_equal": frac,
+                                 "rows_differ": differ, "bit_equal": bit})
+
+    # flash_attention: the reference tests' shapes, ragged tiles (100 / 70
+    # rows), head dims 16-128, causal and full, bf16; float32 within 2e-5
+    fa = mods["flash_attention"]
+    fcases = [(2, 64, 64, 4, 32, True, torch.float32), (2, 32, 96, 3, 16, False, torch.float32),
+              (1, 256, 256, 1, 128, True, torch.float32), (1, 100, 100, 2, 48, True, torch.float32),
+              (1, 100, 70, 2, 20, False, torch.float32), (1, 64, 64, 2, 32, True, torch.bfloat16)]
+    for fb, fs, ft, fh, fhd, causal, dtype in fcases:
+        fq, fk, fv = (torch.randn((fb, n_, fh, fhd), generator=gen, device=dev).to(dtype)
+                      for n_ in (fs, ft, ft))
+        got = fa.flash_attention(fq, fk, fv, causal=causal)
+        want = ref.flash_attention(fq, fk, fv, causal=causal)
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        check(got.dtype == dtype and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"flash_attention {(fb, fs, ft, fh, fhd, causal, dtype)} differs")
+        err = float((got.float() - want.float()).abs().max())
+        max_err["flash_attention"] = max(max_err["flash_attention"], err)
+        out["flash_attention"].append({"shape": [fb, fs, ft, fh, fhd], "causal": causal,
+                                       "dtype": str(dtype), "tol": tol, "max_abs_err": err})
     emit(out)
     return max_err
 
@@ -473,6 +577,83 @@ def run_main_path(label, searcher, queries, k, mods, classify: bool, expect=None
     return out
 
 
+def float64_agreement(queries, points, ids, k, block=65_536) -> float:
+    """Share of queries whose ids equal their k nearest points by float64
+    distance (lower index first on ties): how exact `exact` is, given that
+    its float32 ‖q‖² − 2q·x + ‖x‖² cancels."""
+    q = queries.double()
+    best_d = torch.empty((q.shape[0], 0), dtype=torch.float64, device=q.device)
+    best_i = torch.empty((q.shape[0], 0), dtype=torch.int64, device=q.device)
+    for off in range(0, points.shape[0], block):
+        blk = points[off:off + block].double()
+        d = torch.cdist(q, blk, compute_mode="use_mm_for_euclid_dist")
+        cat_d = torch.cat([best_d, d], dim=1)
+        cat_i = torch.cat([best_i, torch.arange(off, off + blk.shape[0],
+                                                device=q.device).expand(q.shape[0], -1)], dim=1)
+        order = torch.sort(cat_d, dim=1, stable=True).indices[:, :k]
+        best_d, best_i = torch.gather(cat_d, 1, order), torch.gather(cat_i, 1, order)
+    return float((best_i == ids.long()).all(dim=1).float().mean())
+
+
+def run_exact(label, searcher, queries, k, mods, classify: bool):
+    """The `exact` backend on the card, its search (and classify) counted
+    with the launch counters zeroed just before and read just after: only
+    brute_knn may launch, once per chunk of each call.  Then its wall time
+    (median of 3); the plain version — the route `exact` took before the
+    kernel — over the same chunks, timed once on the host clock (the
+    "before"); both outputs held against each other on every query; and
+    the kernel and the plain version timed at the path's chunk shape.
+    Returns (search result, classes, launches, record)."""
+    from repro_torch.kernels import ref
+
+    ex = searcher.with_plan(backend="exact")
+    ex.search(queries, k)                                   # warm-up, not counted
+    torch.cuda.synchronize()
+    reset(mods)
+    truth = ex.search(queries, k)
+    cls = ex.classify(queries, k) if classify else None
+    torch.cuda.synchronize()
+    launches = counts(mods)
+    chunk = ex.plan.chunk_size or queries.shape[0]
+    calls = (2 if classify else 1) * -(-queries.shape[0] // chunk)
+    check(launches["brute_knn"] == calls and sum(launches.values()) == calls,
+          f"{label} exact: launched {launches}, expected {calls} brute_knn")
+    check(on_card(truth.ids, truth.dists), f"{label} exact: output left the card")
+    wall = search_wall_ms(ex, queries, k, reps=3)
+
+    pts = ex._exact_ordered[0]
+    bk = mods["brute_knn"].brute_knn
+    parts = queries.split(chunk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = [ref.brute_knn(qc, pts, k) for qc in parts]
+    torch.cuda.synchronize()
+    plain_wall = 1e3 * (time.perf_counter() - t0)
+    got = [bk(qc, pts, k) for qc in parts]
+    err, frac, differ = compare_knn(
+        (torch.cat([g[0] for g in got]), torch.cat([g[1] for g in got])),
+        (torch.cat([w[0] for w in want]), torch.cat([w[1] for w in want])), queries, pts)
+    f64 = float64_agreement(parts[0], pts, got[0][1], k)
+    del got, want
+
+    qt = parts[0].contiguous()
+    b, d = qt.shape
+    n = pts.shape[0]
+    ms, _ = time_ms(lambda: bk(qt, pts, k))
+    plain_ms, _ = time_ms(lambda: ref.brute_knn(qt, pts, k), reps=2)
+    # bytes: points and queries read once, (dists, ids) written once;
+    # operations: 2d per (query, point) pair for the product and 3 for
+    # ‖q‖² − 2q·x + ‖x‖² (the root and the top-k test, taken only by the
+    # pairs that reach them, are not counted)
+    b_ms, b_by = bound((n + b) * d * 4 + b * k * 8, b * n * (2 * d + 3))
+    record = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+              "max_abs_err": err, "shape": f"B={b} N={n} d={d} k={k}",
+              "id_rows_equal_to_plain": frac, "rows_differ": differ,
+              "first_chunk_id_rows_equal_to_float64": f64,
+              "exact_search_wall_ms": wall, "plain_route_wall_ms": plain_wall}
+    return truth, cls, launches, record
+
+
 def phase2(seed, api, cfg, k, mods, timings, n=1_000_000, b=4096):
     from repro_torch.core import batched, projection, pyramid
     from repro_torch.core.active_search import padded_csr, window_spans
@@ -500,10 +681,7 @@ def phase2(seed, api, cfg, k, mods, timings, n=1_000_000, b=4096):
     q_grid = projection.to_grid_coords(s.index.proj, q, cfg.grid_size)
     stats = batched.radius_search_batched(s.index, cfg, q_grid, k)
 
-    ex = s.with_plan(backend="exact")
-    truth = ex.search(q, k)
-    truth_cls = ex.classify(q, k)
-    torch.cuda.synchronize()
+    truth, truth_cls, exact_launches, exact_rec = run_exact("phase 2", s, q, k, mods, classify=True)
 
     # the first 256 queries again on the CPU, through the plain versions
     cpu = api.ActiveSearcher.from_index(s.index, cfg, device="cpu")
@@ -603,6 +781,7 @@ def phase2(seed, api, cfg, k, mods, timings, n=1_000_000, b=4096):
         "recall_at_k_vs_exact": recall(res.ids, truth.ids, k),
         "class_agreement_vs_exact": {
             m: float((run[m] == truth_cls).float().mean()) for m in ("paper", "refined")},
+        "exact": {"launches_search_classify": exact_launches, **exact_rec},
         "cpu_crosscheck": {"queries": 256, "exact": True, "max_dist_abs_err": dist_err},
         "csr_candidate_topk_paper_mode_ms": csr_ms,
         "peak_mem_gb": run["peak_mem_gb"],
@@ -617,7 +796,9 @@ def phase2(seed, api, cfg, k, mods, timings, n=1_000_000, b=4096):
                       "launches_per_search": run_q["per_search"],
                       "search_ms": run_q["search_wall_ms"], "peak_mem_gb": run_q["peak_mem_gb"]},
     })
-    return [run["launches"], stacked_launches, run_g["launches"], run_q["launches"]]
+    timings["brute_knn_d2"] = exact_rec
+    return [run["launches"], stacked_launches, run_g["launches"], run_q["launches"],
+            exact_launches]
 
 
 def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
@@ -647,8 +828,8 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
     prof = device_profile(lambda: s.search(q, k))
     stats = batched.radius_search_batched(
         s.index, cfg, projection.to_grid_coords(s.index.proj, q, cfg.grid_size), k)
-    truth = s.with_plan(backend="exact").search(q, k)
-    torch.cuda.synchronize()
+    truth, _, exact_launches, exact_rec = run_exact("phase 3", s, q, k, mods, classify=False)
+    timings["brute_knn"] = exact_rec
 
     cpu = api.ActiveSearcher.from_index(s.index, cfg, plan=s.plan, device="cpu")
     before = counts(mods)
@@ -771,6 +952,7 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
         "truncated_frac": float(res.truncated.float().mean()),
         "tile_dmas_skipped": int(stats["tile_dmas_skipped"]),
         "recall_at_k_vs_exact": recall(res.ids, truth.ids, k),
+        "exact": {"launches_search": exact_launches, **exact_rec},
         "cpu_crosscheck": {"queries": 256, "id_lists_equal_frac": frac},
         "timed_chunk": {"valid_pairs": pairs, "distinct_rows": distinct,
                         "max_abs_err": err, "tie_swaps": swaps},
@@ -799,10 +981,119 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
                                     "search_ms": run_g["search_wall_ms"],
                                     "peak_mem_gb": run_g["peak_mem_gb"]},
     })
-    return [run["launches"], run_q["launches"], run_g["launches"]]
+    return [run["launches"], run_q["launches"], run_g["launches"], exact_launches]
+
+
+# ----------------------------------------------------------------- phase 4 ---
+
+
+def phase4(seed, mods, timings, s=32_768, h=24, hd=64, s_check=4096):
+    """flash_attention at musicgen-medium's attention width (24 heads, kv
+    24, head_dim 64; src/repro/configs/musicgen_medium.py) and prefill_32k's
+    sequence (src/repro/configs/shapes.py), batch 1, float32, causal.  No
+    path of the system calls it, so the phase's one call at full width is
+    its run, counted as the paths are."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import ref
+
+    fa = mods["flash_attention"]
+    gen = torch.Generator(device=DEV).manual_seed(seed + 4)
+
+    def qkv(n):
+        return [torch.randn((1, n, h, hd), generator=gen, device=DEV) for _ in range(3)]
+
+    # every head at S = 4096, causal and full, against the plain version
+    small = qkv(s_check)
+    errs = {}
+    for causal in (True, False):
+        got = fa.flash_attention(*small, causal=causal)
+        want = ref.flash_attention(*small, causal=causal)
+        check(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
+              f"flash_attention differs at S={s_check} causal={causal}")
+        errs[f"S{s_check}_{'causal' if causal else 'full'}"] = float((got - want).abs().max())
+    del small, got, want
+
+    q, k, v = qkv(s)
+    reset(mods)
+    torch.cuda.reset_peak_memory_stats()
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    launches = counts(mods)
+    check(launches["flash_attention"] == 1 and sum(launches.values()) == 1,
+          f"phase 4 launched {launches}")
+    check(tuple(out.shape) == (1, s, h, hd) and out.dtype == torch.float32
+          and bool(torch.isfinite(out).all()), "phase 4 output is not finite (1, S, H, hd) float32")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms, _ = time_ms(lambda: fa.flash_attention(q, k, v, causal=True), reps=5)
+
+    # the plain version head by head (one call would hold 24 x S x S float32
+    # scores, 103 GB); heads are independent, so each head's output is held
+    # against the kernel's
+    def plain():
+        return [ref.flash_attention(q[:, :, i:i + 1], k[:, :, i:i + 1], v[:, :, i:i + 1])
+                for i in range(h)]
+
+    plain_ms, want = time_ms(plain, reps=2)
+    for i, w in enumerate(want):
+        check(torch.allclose(out[:, :, i:i + 1], w, rtol=2e-5, atol=2e-5),
+              f"flash_attention head {i} differs at S={s}")
+    errs[f"S{s}_causal_all_heads"] = max(float((out[:, :, i:i + 1] - w).abs().max())
+                                         for i, w in enumerate(want))
+    del want
+
+    # yardstick only (the port never calls it): SDPA's memory-efficient
+    # backend on the same float32 tensors, (B, H, S, hd) views
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    lib_ms, lib_out = time_ms(sdpa, reps=5)
+    lib_err = float((lib_out.transpose(1, 2) - out).abs().max())
+
+    pairs = h * s * (s + 1) // 2                  # causal (query, key) pairs
+    b_ms, b_by = bound(4 * q.numel() * 4, pairs * 4 * hd)
+    timings["flash_attention"] = {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms, "max_abs_err": max(errs.values()),
+        "shape": f"musicgen-medium (1, {s}, {h}, {hd}) float32 causal",
+        "plain_ms_note": f"{h} one-head calls", "library": "scaled_dot_product_attention "
+        "(EFFICIENT_ATTENTION backend)"}
+    emit({"phase": 4, "kernel": "flash_attention", "config": "musicgen-medium, prefill_32k",
+          "shape": [1, s, h, hd], "dtype": "float32", "causal": True, "launches": launches,
+          "on_a_system_path": False, "ms": ms, "plain_ms": plain_ms, "sdpa_ms": lib_ms,
+          "sdpa_max_abs_diff": lib_err, "bound_ms": b_ms, "bound_by": b_by,
+          "causal_pairs": pairs, "smem_bytes": fa.shared_bytes(hd), "max_abs_err": errs,
+          "peak_mem_gb": peak_gb})
+    return launches
 
 
 # -------------------------------------------------------------------- main ---
+
+
+def kernels_line(max_err: dict, timings: dict, launches: dict) -> dict:
+    """One entry per kernel: launches on the paths (phase 4's for a kernel
+    on no path), largest error against the plain version over every check,
+    and the timed call's numbers; brute_knn adds its phase-2 (d=2) shape,
+    candidate_topk its gather shape."""
+    extra = {"candidate_topk": "gather_shape", "brute_knn": "d2_shape"}
+    timings = {**timings, "brute_knn": {**timings["brute_knn"],
+                                        "d2_shape": timings["brute_knn_d2"]}}
+    return {"kernels": [
+        {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}.cu",
+         "replaces": replaces, "launches": launches[name],
+         "path": "none: phase 4 only" if name in NO_PATH else "phases 2-3",
+         "max_abs_err": max(max_err[name], timings[name]["max_abs_err"]),
+         "ms": timings[name]["ms"],
+         "plain_ms": timings[name]["plain_ms"], "bound_ms": timings[name]["bound_ms"],
+         "bound_by": timings[name]["bound_by"], "library_ms": timings[name].get("library_ms"),
+         "shape": timings[name]["shape"],
+         **({extra[name]: timings[name][extra[name]]} if name in extra else {})}
+        for name, (src, replaces) in KERNELS.items()
+    ]}
 
 
 def main() -> int:
@@ -852,19 +1143,9 @@ def main() -> int:
     # launches on the paths: the sum of every counted run of phases 2 and 3
     runs = phase2(seed, api, PAPER_GRID, K, mods, timings)
     runs += phase3(seed, api, PROD_GRID, 10, mods, timings)
+    runs.append(phase4(seed, mods, timings))
     launches = {name: sum(r[name] for r in runs) for name in KERNELS}
-
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}.cu",
-         "replaces": replaces, "launches": launches[name],
-         "max_abs_err": max(max_err[name], timings[name]["max_abs_err"]),
-         "ms": timings[name]["ms"],
-         "plain_ms": timings[name]["plain_ms"], "bound_ms": timings[name]["bound_ms"],
-         "bound_by": timings[name]["bound_by"], "library_ms": None,
-         "shape": timings[name]["shape"],
-         **({"gather_shape": timings[name]["gather_shape"]} if "gather_shape" in timings[name] else {})}
-        for name, (src, replaces) in KERNELS.items()
-    ]})
+    emit(kernels_line(max_err, timings, launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -24,7 +24,8 @@ kernels in `repro_torch/csrc/`, the default), `hopper_gather` (the
 materialised-window candidate stage, a baseline and second oracle),
 `hopper_q8` (the int8 shortlist and its exact float32 re-rank),
 `hopper_stacked` (count_at only, one `tile_count` launch per pyramid level)
-and `exact` (the brute-force comparator).  `torch` and `sharded` follow in
+and `exact` (the brute-force comparator; its l2 route is the `brute_knn`
+kernel).  `flash_attention` has a kernel too, which no path calls yet.  `torch` and `sharded` follow in
 later slices.
 
 Devices: the entry points (`api.ActiveSearcher.build`, `.from_index`,

@@ -472,8 +472,9 @@ register_backend("hopper_stacked", BackendImpl(
 ))
 register_backend("exact", BackendImpl(
     search=_exact_search, classify=_exact_classify,
-    description="blocked brute-force kNN — the paper's 'original kNN' "
-                "comparator (core/exact.py)",
+    description="brute-force kNN — the paper's 'original kNN' comparator "
+                "(core/exact.py): l2 on the hand-written brute_knn kernel, "
+                "l1 in plain tensor code",
 ))
 
 

@@ -1,0 +1,94 @@
+"""Hopper kernel: flash attention (online softmax), causal or full.
+
+Wrapper of `csrc/flash_attention.cu`, the port of the TPU kernel
+`repro/kernels/flash_attention.py::flash_attention`.  No path of the
+system calls it (the reference's models compute attention in plain jnp);
+`chip_smoke.py` times it at musicgen-medium's attention width.  The plain
+version is `ref.flash_attention`; `ops.flash_attention` picks between them
+by device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = "flash_attention"
+MAX_HEAD_DIM = 128  # output columns per thread: hd / 16 <= 8
+QUERY_TILE = 64     # FA_BQ in the source
+KEY_TILE = 64       # FA_BK in the source
+launches = 0        # kernel launches so far (chip_smoke resets and reads it)
+
+
+@functools.cache  # bound once, not on every launch
+def _launcher():
+    fn = _build.load(SOURCE).flash_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def shared_bytes(hd: int) -> int:
+    """Dynamic shared memory of one block: the query and key tiles with
+    rows padded to hd + 1, the value tile, and the 64 x 65 probabilities."""
+    return 4 * (2 * QUERY_TILE * (hd + 1) + KEY_TILE * hd + QUERY_TILE * (KEY_TILE + 1))
+
+
+def check_blocks(s: int, t: int, block_q: int, block_k: int) -> None:
+    """The reference's rule: each sequence must divide its block."""
+    bq, bk = min(block_q, s), min(block_k, t)
+    if -(-s // bq) * bq != s or -(-t // bk) * bk != t:
+        raise ValueError(f"seq {s}/{t} must divide blocks {bq}/{bk}")
+
+
+def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.ndim != 4 or k.ndim != 4 or tuple(k.shape) != tuple(v.shape):
+        raise ValueError(
+            f"flash_attention takes q (B, S, H, hd) and k, v (B, T, H, hd), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, _, h, hd = q.shape
+    if (k.shape[0], k.shape[2], k.shape[3]) != (b, h, hd):
+        raise ValueError(f"k and v {tuple(k.shape)} do not match q {tuple(q.shape)}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"the flash_attention kernel takes 1 <= hd <= {MAX_HEAD_DIM}, got {hd}")
+    if b * h > 65_535:
+        raise ValueError(f"B*H = {b * h} exceeds the kernel's grid (65,535 (batch, head) pairs)")
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, S, H, hd)
+    k: torch.Tensor,  # (B, T, H, hd)
+    v: torch.Tensor,  # (B, T, H, hd)
+    causal: bool = True,
+) -> torch.Tensor:
+    """Attention (B, S, H, hd) in q's dtype from the CUDA kernel, computed
+    in float32 (bf16 inputs are cast up and the output cast back, as the
+    reference's wrapper does around its kernel).  CUDA tensors only."""
+    global launches
+    check_args(q, k, v)
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the flash_attention kernel takes CUDA tensors, got {dev}")
+    b, s, h, hd = q.shape
+    t = k.shape[1]
+    qf, kf, vf = (x.to(torch.float32).contiguous() for x in (q, k, v))
+    _build.check_tensor(kf, "k", torch.float32, (b, t, h, hd), dev)
+    _build.check_tensor(vf, "v", torch.float32, (b, t, h, hd), dev)
+    out = torch.empty((b, s, h, hd), dtype=torch.float32, device=dev)
+    if b * h * s == 0:
+        return out.to(q.dtype)
+    launch = _launcher()
+    with torch.cuda.device(dev):
+        err = launch(
+            qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(), b, s, t, h,
+            hd, int(causal), 1.0 / hd ** 0.5, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check_launch(SOURCE, err)
+    launches += 1
+    return out.to(q.dtype)

@@ -10,9 +10,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import brute_knn as _bk
 from repro_torch.kernels import candidate_topk as _ctk
 from repro_torch.kernels import csr_candidate_topk as _csr
 from repro_torch.kernels import csr_candidate_topk_q8 as _q8
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import tile_count as _tc
 from repro_torch.kernels import tile_count_multilevel as _tcm
@@ -56,3 +58,21 @@ def csr_shortlist_q8(
         q_store, row_scales, starts, ends, queries, rerank_k, n, row_cap,
         metric=metric, d_chunk=d_chunk,
     )
+
+
+def brute_knn(queries: torch.Tensor, points, k, block_q=128, block_n=512):
+    """Exact l2 kNN (dists, ids).  The kernel tiles by its own fixed sizes,
+    so `block_q` / `block_n` shape only the plain version, whose N-block is
+    `block_n` (it holds (B, block_n + k) at a time)."""
+    if queries.is_cuda:
+        return _bk.brute_knn(queries, points, k)
+    return ref.brute_knn(queries, points, k, block=block_n)
+
+
+def flash_attention(q: torch.Tensor, k, v, causal=True, block_q=512, block_k=512):
+    """Attention (B, S, H, hd) in q's dtype.  Raises, as the reference
+    does, when a sequence does not divide its block; the kernel itself
+    tiles by its own fixed sizes."""
+    _fa.check_blocks(q.shape[1], k.shape[1], block_q, block_k)
+    fn = _fa.flash_attention if q.is_cuda else ref.flash_attention
+    return fn(q, k, v, causal=causal)

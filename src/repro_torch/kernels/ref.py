@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.projection import matmul_f32
+
 # Dynamic shared memory one block may use on an H100 (227 KB).
 MAX_SHARED_BYTES = 232_448
 
@@ -349,3 +351,83 @@ def csr_shortlist_q8(
     score = torch.where(valid, score, torch.full_like(score, float("inf")))
     dists, slots = smallest_k(score, rerank_k)
     return dists, take_slots(flat, slots)
+
+
+def streaming_smallest_k(blocks, b: int, k: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest entries of a (B, N) distance matrix that arrives as
+    (offset, (B, m) block) pairs in index order, keeping (B, k + m) at a
+    time: (dists (B, k) ascending, ids (B, k) int32).  Earlier blocks come
+    first in each concatenation and the sort is stable, so ties keep the
+    lower index.  Non-finite distances rank as +inf, and every +inf slot
+    (k > N included) gives id -1."""
+    inf = float("inf")
+    best_d = torch.full((b, 0), inf, dtype=torch.float32, device=device)
+    best_i = torch.full((b, 0), -1, dtype=torch.int64, device=device)
+    for off, d in blocks:
+        d = torch.where(torch.isfinite(d), d, torch.full_like(d, inf))
+        ids = torch.arange(off, off + d.shape[1], device=device)
+        cat_d = torch.cat([best_d, d], dim=1)
+        cat_i = torch.cat([best_i, ids.expand(b, -1)], dim=1)
+        order = torch.sort(cat_d, dim=1, stable=True).indices[:, :k]
+        best_d, best_i = torch.gather(cat_d, 1, order), torch.gather(cat_i, 1, order)
+    if best_d.shape[1] < k:  # k exceeds N: pad
+        pad = k - best_d.shape[1]
+        best_d = torch.cat([best_d, best_d.new_full((b, pad), inf)], dim=1)
+        best_i = torch.cat([best_i, best_i.new_full((b, pad), -1)], dim=1)
+    ids = torch.where(torch.isfinite(best_d), best_i, torch.full_like(best_i, -1))
+    return best_d, ids.to(torch.int32)
+
+
+def sq_norms(x: torch.Tensor) -> torch.Tensor:
+    """‖x‖² of each row (N, d) -> (N,): each square rounded, then the
+    squares added in feature order, as the brute_knn kernel sums them.  A
+    reduction's own order would move ‖x‖² by ulps, and in ‖q‖² − 2q·x +
+    ‖x‖² those ulps are ulps of ‖x‖², not of the distance."""
+    acc = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    for c in range(x.shape[1]):
+        acc = acc + x[:, c] * x[:, c]
+    return acc
+
+
+def brute_knn(
+    queries: torch.Tensor,  # (B, d) float32
+    points: torch.Tensor,   # (N, d) float32
+    k: int,
+    block: int = 4096,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact l2 kNN: (dists (B, k) float32 ascending, ids (B, k) int32).
+
+    The distance is sqrt(max(‖q‖² − 2q·x + ‖x‖², 0)) with the product in
+    full float32 (TF32 off), ranked on the square-rooted value, lower
+    index first on ties, over N-blocks of `block` points
+    (`streaming_smallest_k`: non-finite distances and k > N give +inf /
+    -1)."""
+    q = queries.to(torch.float32)
+    x = points.to(torch.float32)
+    qq, xx = sq_norms(q)[:, None], sq_norms(x)
+    blocks = ((off, sqrt_rn(torch.clamp_min(
+        qq - 2.0 * matmul_f32(q, x[off:off + block].T) + xx[None, off:off + block], 0.0)))
+        for off in range(0, x.shape[0], block))
+    return streaming_smallest_k(blocks, q.shape[0], k, q.device)
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, S, H, hd)
+    k: torch.Tensor,  # (B, T, H, hd)
+    v: torch.Tensor,  # (B, T, H, hd)
+    causal: bool = True,
+) -> torch.Tensor:
+    """Plain softmax attention in float32, (B, S, H, hd) in q's dtype:
+    scores divided by sqrt(hd), causal positions q >= k kept and the rest
+    set to -1e30, as the reference's oracle computes it."""
+    qf, kf, vf = (t.to(torch.float32).permute(0, 2, 1, 3) for t in (q, k, v))  # (B, H, ., hd)
+    hd = q.shape[-1]
+    s = matmul_f32(qf, kf.transpose(-1, -2)) / torch.sqrt(
+        torch.tensor(float(hd), dtype=torch.float32, device=q.device))
+    if causal:
+        sq, tk = q.shape[1], k.shape[1]
+        keep = (torch.arange(sq, device=q.device)[:, None]
+                >= torch.arange(tk, device=q.device)[None, :])
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return matmul_f32(p, vf).permute(0, 2, 1, 3).to(q.dtype)

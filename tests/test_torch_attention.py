@@ -1,0 +1,108 @@
+"""The port's flash_attention against the JAX package's.
+
+On the CPU `ops.flash_attention` runs the plain version
+(`ref.flash_attention`); it is held against the reference's Pallas kernel
+in interpret mode and against the reference's oracle, over the sweep of
+the reference's own flash_attention tests: rtol/atol 2e-5 in float32 (3e-5
+against the reference's kernel on its random-shape sweep, the tolerance the
+reference gives its kernel there) and 2e-2 in bf16.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _torch_port import np_
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+
+
+def _qkv(seed, b, s, t, h, hd):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(np.float32)
+            for shape in ((b, s, h, hd), (b, t, h, hd), (b, t, h, hd))]
+
+
+def _both(arrays, causal, block, jdtype=jnp.float32, tdtype=torch.float32):
+    got = ops.flash_attention(*(torch.from_numpy(a).to(tdtype) for a in arrays),
+                              causal=causal, block_q=block, block_k=block)
+    jin = [jnp.asarray(a, jdtype) for a in arrays]
+    kern = jops.flash_attention(*jin, causal=causal, block_q=block, block_k=block,
+                                interpret=True)
+    oracle = jref.flash_attention(*jin, causal=causal)
+    return got, kern, oracle
+
+
+@pytest.mark.parametrize("b,s,t,h,hd,causal", [
+    (2, 64, 64, 4, 32, True),
+    (1, 128, 128, 2, 64, True),
+    (2, 32, 96, 3, 16, False),
+    (1, 256, 256, 1, 128, True),
+])
+def test_flash_attention_matches_reference(b, s, t, h, hd, causal):
+    got, kern, oracle = _both(_qkv(s + t + hd, b, s, t, h, hd), causal, 32)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, s, h, hd)
+    np.testing.assert_allclose(np_(got), np.asarray(kern), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(np_(got), np.asarray(oracle), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_bf16_matches_reference():
+    got, kern, oracle = _both(_qkv(3, 1, 64, 64, 2, 32), True, 16, jnp.bfloat16, torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    for want in (kern, oracle):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_flash_attention_random_shapes(seed):
+    rng = np.random.default_rng(200 + seed)
+    bq = int(rng.choice([8, 16, 32]))
+    nq, nk = int(rng.integers(1, 5)), int(rng.integers(1, 5))
+    h, hd = int(rng.integers(1, 4)), int(rng.choice([16, 32, 64]))
+    causal = bool(rng.integers(0, 2)) and nq == nk
+    got, kern, oracle = _both(_qkv(seed, 1, bq * nq, bq * nk, h, hd), causal, bq)
+    np.testing.assert_allclose(np_(got), np.asarray(oracle), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(np_(got), np.asarray(kern), rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("s,t,block", [(48, 48, 32), (64, 40, 32), (30, 30, 7)])
+def test_flash_attention_blocks_must_divide(s, t, block):
+    q, k, v = _qkv(0, 1, s, t, 1, 16)
+    with pytest.raises(ValueError, match="must divide blocks") as theirs:
+        jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False,
+                             block_q=block, block_k=block, interpret=True)
+    with pytest.raises(ValueError, match="must divide blocks") as ours:
+        ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                            causal=False, block_q=block, block_k=block)
+    assert str(ours.value) == str(theirs.value)
+
+
+def test_flash_attention_causal_first_row_is_its_value():
+    """Under the causal mask the first query sees only the first key."""
+    q, k, v = _qkv(4, 1, 16, 16, 2, 8)
+    got = np_(ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), block_q=16,
+                                  block_k=16))
+    np.testing.assert_allclose(got[:, 0], v[:, 0], rtol=1e-6, atol=1e-6)
+
+
+def test_flash_attention_kernel_wrapper_checks():
+    """The kernel's wrapper checks shapes and the head dim before the
+    device, and refuses CPU tensors without counting a launch."""
+    x = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(ValueError, match="hd <= 128"):
+        fa.flash_attention(*(torch.zeros((1, 8, 1, 129)),) * 3)
+    with pytest.raises(ValueError, match="do not match"):
+        fa.flash_attention(x, torch.zeros((1, 8, 3, 16)), torch.zeros((1, 8, 3, 16)))
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(x, x, x)
+    assert fa.launches == 0
+
+
+def test_flash_attention_shared_bytes():
+    """64 x (hd+1) query and key tiles, 64 x hd values, 64 x 65 probabilities."""
+    assert fa.shared_bytes(64) == 4 * (2 * 64 * 65 + 64 * 64 + 64 * 65)
+    assert fa.shared_bytes(fa.MAX_HEAD_DIM) < 232_448

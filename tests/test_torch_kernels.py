@@ -351,3 +351,56 @@ def test_gpu_csr_shortlist_q8_kernel_matches_plain(metric, d_chunk):
                               metric=metric, d_chunk=d_chunk)
     torch.cuda.synchronize()
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,d,k", [(300, 5000, 2, 11), (200, 4099, 13, 20), (64, 70_000, 128, 10),
+                                     (9, 7, 5, 12)])
+def test_gpu_brute_knn_kernel_matches_plain(b, n, d, k):
+    """Against the plain version on the card: pads exact, ids equal up to
+    near-ties, distances within 8 float32 ulps of ‖q‖² + ‖x‖² (the
+    product sums in another order than torch.matmul's and the form
+    cancels); bit-equal on an integer lattice, where every distance is
+    exact and ties take the lower index."""
+    dev = require_cuda()
+    from repro_torch.kernels import brute_knn as bk
+
+    rng = np.random.default_rng(b + n + d + k)
+    q = _t(rng.normal(size=(b, d)).astype(np.float32)).to(dev)
+    x = _t(rng.normal(size=(n, d)).astype(np.float32)).to(dev)
+    gd, gi = bk.brute_knn(q, x, k)
+    wd, wi = ref.brute_knn(q, x, k)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(np.isinf(np_(gd)), np.isinf(np_(wd)))
+    scale = (q * q).sum(1, keepdim=True) + (x * x).sum(1).max()
+    fin = torch.isfinite(wd)
+    err = (gd.double() ** 2 - wd.double() ** 2).abs()
+    assert bool((err[fin] <= (8 * np.finfo(np.float32).eps * scale.double()).expand_as(err)[fin]).all())
+    assert float((gi == wi).all(1).float().mean()) >= 0.99
+
+    lat_q = torch.randint(0, 6, (b, d), device=dev).float()
+    lat_x = torch.randint(0, 6, (n, d), device=dev).float()
+    got, want = bk.brute_knn(lat_q, lat_x, k), ref.brute_knn(lat_q, lat_x, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,t,h,hd,causal", [(256, 256, 3, 64, True), (100, 70, 2, 20, False),
+                                             (130, 130, 1, 128, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_flash_attention_kernel_matches_plain(s, t, h, hd, causal, dtype):
+    """Against the plain version on the card: rtol/atol 2e-5 in float32,
+    2e-2 in bf16 (ragged tiles included: 100 and 130 rows)."""
+    dev = require_cuda()
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(s + t + hd)
+    q, k, v = (_t(rng.normal(size=(2, n, h, hd)).astype(np.float32)).to(dev).to(dtype)
+               for n in (s, t, t))
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(np_(got.float()), np_(want.float()), rtol=tol, atol=tol)
