@@ -17,8 +17,9 @@ per phase:
      candidate_topk bit-equal to csr_candidate_topk on the same rows;
      brute_knn at d = 2 / 128 / 40, k up to its limit, k > N, non-finite
      rows, and integer lattices (exact, ties to the lower index);
-     flash_attention over head dims 16-128, ragged tiles, causal and full,
-     bf16;
+     flash_attention over head dims 16-128 (hd = 36: a multiple of 4, not
+     of 8), ragged tiles (causal with S < T too), causal and full, bf16;
+     ptxas's registers and spills of each of its head-dim variants;
   2  the paper's setup at full scale (PAPER_GRID, 1M 2-D points, 4096
      queries): build, search, classify in both modes on `hopper`, recall
      and class agreement against `exact`, launch counts, and the first
@@ -49,7 +50,8 @@ per phase:
      sequence, float32, causal: one counted call, its time, every head
      held against the plain version (all heads at S = 4096 causal and
      full too), and scaled_dot_product_attention timed on the same
-     tensors as a yardstick.
+     tensors as a yardstick; bound_ms is the three-pass TF32 tensor-core
+     bound, fp32_fma_bound_ms the float32 FMA units' beside it.
 
 Each path runs with every launch counter set to 0 just before it and read
 just after; a kernel of the path that was never launched fails the run.
@@ -82,10 +84,14 @@ ROOT = Path(__file__).resolve().parent
 
 DEV = torch.device("cuda")
 # H100 SXM peaks (NVIDIA's data sheet): HBM bandwidth, float32 outside the
-# tensor cores.  bound_ms = max(bytes / HBM, operations / FP32), with each
-# distinct input byte read once and each output byte written once.
+# tensor cores, dense TF32 on the tensor cores.  bound_ms = max(bytes /
+# HBM, operations / rate), with each distinct input byte read once and each
+# output byte written once; the rate is FP32's, but flash_attention's
+# products run on the tensor cores in three-pass TF32 (three TF32
+# operations per float32 one).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_TENSOR_OPS_PER_S = 495e12
 # kernel name -> (wrapper module and CUDA source under repro_torch, the TPU kernel it replaces)
 KERNELS = {
     "tile_count_multilevel": ("tile_count_multilevel", "src/repro/kernels/tile_count_multilevel.py:95"),
@@ -119,14 +125,29 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_by_entry(log: str) -> dict:
+    """ptxas's registers, static shared memory and spill bytes of each
+    entry function it compiled, keyed by the function's (mangled) name."""
+    entries: dict[str, dict] = {}
+    name = None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name = m[1]
+            entries[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            entries[name].update(spill_store_bytes=int(m[1]), spill_load_bytes=int(m[2]))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            smem = re.search(r"(\d+) bytes smem", line)
+            entries[name].update(registers=int(m[1]), static_smem_bytes=int(smem[1]) if smem else 0)
+    return entries
+
+
 def ptxas_summary(log: str) -> dict:
-    used = [line for line in log.splitlines() if "Used" in line and "registers" in line]
-    smem = [re.search(r"(\d+) bytes smem", line) for line in used]
-    return {
-        "registers": [int(re.search(r"Used (\d+) registers", line)[1]) for line in used],
-        "static_smem_bytes": [int(m[1]) if m else 0 for m in smem],
-        "spill_store_bytes": [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)],
-    }
+    """Registers, static shared memory and spill stores of a source's entry
+    functions, as lists in ptxas's order."""
+    entries = ptxas_by_entry(log).values()
+    return {key: [e.get(key, 0) for e in entries]
+            for key in ("registers", "static_smem_bytes", "spill_store_bytes")}
 
 
 def device_profile(fn) -> dict:
@@ -167,8 +188,8 @@ def time_ms(fn, reps: int = 10):
     return float(np.median([s.elapsed_time(e) for s, e in events])), out
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -493,7 +514,8 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
     fa = mods["flash_attention"]
     fcases = [(2, 64, 64, 4, 32, True, torch.float32), (2, 32, 96, 3, 16, False, torch.float32),
               (1, 256, 256, 1, 128, True, torch.float32), (1, 100, 100, 2, 48, True, torch.float32),
-              (1, 100, 70, 2, 20, False, torch.float32), (1, 64, 64, 2, 32, True, torch.bfloat16)]
+              (1, 100, 70, 2, 20, False, torch.float32), (1, 64, 64, 2, 32, True, torch.bfloat16),
+              (1, 70, 100, 2, 20, True, torch.float32), (1, 128, 128, 2, 36, True, torch.float32)]
     for fb, fs, ft, fh, fhd, causal, dtype in fcases:
         fq, fk, fv = (torch.randn((fb, n_, fh, fhd), generator=gen, device=dev).to(dtype)
                       for n_ in (fs, ft, ft))
@@ -506,6 +528,13 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
         max_err["flash_attention"] = max(max_err["flash_attention"], err)
         out["flash_attention"].append({"shape": [fb, fs, ft, fh, fhd], "causal": causal,
                                        "dtype": str(dtype), "tol": tol, "max_abs_err": err})
+    # registers and spills of each head-dim variant (flash_attention_kernel<HDP>)
+    from repro_torch.kernels import _build
+    out["flash_attention_variants"] = {
+        f"HDP={m[1]}": info
+        for entry, info in ptxas_by_entry(_build.BUILD_LOG.get("flash_attention", {})
+                                          .get("ptxas", "")).items()
+        if (m := re.search(r"flash_attention_kernelILi(\d+)E", entry))}
     emit(out)
     return max_err
 
@@ -1055,9 +1084,12 @@ def phase4(seed, mods, timings, s=32_768, h=24, hd=64, s_check=4096):
     lib_err = float((lib_out.transpose(1, 2) - out).abs().max())
 
     pairs = h * s * (s + 1) // 2                  # causal (query, key) pairs
-    b_ms, b_by = bound(4 * q.numel() * 4, pairs * 4 * hd)
+    # three TF32 tensor-core products for each float32 operation
+    b_ms, b_by = bound(4 * q.numel() * 4, 3 * pairs * 4 * hd, TF32_TENSOR_OPS_PER_S)
+    fma_ms, _ = bound(4 * q.numel() * 4, pairs * 4 * hd)
     timings["flash_attention"] = {
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "fp32_fma_bound_ms": fma_ms,
         "library_ms": lib_ms, "max_abs_err": max(errs.values()),
         "shape": f"musicgen-medium (1, {s}, {h}, {hd}) float32 causal",
         "plain_ms_note": f"{h} one-head calls", "library": "scaled_dot_product_attention "
@@ -1066,6 +1098,7 @@ def phase4(seed, mods, timings, s=32_768, h=24, hd=64, s_check=4096):
           "shape": [1, s, h, hd], "dtype": "float32", "causal": True, "launches": launches,
           "on_a_system_path": False, "ms": ms, "plain_ms": plain_ms, "sdpa_ms": lib_ms,
           "sdpa_max_abs_diff": lib_err, "bound_ms": b_ms, "bound_by": b_by,
+          "bound": "three-pass TF32 on the tensor cores", "fp32_fma_bound_ms": fma_ms,
           "causal_pairs": pairs, "smem_bytes": fa.shared_bytes(hd), "max_abs_err": errs,
           "peak_mem_gb": peak_gb})
     return launches

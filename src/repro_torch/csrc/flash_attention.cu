@@ -13,68 +13,217 @@
 // What bounds it on this card: operations.  Each (query, key) pair costs
 // 4·hd float operations (2·hd for q·k, 2·hd for p·v) against 4·hd·4 bytes
 // per row of q, k, v and out, so at musicgen-medium's hd = 64 and S = 32k
-// the operations outweigh the bytes about 200 times.  Both products are
-// float32 FMAs in the kernel body, so the function keeps float32 semantics:
-// no tensor cores (TF32 would keep ~3 decimal digits), no cuBLAS.
+// the operations outweigh the bytes about 200 times.  Both products run on
+// the tensor cores in three-pass TF32, three products at the TF32 rate for
+// each float32 one, so the bound is 3 x operations / 495 TFLOP/s (the
+// float32 FMA units' bound, operations / 67 TFLOP/s, is 2.5x longer).
 //
-// Design.  A block of 256 threads owns 64 query rows of one (batch, head)
-// and streams that head's keys and values in tiles of 64 rows through
-// shared memory, beside its query tile.  Thread t holds rows 4(t/16)..+3:
-// for the scores it computes the 4 x 4 pairs with key columns t%16 + 16j,
-// and for the output the columns t%16 + 16j of its rows (j < hd/16).  The
-// 16 threads of a row group are one half-warp, so the row max and row sum
-// are four xor-shuffles.  Probabilities go through shared memory (64 x 65
-// floats) from the score layout to the p·v layout.  Rows of the query and
-// key tiles are padded to hd + 1 floats so a half-warp's reads fall in
-// distinct banks.  The TPU kernel's sequential key-block grid axis with its
-// VMEM scratch becomes the key loop inside the block.  Blocks run the
-// query tiles last to first, so the causal rows with the most keys start
-// first.
+// Numerics: three-pass TF32 keeps float32 accuracy.  Every operand x of
+// both products is split as hi = tf32(x), lo = tf32(x - hi) (the rounding
+// of cvt.rna.tf32.f32: 10 mantissa bits, ties away from zero), and each
+// tile product is lo·hi + hi·lo + hi·hi, issued in that order (small terms
+// first) into one float32 accumulator.  hi·hi is exact in the tensor core,
+// the two cross terms carry the next 11 bits, and the dropped lo·lo term is
+// below 2^-22 of the product.  One pass (hi·hi alone) keeps about 3 decimal
+// digits and is not used.  The tensor core rounds its own sums toward zero,
+// so each key tile's P·V starts from zero and is added to the running
+// output once, rounded to nearest: a running sum fed to the tensor core
+// over the 512 tiles of a 32k row drifts toward the float32 tolerance
+// the kernel is held to (2e-5 against the plain version).  Scores are kept
+// in log2 units (scale·log2 e folded into the score scale) so the
+// exponentials are exp2f; exp2f and the final division are IEEE (no fast
+// math), and the sources are built with -fmad=false.  The sums run in
+// another order than the plain version's matmul and softmax, so results
+// agree to float32 rounding, not bit for bit.
+//
+// Design.  A block of 4 warps owns 64 query rows of one (batch, head),
+// 16 rows per warp, and streams that head's keys and values in tiles of 64
+// rows through a two-stage ring in dynamic shared memory, filled by
+// cp.async (16-byte copies, 4-byte ones where hd % 4 != 0 or a row is not
+// 16-byte aligned), so the next tile's copy overlaps this tile's products.
+// The TPU kernel's sequential key-block grid axis with its VMEM scratch
+// becomes this key loop.  The head dim is padded with zeros to the
+// variant's HDP (16, 32, 64 or 128; zero columns add exact zeros to both
+// products).  Each warp splits its query fragments once and keeps them in
+// registers (HDP <= 64) or, for HDP = 128, keeps the split query tile in
+// shared memory and loads its fragments per k-step, so that variant does
+// not spill.  Blocks run the query tiles last to first, so the causal rows
+// with the most keys start first.  What limits it: not the bytes, and not
+// the tensor cores alone.  Each warp alternates between tensor-core
+// products and scalar work (the splits: 4 integer operations and a
+// subtraction per element of the K and V tiles it reads; the softmax), and
+// at 252 registers 8 warps share an SM.  Variants with more warps per SM
+// (smaller key tiles, query fragments in shared memory) or with half the
+// splits per row (32 rows per warp) ran no faster; wgmma, which takes its
+// B operand from shared memory and runs asynchronously, is the next step.
+//
+// Fragments of mma.sync.m16n8k8 (tf32), lane = 4g + t: A (16 x 8, row
+// major) a0 = (g, t), a1 = (g+8, t), a2 = (g, t+4), a3 = (g+8, t+4);
+// B (8 x 8) b0 = (t, g), b1 = (t+4, g); C (16 x 8) c0, c1 = (g, 2t),
+// (g, 2t+1) and c2, c3 = (g+8, 2t), (g+8, 2t+1).  A contraction index may
+// be relabelled freely as long as both operands use one labelling (the
+// contraction is a sum), and an output column freely as long as the
+// epilogue writes it where it belongs:
+// - S = Q·Kᵀ, k-step ks: A-column t is dim 8ks+2t and A-column t+4 is dim
+//   8ks+2t+1, in the query fragments and in K's (b0, b1) = K[8j+g][8ks+2t,
+//   8ks+2t+1], one 8-byte shared read.
+// - P·V takes P straight from the S accumulators, never through memory:
+//   n-tile j of S holds keys 8j+2t and 8j+2t+1 of rows g and g+8, and A
+//   wants columns t and t+4.  So key 8j+2t is read as A-column t and key
+//   8j+2t+1 as A-column t+4 (a0..a3 = c0, c2, c1, c3), and V's B fragment
+//   with the same relabelling: b0 = V[8j+2t][dv], b1 = V[8j+2t+1][dv].
+// - P·V output column c of n-tile n is dim dv(n, c) = 8·NV·(n / NV) +
+//   NV·c + n % NV (NV = 4, or 2 at HDP = 16), so a lane's b0 of NV
+//   consecutive n-tiles is one 16-byte (8-byte) shared read.
+// K rows are HDP + 8 floats apart and V rows HDP + 4, which puts each
+// half-warp's 8-byte K reads and each quarter-warp's 16-byte V reads in
+// distinct banks.  Row reductions (max, sum) of a score row are two
+// xor-shuffles over its 4 lanes t.
 //
 // Causal skipping: key tiles that start past the block's last query row
 // are not visited.  This is exact, not an approximation: every score there
 // is -1e30, so the max is unchanged (alpha = 1), every p = exp(-1e30 - m)
 // is 0 (or 0 by the guard when m is -1e30 too), and l and the accumulator
-// keep their values.
-//
-// Numerics: the sources are built with -fmad=false; the products are
-// written as fused multiply-adds (__fmaf_rn) on purpose.  expf and the
-// final division are IEEE (no fast math).  The sums run in another order
-// than the plain version's matmul and softmax, so results agree to float32
-// rounding, not bit for bit.
+// keep their values.  Masks are computed only in tiles that hold a masked
+// pair for the warp (past T, or a key past the warp's first row).
+
+#include <stdint.h>
 
 #include "kernel_common.cuh"
 
-#define FA_THREADS 256
-#define FA_BQ 64          // query rows per block
-#define FA_BK 64          // key rows per tile
-#define FA_PS (FA_BK + 1) // probability row stride in shared memory
+#define FA_THREADS 128  // 4 warps, 16 query rows each
+#define FA_BQ 64        // query rows per block
+#define FA_BK 64        // key rows per tile
 #define FA_NEG_INF -1e30f
 #define FULL_MASK 0xffffffffu
+#define FA_LOG2E 1.4426950408889634f
+
+// Padded head dim of the variant that takes head dim hd (0: none does).
+__host__ __device__ constexpr int fa_padded_hd(int hd) {
+  return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 0;
+}
+// Whether the variant keeps the split query fragments in registers.
+__host__ __device__ constexpr bool fa_q_in_registers(int hdp) { return hdp <= 64; }
+// Shared row strides in floats: K (and the split query tile) HDP + 8, so
+// the 8-byte fragment reads of a half-warp fall in distinct banks; V
+// HDP + 4, so the 16-byte (8-byte at HDP = 16) reads of a quarter-warp do.
+__host__ __device__ constexpr int fa_k_stride(int hdp) { return hdp + 8; }
+__host__ __device__ constexpr int fa_v_stride(int hdp) { return hdp + 4; }
 
 // Dynamic shared memory of one block for head dim hd (the wrapper's
-// shared_bytes computes the same).
+// shared_bytes computes the same): two stages of a K and a V tile of 64
+// rows, and for HDP = 128 the query tile's hi and lo.
 __host__ __device__ inline size_t fa_shared_bytes(int hd) {
-  return sizeof(float) * ((size_t)2 * FA_BQ * (hd + 1) + (size_t)FA_BK * hd + (size_t)FA_BQ * FA_PS);
+  const int hdp = fa_padded_hd(hd);
+  const size_t ring = (size_t)2 * FA_BK * (fa_k_stride(hdp) + fa_v_stride(hdp));
+  const size_t qsplit = fa_q_in_registers(hdp) ? 0 : (size_t)2 * FA_BQ * fa_k_stride(hdp);
+  return sizeof(float) * (ring + qsplit);
 }
 
-template <int HDJ>  // output columns per thread: hd <= 16 * HDJ
+// tf32(x): x rounded to 10 mantissa bits, ties away from zero, as
+// cvt.rna.tf32.f32 rounds a finite x, in two integer operations (ptxas
+// expands the conversion instruction into a longer sequence with a test
+// for non-finite values).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// d += a · b, one m16n8k8 tensor-core product of tf32 operands.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a · b in three passes: lo·hi, hi·lo, then hi·hi, where b = (b0, b1).
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4], float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(d, alo, bh0, bh1);
+  mma_tf32(d, ahi, bl0, bl1);
+  mma_tf32(d, ahi, bh0, bh1);
+}
+
+// Asynchronous copies into shared memory; ok == false writes zeros and
+// reads nothing.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(s), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(s), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's copies of every group but the newest have landed.
+__device__ __forceinline__ void cp_async_wait_but_newest() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Issue the copies of key rows kj0 .. kj0 + 63 of K and V (one head, rows
+// rs floats apart) into the shared tiles ks and vs; columns past hd are
+// left alone, rows past T are zero-filled.
+template <int HDP>
+__device__ __forceinline__ void load_kv(float* ks, float* vs, const float* kb, const float* vb,
+                                        int kj0, int T, long long rs, int hd, bool vec) {
+  constexpr int LDK = fa_k_stride(HDP), LDV = fa_v_stride(HDP);
+  constexpr int W = 4;  // floats per 16-byte copy
+  if (vec) {
+    for (int i = threadIdx.x; i < FA_BK * (HDP / W); i += FA_THREADS) {
+      const int r = i / (HDP / W), c = (i % (HDP / W)) * W;
+      if (c >= hd) continue;
+      const bool ok = kj0 + r < T;
+      const long long off = ok ? (kj0 + r) * rs + c : 0;
+      cp_async16(ks + r * LDK + c, kb + off, ok);
+      cp_async16(vs + r * LDV + c, vb + off, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < FA_BK * HDP; i += FA_THREADS) {
+      const int r = i / HDP, c = i % HDP;
+      if (c >= hd) continue;
+      const bool ok = kj0 + r < T;
+      const long long off = ok ? (kj0 + r) * rs + c : 0;
+      cp_async4(ks + r * LDK + c, kb + off, ok);
+      cp_async4(vs + r * LDV + c, vb + off, ok);
+    }
+  }
+}
+
+template <int HDP>
 __global__ void __launch_bounds__(FA_THREADS) flash_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
-    int S, int T, int H, int hd, int causal, float scale) {
+    int S, int T, int H, int hd, int causal, float scale, int vec) {
+  constexpr int LDK = fa_k_stride(HDP), LDV = fa_v_stride(HDP);
+  constexpr int NT = HDP / 8;            // k-steps of Q·Kᵀ, n-tiles of P·V
+  constexpr int NV = NT < 4 ? NT : 4;    // P·V n-tiles per vector read of V
+  constexpr bool QREG = fa_q_in_registers(HDP);
   extern __shared__ float smem[];
-  const int ld = hd + 1;
-  float* qs = smem;               // FA_BQ x (hd + 1)
-  float* ks = qs + FA_BQ * ld;    // FA_BK x (hd + 1)
-  float* vs = ks + FA_BK * ld;    // FA_BK x hd
-  float* ps = vs + FA_BK * hd;    // FA_BQ x FA_PS
+  float* kst = smem;                    // 2 stages x FA_BK x LDK
+  float* vst = kst + 2 * FA_BK * LDK;   // 2 stages x FA_BK x LDV
+  uint32_t* qhs = reinterpret_cast<uint32_t*>(vst + 2 * FA_BK * LDV);  // HDP = 128: FA_BQ x LDK
+  uint32_t* qls = qhs + FA_BQ * LDK;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int rg = tid >> 4;  // row group: rows 4rg .. 4rg+3
-  const int cg = tid & 15;  // column lane within the row group
+  const int g = lane >> 2, t = lane & 3;
   const int nq = (S + FA_BQ - 1) / FA_BQ;
   const int qi0 = (nq - 1 - (int)blockIdx.x) * FA_BQ;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
@@ -83,125 +232,204 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attention_kernel(
   const float* kb = k + ((long long)b * T * H + h) * hd;
   const float* vb = v + ((long long)b * T * H + h) * hd;
   float* ob = o + ((long long)b * S * H + h) * hd;
-
-  for (int r = warp; r < FA_BQ; r += FA_THREADS / 32)
-    for (int c = lane; c < hd; c += 32)
-      qs[r * ld + c] = qi0 + r < S ? qb[(qi0 + r) * rs + c] : 0.0f;
-
-  float m[4], l[4], acc[4][HDJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = FA_NEG_INF;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int jj = 0; jj < HDJ; ++jj) acc[i][jj] = 0.0f;
-  }
+  const int wq0 = qi0 + warp * 16;  // the warp's first query row
+  const int qp[2] = {wq0 + g, wq0 + g + 8};  // this lane's rows
+  // scores in log2 units: exp2(s·scale·log2 e - m) = exp(s·scale - m / log2 e)
+  const float scale2 = __fmul_rn(scale, FA_LOG2E);
 
   int nk = (T + FA_BK - 1) / FA_BK;
   if (causal) nk = min(nk, (qi0 + FA_BQ - 1) / FA_BK + 1);  // see "Causal skipping"
-  for (int kt = 0; kt < nk; ++kt) {
-    const int kj0 = kt * FA_BK;
-    __syncthreads();  // the previous tile's ks, vs, ps are consumed
-    for (int r = warp; r < FA_BK; r += FA_THREADS / 32) {
-      const bool ok = kj0 + r < T;
-      for (int c = lane; c < hd; c += 32) {
-        ks[r * ld + c] = ok ? kb[(kj0 + r) * rs + c] : 0.0f;
-        vs[r * hd + c] = ok ? vb[(kj0 + r) * rs + c] : 0.0f;
-      }
-    }
-    __syncthreads();
+  if (nk > 0) load_kv<HDP>(kst, vst, kb, vb, 0, T, rs, hd, vec);
+  cp_async_commit();
 
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-    for (int c = 0; c < hd; ++c) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(rg * 4 + i) * ld + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(cg + 16 * j) * ld + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = __fmaf_rn(qv[i], kv[j], s[i][j]);
-    }
+  // zero the padding columns hd .. HDP-1 of the four tiles (cp.async never
+  // writes them)
+  for (int i = tid; i < 4 * FA_BK * HDP; i += FA_THREADS) {
+    const int r = i / HDP, c = i % HDP;
+    if (c < hd) continue;
+    if (r < 2 * FA_BK) kst[r * LDK + c] = 0.0f;
+    else vst[(r - 2 * FA_BK) * LDV + c] = 0.0f;
+  }
 
+  // Q·Kᵀ k-step ks reads A-column t as dim 8ks+2t and A-column t+4 as dim
+  // 8ks+2t+1, in the query fragments and in K's alike (one 8-byte read)
+  uint32_t qh[QREG ? NT : 1][4], ql[QREG ? NT : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = qi0 + rg * 4 + i;
-      float mt = FA_NEG_INF;
+    for (int ks = 0; ks < NT; ++ks)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = kj0 + cg + 16 * j;
-        float val = __fmul_rn(s[i][j], scale);
-        if (kp >= T || (causal && qp < kp)) val = FA_NEG_INF;
-        s[i][j] = val;
-        mt = fmaxf(mt, val);
+      for (int e = 0; e < 4; ++e) {
+        const int row = qp[e & 1], col = 8 * ks + 2 * t + (e >> 1);
+        const float x = row < S && col < hd ? qb[row * rs + col] : 0.0f;
+        split_tf32(x, qh[ks][e], ql[ks][e]);
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mt = fmaxf(mt, __shfl_xor_sync(FULL_MASK, mt, off));
-      const float m_new = fmaxf(m[i], mt);
-      // guards: a row with every score masked so far keeps m = -1e30, and
-      // its alpha and p must be 0, not exp(0)
-      const float alpha = m[i] == FA_NEG_INF ? 0.0f : expf(fminf(__fsub_rn(m[i], m_new), 0.0f));
-      float rsum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = m_new == FA_NEG_INF ? 0.0f : expf(__fsub_rn(s[i][j], m_new));
-        ps[(rg * 4 + i) * FA_PS + cg + 16 * j] = p;
-        rsum = __fadd_rn(rsum, p);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rsum = __fadd_rn(rsum, __shfl_xor_sync(FULL_MASK, rsum, off));
-      l[i] = __fadd_rn(__fmul_rn(l[i], alpha), rsum);
-#pragma unroll
-      for (int jj = 0; jj < HDJ; ++jj) acc[i][jj] = __fmul_rn(acc[i][jj], alpha);
-      m[i] = m_new;
-    }
-    __syncthreads();
-
-    for (int c = 0; c < FA_BK; ++c) {
-      float pv[4], vv[HDJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(rg * 4 + i) * FA_PS + c];
-#pragma unroll
-      for (int jj = 0; jj < HDJ; ++jj) {
-        const int col = cg + 16 * jj;
-        vv[jj] = col < hd ? vs[c * hd + col] : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < HDJ; ++jj) acc[i][jj] = __fmaf_rn(pv[i], vv[jj], acc[i][jj]);
+  } else {
+    for (int i = tid; i < FA_BQ * HDP; i += FA_THREADS) {
+      const int r = i / HDP, c = i % HDP;
+      const float x = qi0 + r < S && c < hd ? qb[(qi0 + r) * rs + c] : 0.0f;
+      split_tf32(x, qhs[r * LDK + c], qls[r * LDK + c]);
     }
   }
 
+  float m[2] = {FA_NEG_INF, FA_NEG_INF}, l[2] = {0.0f, 0.0f};
+  float acc[NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = qi0 + rg * 4 + i;
-    if (qp >= S) continue;
-    const float denom = fmaxf(l[i], 1e-20f);
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int jj = 0; jj < HDJ; ++jj) {
-      const int col = cg + 16 * jj;
-      if (col < hd) ob[qp * rs + col] = acc[i][jj] / denom;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int stage = kt & 1;
+    if (kt + 1 < nk)
+      load_kv<HDP>(kst + (stage ^ 1) * FA_BK * LDK, vst + (stage ^ 1) * FA_BK * LDV, kb, vb,
+                   (kt + 1) * FA_BK, T, rs, hd, vec);
+    cp_async_commit();  // possibly empty: the wait below then still finds this tile's group
+    cp_async_wait_but_newest();
+    __syncthreads();  // every thread's copies of this tile have landed
+    const float* ks = kst + stage * FA_BK * LDK;
+    const float* vs = vst + stage * FA_BK * LDV;
+    const int kj0 = kt * FA_BK;
+
+    // S = Q·Kᵀ for the warp's 16 rows and the tile's 64 keys (8 n-tiles)
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      uint32_t ah[4], al[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) { ah[e] = qh[kk][e]; al[e] = ql[kk][e]; }
+      } else {
+        const int o0 = (warp * 16 + g) * LDK + 8 * kk + 2 * t;
+        const uint2 h0 = *reinterpret_cast<const uint2*>(qhs + o0);
+        const uint2 h1 = *reinterpret_cast<const uint2*>(qhs + o0 + 8 * LDK);
+        const uint2 l0 = *reinterpret_cast<const uint2*>(qls + o0);
+        const uint2 l1 = *reinterpret_cast<const uint2*>(qls + o0 + 8 * LDK);
+        ah[0] = h0.x; ah[1] = h1.x; ah[2] = h0.y; ah[3] = h1.y;
+        al[0] = l0.x; al[1] = l1.x; al[2] = l0.y; al[3] = l1.y;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 kv = *reinterpret_cast<const float2*>(ks + (8 * j + g) * LDK + 8 * kk + 2 * t);
+        mma_3xtf32(s[j], ah, al, kv.x, kv.y);
+      }
     }
+
+    // online softmax on the accumulators: lane holds keys 8j+2t, 8j+2t+1
+    // of rows qp[0] (e = 0, 1) and qp[1] (e = 2, 3)
+    const bool masked = kj0 + FA_BK > T || (causal && kj0 + FA_BK - 1 > wq0);
+    float mt[2] = {FA_NEG_INF, FA_NEG_INF};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float val = __fmul_rn(s[j][e], scale2);
+        if (masked) {
+          const int kp = kj0 + 8 * j + 2 * t + (e & 1);
+          if (kp >= T || (causal && qp[e >> 1] < kp)) val = FA_NEG_INF;
+        }
+        s[j][e] = val;
+        mt[e >> 1] = fmaxf(mt[e >> 1], val);
+      }
+    float alpha[2], rsum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(FULL_MASK, mt[r], 1));
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(FULL_MASK, mt[r], 2));
+      const float m_new = fmaxf(m[r], mt[r]);
+      // guards: a row with every score masked so far keeps m = -1e30, and
+      // its alpha and p must be 0, not exp(0)
+      alpha[r] = m[r] == FA_NEG_INF ? 0.0f : exp2f(fminf(__fsub_rn(m[r], m_new), 0.0f));
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float mr = m[e >> 1];
+        const float p = mr == FA_NEG_INF ? 0.0f : exp2f(__fsub_rn(s[j][e], mr));
+        s[j][e] = p;
+        rsum[e >> 1] = __fadd_rn(rsum[e >> 1], p);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rsum[r] = __fadd_rn(rsum[r], __shfl_xor_sync(FULL_MASK, rsum[r], 1));
+      rsum[r] = __fadd_rn(rsum[r], __shfl_xor_sync(FULL_MASK, rsum[r], 2));
+      l[r] = __fmaf_rn(l[r], alpha[r], rsum[r]);
+    }
+
+    // pv = P·V of this tile, P from the registers above with keys
+    // relabelled (header); n-tile n, column c is dim dv(n, c)
+    float pv[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[n][e] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t ph[4], pl[4];
+      split_tf32(s[j][0], ph[0], pl[0]);  // row g,   A-column t   = key 8j+2t
+      split_tf32(s[j][2], ph[1], pl[1]);  // row g+8, A-column t   = key 8j+2t
+      split_tf32(s[j][1], ph[2], pl[2]);  // row g,   A-column t+4 = key 8j+2t+1
+      split_tf32(s[j][3], ph[3], pl[3]);  // row g+8, A-column t+4 = key 8j+2t+1
+      const float* v0 = vs + (8 * j + 2 * t) * LDV + NV * g;  // b0: key 8j+2t
+#pragma unroll
+      for (int n0 = 0; n0 < NT; n0 += NV) {
+        float b0[NV], b1[NV];  // column g of n-tiles n0 .. n0+NV-1
+        if constexpr (NV == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(v0 + 8 * n0);
+          const float4 y = *reinterpret_cast<const float4*>(v0 + LDV + 8 * n0);
+          b0[0] = x.x; b0[1] = x.y; b0[2] = x.z; b0[3] = x.w;
+          b1[0] = y.x; b1[1] = y.y; b1[2] = y.z; b1[3] = y.w;
+        } else {
+          const float2 x = *reinterpret_cast<const float2*>(v0 + 8 * n0);
+          const float2 y = *reinterpret_cast<const float2*>(v0 + LDV + 8 * n0);
+          b0[0] = x.x; b0[1] = x.y;
+          b1[0] = y.x; b1[1] = y.y;
+        }
+#pragma unroll
+        for (int i = 0; i < NV; ++i) mma_3xtf32(pv[n0 + i], ph, pl, b0[i], b1[i]);
+      }
+    }
+    // the running sum adds each tile's product once, rounded to nearest:
+    // the tensor core's own sums round toward zero, which over thousands of
+    // tiles would drift
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = __fmaf_rn(acc[n][e], alpha[e >> 1], pv[n][e]);
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  // dv(n, c) = 8·NV·(n / NV) + NV·c + n % NV: the dim that P·V n-tile n,
+  // column c stands for (V's reads of NV n-tiles are one vector)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qp[r] >= S) continue;
+    const float denom = fmaxf(l[r], 1e-20f);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * NV * (n / NV) + NV * (2 * t + e) + n % NV;
+        if (col < hd) ob[qp[r] * rs + col] = acc[n][2 * r + e] / denom;
+      }
   }
 }
 
-template <int HDJ>
-static int launch_hdj(const float* q, const float* k, const float* v, float* o,
-                      int B, int S, int T, int H, int hd, int causal, float scale,
+template <int HDP>
+static int launch_hdp(const float* q, const float* k, const float* v, float* o,
+                      int B, int S, int T, int H, int hd, int causal, float scale, int vec,
                       cudaStream_t stream) {
   const size_t smem = fa_shared_bytes(hd);
-  const int e = allow_shared_bytes(flash_attention_kernel<HDJ>, smem);
+  const int e = allow_shared_bytes(flash_attention_kernel<HDP>, smem);
   if (e != 0) return e;
   const dim3 grid((S + FA_BQ - 1) / FA_BQ, B * H);
-  flash_attention_kernel<HDJ><<<grid, FA_THREADS, smem, stream>>>(q, k, v, o, S, T, H, hd,
-                                                                 causal, scale);
+  flash_attention_kernel<HDP><<<grid, FA_THREADS, smem, stream>>>(q, k, v, o, S, T, H, hd,
+                                                                 causal, scale, vec);
   return (int)cudaGetLastError();
 }
 
@@ -213,9 +441,13 @@ extern "C" int flash_attention_launch(
   const float* vf = (const float*)v;
   float* of = (float*)o;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (hd <= 16) return launch_hdj<1>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, s);
-  if (hd <= 32) return launch_hdj<2>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, s);
-  if (hd <= 64) return launch_hdj<4>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, s);
-  if (hd <= 128) return launch_hdj<8>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+  // 16-byte copies need every row of k and v on a 16-byte boundary
+  const int vec = hd % 4 == 0 && (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0;
+  switch (fa_padded_hd(hd)) {
+    case 16: return launch_hdp<16>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, s);
+    case 32: return launch_hdp<32>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, s);
+    case 64: return launch_hdp<64>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, s);
+    case 128: return launch_hdp<128>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,11 +1,14 @@
 """Hopper kernel: flash attention (online softmax), causal or full.
 
 Wrapper of `csrc/flash_attention.cu`, the port of the TPU kernel
-`repro/kernels/flash_attention.py::flash_attention`.  No path of the
-system calls it (the reference's models compute attention in plain jnp);
-`chip_smoke.py` times it at musicgen-medium's attention width.  The plain
-version is `ref.flash_attention`; `ops.flash_attention` picks between them
-by device.
+`repro/kernels/flash_attention.py::flash_attention`.  Both products run on
+the tensor cores (mma.sync, three-pass TF32: float32 accuracy); a block of
+4 warps owns 64 query rows of one head and streams 64-key tiles of K and V
+through a two-stage cp.async ring in shared memory, and the probabilities
+stay in registers.  No path of the system calls it (the reference's models
+compute attention in plain jnp); `chip_smoke.py` times it at
+musicgen-medium's attention width.  The plain version is
+`ref.flash_attention`; `ops.flash_attention` picks between them by device.
 """
 
 from __future__ import annotations
@@ -18,9 +21,9 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = "flash_attention"
-MAX_HEAD_DIM = 128  # output columns per thread: hd / 16 <= 8
-QUERY_TILE = 64     # FA_BQ in the source
-KEY_TILE = 64       # FA_BK in the source
+MAX_HEAD_DIM = 128  # the widest variant's padded head dim
+QUERY_TILE = 64     # FA_BQ in the source: 4 warps of 16 rows
+KEY_TILE = 64       # FA_BK in the source: rows of one K or V stage
 launches = 0        # kernel launches so far (chip_smoke resets and reads it)
 
 
@@ -33,10 +36,21 @@ def _launcher():
     return fn
 
 
+def padded_head_dim(hd: int) -> int:
+    """The head dim of the kernel variant that takes hd (fa_padded_hd in
+    the source): 16, 32, 64 or 128, padded with zero columns."""
+    return next(p for p in (16, 32, 64, MAX_HEAD_DIM) if hd <= p)
+
+
 def shared_bytes(hd: int) -> int:
-    """Dynamic shared memory of one block: the query and key tiles with
-    rows padded to hd + 1, the value tile, and the 64 x 65 probabilities."""
-    return 4 * (2 * QUERY_TILE * (hd + 1) + KEY_TILE * hd + QUERY_TILE * (KEY_TILE + 1))
+    """Dynamic shared memory of one block: two stages of a K tile (64 rows
+    of padded_head_dim + 8 floats) and a V tile (rows of + 4), and for the
+    128 variant the query tile's TF32 hi and lo halves in rows of + 8 (its
+    fragments are read per k-step there; narrower variants keep them in
+    registers)."""
+    hdp = padded_head_dim(hd)
+    qsplit = 2 * QUERY_TILE * (hdp + 8) if hdp > 64 else 0
+    return 4 * (2 * KEY_TILE * ((hdp + 8) + (hdp + 4)) + qsplit)
 
 
 def check_blocks(s: int, t: int, block_q: int, block_k: int) -> None:

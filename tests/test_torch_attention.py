@@ -5,7 +5,9 @@ On the CPU `ops.flash_attention` runs the plain version
 in interpret mode and against the reference's oracle, over the sweep of
 the reference's own flash_attention tests: rtol/atol 2e-5 in float32 (3e-5
 against the reference's kernel on its random-shape sweep, the tolerance the
-reference gives its kernel there) and 2e-2 in bf16.
+reference gives its kernel there) and 2e-2 in bf16.  The card's kernel
+computes both products in three-pass TF32; that arithmetic is emulated in
+numpy here and held to the reference's oracle at the same 2e-5.
 """
 
 import jax.numpy as jnp
@@ -103,6 +105,67 @@ def test_flash_attention_kernel_wrapper_checks():
 
 
 def test_flash_attention_shared_bytes():
-    """64 x (hd+1) query and key tiles, 64 x hd values, 64 x 65 probabilities."""
-    assert fa.shared_bytes(64) == 4 * (2 * 64 * 65 + 64 * 64 + 64 * 65)
-    assert fa.shared_bytes(fa.MAX_HEAD_DIM) < 232_448
+    """Two stages of a 64-row K tile (rows of HDP + 8 floats) and V tile
+    (HDP + 4); at HDP = 128 also the split query tile's hi and lo (64 rows
+    of HDP + 8 each).  The widest variant fits a block's 232,448 bytes."""
+    assert [fa.padded_head_dim(hd) for hd in (1, 16, 20, 36, 64, 65, 128)] == [
+        16, 16, 32, 64, 64, 128, 128]
+    assert fa.shared_bytes(64) == 4 * 2 * 64 * (72 + 68)
+    assert fa.shared_bytes(36) == fa.shared_bytes(64)
+    assert fa.shared_bytes(16) == 4 * 2 * 64 * (24 + 20)
+    assert fa.shared_bytes(128) == 4 * (2 * 64 * (136 + 132) + 2 * 64 * 136)
+    assert fa.shared_bytes(fa.MAX_HEAD_DIM) <= 232_448
+
+
+# ------------------------------------------- three-pass TF32, emulated ----
+
+
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32 on finite float32: 10 mantissa bits, ties away
+    from zero (the kernel's rounding of every operand)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _matmul_tf32(a: np.ndarray, b: np.ndarray, passes: int) -> np.ndarray:
+    """a @ b as the tensor cores compute it from TF32 operands: hi·hi alone
+    (one pass) or lo·hi + hi·lo + hi·hi (three), each product exact and the
+    sums in float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _attention_tf32(q, k, v, causal: bool, passes: int) -> np.ndarray:
+    """The kernel's arithmetic over one key tile spanning every key: scores
+    from TF32 products, p = exp(s - max) unnormalised, P·V from TF32
+    products, divided by the row sum at the end."""
+    qh, kh, vh = (np.moveaxis(x, 2, 1) for x in (q, k, v))  # (B, H, ., hd)
+    s = _matmul_tf32(qh, np.swapaxes(kh, -1, -2), passes) * np.float32(1 / np.sqrt(q.shape[-1]))
+    if causal:
+        keep = np.arange(q.shape[1])[:, None] >= np.arange(k.shape[1])[None, :]
+        s = np.where(keep, s, np.float32(-1e30))
+    p = np.exp(s - s.max(-1, keepdims=True)).astype(np.float32)
+    out = _matmul_tf32(p, vh, passes) / p.sum(-1, keepdims=True)
+    return np.moveaxis(out, 1, 2)
+
+
+@pytest.mark.parametrize("b,s,t,h,hd,causal", [
+    (2, 64, 64, 4, 32, True),
+    (1, 128, 128, 2, 64, True),
+    (2, 32, 96, 3, 16, False),
+    (1, 256, 256, 1, 128, True),
+])
+def test_three_pass_tf32_meets_the_float32_tolerance(b, s, t, h, hd, causal):
+    """The kernel's numerics on the CPU, over the reference tests' shapes:
+    three-pass TF32 products (lo·hi + hi·lo + hi·hi) stay within the
+    float32 tolerance 2e-5 of the reference's oracle; one pass (hi·hi)
+    does not."""
+    q, k, v = _qkv(s + t + hd, b, s, t, h, hd)
+    want = np.asarray(jref.flash_attention(*(jnp.asarray(a) for a in (q, k, v)), causal=causal))
+    three = _attention_tf32(q, k, v, causal, passes=3)
+    np.testing.assert_allclose(three, want, rtol=2e-5, atol=2e-5)
+    one = _attention_tf32(q, k, v, causal, passes=1)
+    assert not np.allclose(one, want, rtol=2e-5, atol=2e-5)

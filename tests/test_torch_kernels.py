@@ -387,11 +387,13 @@ def test_gpu_brute_knn_kernel_matches_plain(b, n, d, k):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("s,t,h,hd,causal", [(256, 256, 3, 64, True), (100, 70, 2, 20, False),
-                                             (130, 130, 1, 128, True)])
+                                             (130, 130, 1, 128, True), (70, 100, 2, 20, True),
+                                             (128, 128, 2, 36, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_flash_attention_kernel_matches_plain(s, t, h, hd, causal, dtype):
     """Against the plain version on the card: rtol/atol 2e-5 in float32,
-    2e-2 in bf16 (ragged tiles included: 100 and 130 rows)."""
+    2e-2 in bf16 (ragged tiles included: 100, 70 and 130 rows; causal with
+    fewer queries than keys; hd = 36, a multiple of 4 but not of 8)."""
     dev = require_cuda()
     from repro_torch.kernels import flash_attention as fa
 
