@@ -15,11 +15,14 @@ per phase:
      paper-mode and d=2 results exact; d=128 float distances within rtol
      1e-5, ids equal up to near-ties, which are counted), and
      candidate_topk bit-equal to csr_candidate_topk on the same rows;
-     brute_knn at d = 2 / 128 / 40, k up to its limit, k > N, non-finite
-     rows, and integer lattices (exact, ties to the lower index);
-     flash_attention over head dims 16-128 (hd = 36: a multiple of 4, not
-     of 8), ragged tiles (causal with S < T too), causal and full, bf16;
-     ptxas's registers and spills of each of its head-dim variants;
+     both count kernels at 40 channels (PROD_GRID's pyramid shape); brute_knn
+     at d = 2 / 128 / 40, k = 32, 33, 64, 257 at d = 9 and 128, k = 1000 at
+     a small N, k > N, non-finite rows, and integer lattices (k up to 64;
+     exact, ties to the lower index); flash_attention over head dims 16-128
+     (hd = 36: a multiple of 4, not of 8), ragged tiles (causal with S < T
+     too), causal and full, bf16, the wide-head route (hd = 160, 256, 512,
+     1000; 70,000 heads) and B·H = 70,400 on the tensor cores; ptxas's
+     registers and spills of each of its variants;
   2  the paper's setup at full scale (PAPER_GRID, 1M 2-D points, 4096
      queries): build, search, classify in both modes on `hopper`, recall
      and class agreement against `exact`, launch counts, and the first
@@ -27,7 +30,9 @@ per phase:
      equal); `exact` on the brute_knn kernel (its only launches), held
      against the plain version it replaced (ids equal on >= 99.9% of
      queries, squared distances within 8 ulps of ‖q‖² + ‖x‖²; the first
-     chunk's share of id lists equal to float64 distances), both timed;
+     chunk's share of id lists equal to float64 distances), both timed,
+     with torch.topk(torch.cdist(q, x)) timed beside them (`two_call_ms`:
+     two library calls, no single one computes kNN);
      then `hopper_stacked.count_at` at the loop's final radii
      (equal to `hopper`'s, one tile_count launch per level),
      `hopper_gather` (both modes equal to `hopper` in every field) and
@@ -47,11 +52,13 @@ per phase:
      against its plain version's as in phase 1;
   4  flash_attention, which no path of the system calls, at
      musicgen-medium's attention width (24 heads, head_dim 64) and a 32,768
-     sequence, float32, causal: one counted call, its time, every head
-     held against the plain version (all heads at S = 4096 causal and
-     full too), and scaled_dot_product_attention timed on the same
-     tensors as a yardstick; bound_ms is the three-pass TF32 tensor-core
-     bound, fp32_fma_bound_ms the float32 FMA units' beside it.
+     sequence, float32, causal, and at stablelm-12b's (32 heads, head_dim
+     160, the wide-head route) at S = 4096: two counted calls, their times,
+     every head held against the plain version (all heads at S = 4096
+     causal and full too), and scaled_dot_product_attention timed on the
+     same tensors as a yardstick; bound_ms is the three-pass TF32
+     tensor-core bound, fp32_fma_bound_ms the float32 FMA units' beside it
+     (the wide route's bound).
 
 Each path runs with every launch counter set to 0 just before it and read
 just after; a kernel of the path that was never launched fails the run.
@@ -331,6 +338,34 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
         out["tile_count_multilevel"].append({"grid": name, "B": b, "C": c,
                                              "levels": cfg.levels, "exact": True})
 
+    # both count kernels past 32 channels: 40 at PROD_GRID's pyramid shape
+    # (the 1024 grid: 224 MB of tiles), every level, exact
+    many, wide_c = cfgs["PROD_GRID"], 40
+    tiles = torch.randint(0, 4, (sum(nb * nb for nb in many.level_nblks), many.tile, many.tile,
+                                 wide_c), generator=gen, device=dev, dtype=torch.int32)
+    g = many.padded_size
+    q = torch.rand((b, 2), generator=gen, device=dev) * g
+    radii = torch.randint(0, many.max_radius + 1, (b,), generator=gen, device=dev,
+                          dtype=torch.int32).float()
+    lv = (torch.arange(b, device=dev) % many.levels).int()
+    for metric in ("l2", "l1"):
+        args = (tiles, q, radii, lv, many.tile, many.level_nblks)
+        check(torch.equal(tcm.tile_count_multilevel(*args, metric=metric),
+                          ref.tile_count_multilevel(*args, metric=metric)),
+              f"tile_count_multilevel at {wide_c} channels {metric} differs")
+    out["tile_count_multilevel"].append({"grid": "PROD_GRID", "B": b, "C": wide_c,
+                                         "levels": many.levels, "exact": True})
+    del tiles
+    for lvl in range(many.levels):
+        side = g >> lvl
+        level = torch.randint(0, 4, (side, side, wide_c), generator=gen, device=dev,
+                              dtype=torch.int32)
+        args = (level, q, radii, 1 << lvl, many.tile)
+        check(torch.equal(mods["tile_count"].tile_count(*args), ref.tile_count(*args)),
+              f"tile_count at {wide_c} channels, level {lvl}, differs")
+    out["tile_count"].append({"grid": "PROD_GRID", "B": b, "C": wide_c, "levels": many.levels,
+                              "metrics": ["l2"], "exact": True})
+
     # csr_candidate_topk: paper-mode / refined d=2 at PAPER_GRID's window,
     # refined d=128 at PROD_GRID's, plus k > w*row_cap and the live boundary
     def spans(b, w, rcap, n):
@@ -479,13 +514,16 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
     del pts, crd, codes128, codes2, cand
 
     # brute_knn: random points at the exact paths' d (2, 128) and k (11,
-    # 10), the tests' d and largest k, k > N, non-finite rows, and integer
-    # lattices where every distance is exact and ties take the lower index
+    # 10), the tests' d, k past a warp's 32 lanes (33, 64, 257 at d = 9 and
+    # 128; 1000 at a small N), k > N, non-finite rows, and integer lattices
+    # where every distance is exact and ties take the lower index
     bk = mods["brute_knn"]
     kcases = [("d2_k11", 4096, 262_147, 2, 11, "normal"), ("d128_k10", 1000, 65_537, 128, 10, "normal"),
               ("d40_k20", 300, 5000, 40, 20, "normal"), ("k_exceeds_n", 37, 13, 7, 20, "normal"),
-              ("k_max", 50, 777, 9, bk.MAX_K, "normal"), ("non_finite_rows", 64, 500, 4, 8, "nan"),
-              ("lattice_d2", 500, 3000, 2, 11, "lattice"), ("lattice_d5", 200, 3000, 5, 20, "lattice")]
+              ("non_finite_rows", 64, 500, 4, 8, "nan"), ("k1000_small_n", 20, 1500, 4, 1000, "normal"),
+              ("lattice_d2", 500, 3000, 2, 11, "lattice"), ("lattice_d5", 200, 3000, 5, 20, "lattice"),
+              ("lattice_d3_k64", 300, 3000, 3, 64, "lattice")]
+    kcases += [(f"d{kd}_k{kk}", 1000, 5000, kd, kk, "normal") for kd in (9, 128) for kk in (32, 33, 64, 257)]
     for label, kb, kn, kd, kk, kind in kcases:
         if kind == "lattice":
             kq = torch.randint(0, 8, (kb, kd), generator=gen, device=dev).float()
@@ -515,7 +553,14 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
     fcases = [(2, 64, 64, 4, 32, True, torch.float32), (2, 32, 96, 3, 16, False, torch.float32),
               (1, 256, 256, 1, 128, True, torch.float32), (1, 100, 100, 2, 48, True, torch.float32),
               (1, 100, 70, 2, 20, False, torch.float32), (1, 64, 64, 2, 32, True, torch.bfloat16),
-              (1, 70, 100, 2, 20, True, torch.float32), (1, 128, 128, 2, 36, True, torch.float32)]
+              (1, 70, 100, 2, 20, True, torch.float32), (1, 128, 128, 2, 36, True, torch.float32),
+              # the wide-head route: stablelm-12b's hd = 160, one case per
+              # further variant (256, 512, 1024), 70,000 heads
+              (1, 256, 256, 2, 160, True, torch.float32), (1, 200, 130, 2, 160, False, torch.float32),
+              (1, 256, 256, 2, 256, True, torch.float32), (1, 96, 96, 1, 512, True, torch.float32),
+              (1, 40, 70, 1, 1000, False, torch.float32), (1, 4, 4, 70_000, 16, False, torch.float32),
+              # B·H = 70,400 (> grid.y's 65,535) on the tensor cores, in batch chunks
+              (1100, 8, 8, 64, 16, True, torch.float32)]
     for fb, fs, ft, fh, fhd, causal, dtype in fcases:
         fq, fk, fv = (torch.randn((fb, n_, fh, fhd), generator=gen, device=dev).to(dtype)
                       for n_ in (fs, ft, ft))
@@ -527,14 +572,19 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
         err = float((got.float() - want.float()).abs().max())
         max_err["flash_attention"] = max(max_err["flash_attention"], err)
         out["flash_attention"].append({"shape": [fb, fs, ft, fh, fhd], "causal": causal,
-                                       "dtype": str(dtype), "tol": tol, "max_abs_err": err})
-    # registers and spills of each head-dim variant (flash_attention_kernel<HDP>)
+                                       "dtype": str(dtype), "tol": tol, "max_abs_err": err,
+                                       "route": "wide" if fa.wide_route(fhd, fh) else "tensor cores"})
+    # registers and spills of each head-dim variant (flash_attention_kernel<HDP>,
+    # and the wide route's flash_attention_wide_kernel<NPL, RW>: HDP = 32·NPL)
     from repro_torch.kernels import _build
-    out["flash_attention_variants"] = {
-        f"HDP={m[1]}": info
-        for entry, info in ptxas_by_entry(_build.BUILD_LOG.get("flash_attention", {})
-                                          .get("ptxas", "")).items()
-        if (m := re.search(r"flash_attention_kernelILi(\d+)E", entry))}
+    variants = {}
+    for entry, info in ptxas_by_entry(_build.BUILD_LOG.get("flash_attention", {})
+                                      .get("ptxas", "")).items():
+        if m := re.search(r"flash_attention_kernelILi(\d+)E", entry):
+            variants[f"HDP={m[1]}"] = info
+        elif m := re.search(r"flash_attention_wide_kernelILi(\d+)ELi(\d+)E", entry):
+            variants[f"wide HDP={32 * int(m[1])} RW={m[2]}"] = info
+    out["flash_attention_variants"] = variants
     emit(out)
     return max_err
 
@@ -670,12 +720,24 @@ def run_exact(label, searcher, queries, k, mods, classify: bool):
     n = pts.shape[0]
     ms, _ = time_ms(lambda: bk(qt, pts, k))
     plain_ms, _ = time_ms(lambda: ref.brute_knn(qt, pts, k), reps=2)
+    # yardstick only (the port never calls it): no single PyTorch call
+    # computes kNN, so two library calls, the (B, N) float32 distance matrix
+    # and a top-k over it
+    two_call_ms, _ = time_ms(lambda: torch.topk(torch.cdist(qt, pts), k, largest=False), reps=3)
+    # the call's device time by kernel: the transposing pre-pass, the main
+    # kernel and the merge over point ranges
+    parts_ms = device_profile(lambda: bk(qt, pts, k))["top_kernels_ms"]
     # bytes: points and queries read once, (dists, ids) written once;
     # operations: 2d per (query, point) pair for the product and 3 for
     # ‖q‖² − 2q·x + ‖x‖² (the root and the top-k test, taken only by the
     # pairs that reach them, are not counted)
     b_ms, b_by = bound((n + b) * d * 4 + b * k * 8, b * n * (2 * d + 3))
     record = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+              "two_call_ms": two_call_ms,
+              "two_calls": "torch.topk(torch.cdist(q, x), k, largest=False)",
+              "device_kernels_ms": parts_ms,
+              "scratch_bytes": mods["brute_knn"].scratch_bytes(
+                  b, n, d, k, torch.cuda.get_device_properties(DEV).multi_processor_count),
               "max_abs_err": err, "shape": f"B={b} N={n} d={d} k={k}",
               "id_rows_equal_to_plain": frac, "rows_differ": differ,
               "first_chunk_id_rows_equal_to_float64": f64,
@@ -1016,12 +1078,13 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
 # ----------------------------------------------------------------- phase 4 ---
 
 
-def phase4(seed, mods, timings, s=32_768, h=24, hd=64, s_check=4096):
+def phase4(seed, mods, timings, s=32_768, h=24, hd=64, s_check=4096, wide=(4096, 32, 160)):
     """flash_attention at musicgen-medium's attention width (24 heads, kv
     24, head_dim 64; src/repro/configs/musicgen_medium.py) and prefill_32k's
-    sequence (src/repro/configs/shapes.py), batch 1, float32, causal.  No
-    path of the system calls it, so the phase's one call at full width is
-    its run, counted as the paths are."""
+    sequence (src/repro/configs/shapes.py), batch 1, float32, causal, and
+    at stablelm-12b's width on the wide-head route.  No path of the system
+    calls it, so the phase's two calls at full width are its run, counted
+    as the paths are."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -1045,12 +1108,18 @@ def phase4(seed, mods, timings, s=32_768, h=24, hd=64, s_check=4096):
     del small, got, want
 
     q, k, v = qkv(s)
+    # stablelm-12b's attention width (32 heads, head_dim 160;
+    # src/repro/configs/stablelm_12b.py) at S = 4096, which the wide-head
+    # route runs
+    ws, wh, whd = wide
+    wq, wk, wv = (torch.randn((1, ws, wh, whd), generator=gen, device=DEV) for _ in range(3))
     reset(mods)
     torch.cuda.reset_peak_memory_stats()
     out = fa.flash_attention(q, k, v, causal=True)
+    out_w = fa.flash_attention(wq, wk, wv, causal=True)
     torch.cuda.synchronize()
     launches = counts(mods)
-    check(launches["flash_attention"] == 1 and sum(launches.values()) == 1,
+    check(launches["flash_attention"] == 2 and sum(launches.values()) == 2,
           f"phase 4 launched {launches}")
     check(tuple(out.shape) == (1, s, h, hd) and out.dtype == torch.float32
           and bool(torch.isfinite(out).all()), "phase 4 output is not finite (1, S, H, hd) float32")
@@ -1082,6 +1151,30 @@ def phase4(seed, mods, timings, s=32_768, h=24, hd=64, s_check=4096):
 
     lib_ms, lib_out = time_ms(sdpa, reps=5)
     lib_err = float((lib_out.transpose(1, 2) - out).abs().max())
+    del lib_out
+
+    # the wide-head call: held against the plain version, timed beside its
+    # float32 FMA bound (the route runs on the FMA units) and SDPA
+    want = ref.flash_attention(wq, wk, wv, causal=True)
+    check(torch.allclose(out_w, want, rtol=2e-5, atol=2e-5), f"flash_attention differs at hd = {whd}")
+    errs[f"stablelm_12b_hd{whd}_causal"] = float((out_w - want).abs().max())
+    del want
+    w_ms, _ = time_ms(lambda: fa.flash_attention(wq, wk, wv, causal=True), reps=5)
+    w_plain_ms, _ = time_ms(lambda: ref.flash_attention(wq, wk, wv, causal=True), reps=2)
+    wqt, wkt, wvt = (t.transpose(1, 2) for t in (wq, wk, wv))
+
+    def sdpa_wide():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(wqt, wkt, wvt, is_causal=True)
+
+    w_lib_ms, _ = time_ms(sdpa_wide, reps=5)
+    w_pairs = wh * ws * (ws + 1) // 2
+    w_bound = bound(4 * wq.numel() * 4, w_pairs * 4 * whd)
+    wide_rec = {"shape": f"stablelm-12b (1, {ws}, {wh}, {whd}) float32 causal", "route": "wide",
+                "ms": w_ms, "plain_ms": w_plain_ms, "bound_ms": w_bound[0], "bound_by": w_bound[1],
+                "bound": "float32 FMA units", "library_ms": w_lib_ms,
+                "max_abs_err": errs[f"stablelm_12b_hd{whd}_causal"],
+                "smem_bytes": fa.shared_bytes(whd)}
 
     pairs = h * s * (s + 1) // 2                  # causal (query, key) pairs
     # three TF32 tensor-core products for each float32 operation
@@ -1093,14 +1186,14 @@ def phase4(seed, mods, timings, s=32_768, h=24, hd=64, s_check=4096):
         "library_ms": lib_ms, "max_abs_err": max(errs.values()),
         "shape": f"musicgen-medium (1, {s}, {h}, {hd}) float32 causal",
         "plain_ms_note": f"{h} one-head calls", "library": "scaled_dot_product_attention "
-        "(EFFICIENT_ATTENTION backend)"}
+        "(EFFICIENT_ATTENTION backend)", "wide_head": wide_rec}
     emit({"phase": 4, "kernel": "flash_attention", "config": "musicgen-medium, prefill_32k",
           "shape": [1, s, h, hd], "dtype": "float32", "causal": True, "launches": launches,
           "on_a_system_path": False, "ms": ms, "plain_ms": plain_ms, "sdpa_ms": lib_ms,
           "sdpa_max_abs_diff": lib_err, "bound_ms": b_ms, "bound_by": b_by,
           "bound": "three-pass TF32 on the tensor cores", "fp32_fma_bound_ms": fma_ms,
           "causal_pairs": pairs, "smem_bytes": fa.shared_bytes(hd), "max_abs_err": errs,
-          "peak_mem_gb": peak_gb})
+          "peak_mem_gb": peak_gb, "wide_head": wide_rec})
     return launches
 
 
@@ -1112,7 +1205,8 @@ def kernels_line(max_err: dict, timings: dict, launches: dict) -> dict:
     on no path), largest error against the plain version over every check,
     and the timed call's numbers; brute_knn adds its phase-2 (d=2) shape,
     candidate_topk its gather shape."""
-    extra = {"candidate_topk": "gather_shape", "brute_knn": "d2_shape"}
+    extra = {"candidate_topk": "gather_shape", "brute_knn": "d2_shape",
+             "flash_attention": "wide_head"}
     timings = {**timings, "brute_knn": {**timings["brute_knn"],
                                         "d2_shape": timings["brute_knn_d2"]}}
     return {"kernels": [
@@ -1124,6 +1218,7 @@ def kernels_line(max_err: dict, timings: dict, launches: dict) -> dict:
          "plain_ms": timings[name]["plain_ms"], "bound_ms": timings[name]["bound_ms"],
          "bound_by": timings[name]["bound_by"], "library_ms": timings[name].get("library_ms"),
          "shape": timings[name]["shape"],
+         **({"two_call_ms": timings[name]["two_call_ms"]} if "two_call_ms" in timings[name] else {}),
          **({extra[name]: timings[name][extra[name]]} if name in extra else {})}
         for name, (src, replaces) in KERNELS.items()
     ]}

@@ -80,6 +80,22 @@
 // distinct banks.  Row reductions (max, sum) of a score row are two
 // xor-shuffles over its 4 lanes t.
 //
+// Wide heads (hd > 128, up to 1024; stablelm-12b's head_dim is 160) take a
+// second, simple kernel, flash_attention_wide_kernel: online softmax in
+// float32 FMAs with the same log2-unit scores, masks and guards.  A block
+// of 8 warps owns 8·RW query rows of one (batch, head), RW rows per warp
+// (2 at hd <= 256, else 1, so that no variant spills), and
+// stages 16 key rows of K and V at a time in shared memory (rows of
+// HDP = 160, 256, 512 or 1024 floats, zero-padded).  Lane l owns head dims
+// l, l + 32, ...: a score is the lane's FMA chain over its dims, summed
+// over the warp by xor-shuffles (every lane gets the same float), and the
+// output accumulates the same
+// dims.  Its grid is one-dimensional, (batch, head) × query tile on
+// grid.x.  The tensor-core kernel keeps (batch, head) on grid.y, which
+// holds 65,535; the launch covers B·H beyond that by looping over chunks of
+// whole batches (pointers offset per chunk, the kernel unchanged), and a
+// head count beyond it goes to the wide kernel.
+//
 // Causal skipping: key tiles that start past the block's last query row
 // are not visited.  This is exact, not an approximation: every score there
 // is -1e30, so the max is unchanged (alpha = 1), every p = exp(-1e30 - m)
@@ -433,6 +449,146 @@ static int launch_hdp(const float* q, const float* k, const float* v, float* o,
   return (int)cudaGetLastError();
 }
 
+#define FW_WARPS 8
+#define FW_THREADS (32 * FW_WARPS)
+#define FW_BK 16  // key rows per shared tile of the wide route
+#define FA_GRID_Y 65535
+
+// Padded head dim of the wide route (0: none takes hd).
+__host__ __device__ constexpr int fw_padded_hd(int hd) {
+  return hd <= 160 ? 160 : hd <= 256 ? 256 : hd <= 512 ? 512 : hd <= 1024 ? 1024 : 0;
+}
+
+// Dynamic shared memory of one wide-route block: a K and a V tile of FW_BK
+// rows of HDP floats (the wrapper's shared_bytes computes the same).
+__host__ __device__ inline size_t fw_shared_bytes(int hd) {
+  return sizeof(float) * 2 * FW_BK * (size_t)fw_padded_hd(hd);
+}
+
+// Wide heads: NPL head dims per lane (HDP = 32·NPL), RW query rows per warp.
+template <int NPL, int RW>
+__global__ void __launch_bounds__(FW_THREADS) flash_attention_wide_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    int S, int T, int H, int hd, int causal, float scale, int nq) {
+  constexpr int HDP = 32 * NPL;
+  constexpr int BQ = FW_WARPS * RW;  // query rows per block
+  extern __shared__ float smem[];
+  float* ks = smem;                // FW_BK x HDP
+  float* vs = smem + FW_BK * HDP;  // FW_BK x HDP
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  // query tiles last to first within each (batch, head), as the other kernel
+  const int bh = (int)(blockIdx.x / nq);
+  const int qi0 = (nq - 1 - (int)(blockIdx.x % nq)) * BQ;
+  const int b = bh / H, h = bh % H;
+  const long long rs = (long long)H * hd;
+  const float* qb = q + ((long long)b * S * H + h) * hd;
+  const float* kb = k + ((long long)b * T * H + h) * hd;
+  const float* vb = v + ((long long)b * T * H + h) * hd;
+  float* ob = o + ((long long)b * S * H + h) * hd;
+  const float scale2 = __fmul_rn(scale, FA_LOG2E);
+
+  // zero the padding columns hd .. HDP-1 of both tiles (never loaded)
+  for (int i = tid; i < 2 * FW_BK * HDP; i += FW_THREADS)
+    if (i % HDP >= hd) smem[i] = 0.0f;
+
+  float qv[RW][NPL], acc[RW][NPL], m[RW], l[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const int row = qi0 + warp * RW + r;
+#pragma unroll
+    for (int i = 0; i < NPL; ++i) {
+      const int col = lane + 32 * i;
+      qv[r][i] = row < S && col < hd ? qb[row * rs + col] : 0.0f;
+      acc[r][i] = 0.0f;
+    }
+    m[r] = FA_NEG_INF;
+    l[r] = 0.0f;
+  }
+
+  int nk = (T + FW_BK - 1) / FW_BK;
+  if (causal) nk = min(nk, (qi0 + BQ - 1) / FW_BK + 1);  // see "Causal skipping"
+  for (int kt = 0; kt < nk; ++kt) {
+    const int kj0 = kt * FW_BK;
+    __syncthreads();  // the previous tile is consumed, the padding zeroed
+    for (int e = tid; e < FW_BK * hd; e += FW_THREADS) {
+      const int rr = e / hd, c = e - rr * hd;
+      const bool ok = kj0 + rr < T;
+      ks[rr * HDP + c] = ok ? kb[(kj0 + rr) * rs + c] : 0.0f;
+      vs[rr * HDP + c] = ok ? vb[(kj0 + rr) * rs + c] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      const int row = qi0 + warp * RW + r;
+      float s[FW_BK];
+      float mt = FA_NEG_INF;
+#pragma unroll
+      for (int j = 0; j < FW_BK; ++j) {
+        float part = 0.0f;
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) part = __fmaf_rn(qv[r][i], ks[j * HDP + lane + 32 * i], part);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          part = __fadd_rn(part, __shfl_xor_sync(FULL_MASK, part, off));
+        float val = __fmul_rn(part, scale2);
+        const int kp = kj0 + j;
+        if (kp >= T || (causal && row < kp)) val = FA_NEG_INF;
+        s[j] = val;
+        mt = fmaxf(mt, val);
+      }
+      const float m_new = fmaxf(m[r], mt);
+      // guards: a row with every score masked so far keeps m = -1e30, and
+      // its alpha and p must be 0, not exp(0)
+      const float alpha = m[r] == FA_NEG_INF ? 0.0f : exp2f(fminf(__fsub_rn(m[r], m_new), 0.0f));
+      m[r] = m_new;
+      float rsum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < FW_BK; ++j) {
+        s[j] = m_new == FA_NEG_INF ? 0.0f : exp2f(__fsub_rn(s[j], m_new));
+        rsum = __fadd_rn(rsum, s[j]);
+      }
+      l[r] = __fmaf_rn(l[r], alpha, rsum);
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) {
+        float a = __fmul_rn(acc[r][i], alpha);
+#pragma unroll
+        for (int j = 0; j < FW_BK; ++j) a = __fmaf_rn(s[j], vs[j * HDP + lane + 32 * i], a);
+        acc[r][i] = a;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const int row = qi0 + warp * RW + r;
+    if (row >= S) continue;
+    const float denom = fmaxf(l[r], 1e-20f);
+#pragma unroll
+    for (int i = 0; i < NPL; ++i) {
+      const int col = lane + 32 * i;
+      if (col < hd) ob[row * rs + col] = acc[r][i] / denom;
+    }
+  }
+}
+
+template <int NPL, int RW>
+static int launch_wide(const float* q, const float* k, const float* v, float* o, int B, int S,
+                       int T, int H, int hd, int causal, float scale, cudaStream_t stream) {
+  const size_t smem = fw_shared_bytes(hd);
+  const int e = allow_shared_bytes(flash_attention_wide_kernel<NPL, RW>, smem);
+  if (e != 0) return e;
+  const int nq = (S + FW_WARPS * RW - 1) / (FW_WARPS * RW);
+  const long long blocks = (long long)B * H * nq;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  flash_attention_wide_kernel<NPL, RW><<<(unsigned)blocks, FW_THREADS, smem, stream>>>(
+      q, k, v, o, S, T, H, hd, causal, scale, nq);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S, int T,
     int H, int hd, int causal, float scale, void* stream) {
@@ -441,13 +597,31 @@ extern "C" int flash_attention_launch(
   const float* vf = (const float*)v;
   float* of = (float*)o;
   const cudaStream_t s = (cudaStream_t)stream;
-  // 16-byte copies need every row of k and v on a 16-byte boundary
-  const int vec = hd % 4 == 0 && (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0;
-  switch (fa_padded_hd(hd)) {
-    case 16: return launch_hdp<16>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, s);
-    case 32: return launch_hdp<32>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, s);
-    case 64: return launch_hdp<64>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, s);
-    case 128: return launch_hdp<128>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, s);
-    default: return (int)cudaErrorInvalidValue;
+  if (hd > 128 || H > FA_GRID_Y) {
+    switch (fw_padded_hd(hd)) {
+      case 160: return launch_wide<5, 2>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, s);
+      case 256: return launch_wide<8, 2>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, s);
+      case 512: return launch_wide<16, 1>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, s);
+      case 1024: return launch_wide<32, 1>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
+  // 16-byte copies need every row of k and v on a 16-byte boundary (a
+  // chunk's offset keeps it: whole batches of rows of hd % 4 == 0 floats)
+  const int vec = hd % 4 == 0 && (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0;
+  const int per = FA_GRID_Y / H;  // whole batches per launch: B·H on grid.y
+  for (int b0 = 0; b0 < B; b0 += per) {
+    const int nb = min(per, B - b0);
+    const long long oq = (long long)b0 * S * H * hd, okv = (long long)b0 * T * H * hd;
+    int e;
+    switch (fa_padded_hd(hd)) {
+      case 16: e = launch_hdp<16>(qf + oq, kf + okv, vf + okv, of + oq, nb, S, T, H, hd, causal, scale, vec, s); break;
+      case 32: e = launch_hdp<32>(qf + oq, kf + okv, vf + okv, of + oq, nb, S, T, H, hd, causal, scale, vec, s); break;
+      case 64: e = launch_hdp<64>(qf + oq, kf + okv, vf + okv, of + oq, nb, S, T, H, hd, causal, scale, vec, s); break;
+      case 128: e = launch_hdp<128>(qf + oq, kf + okv, vf + okv, of + oq, nb, S, T, H, hd, causal, scale, vec, s); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+    if (e != 0) return e;
+  }
+  return 0;
 }

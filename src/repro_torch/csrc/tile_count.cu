@@ -17,7 +17,8 @@
 // one thread per window cell (threads stride when T*T exceeds the block);
 // neighbouring threads read neighbouring cells of a window row, and
 // per-channel int32 sums reduce exactly (warp shuffles, then shared-memory
-// atomics).  The TPU kernel's 2x2 cover of T-aligned tiles with duplicate
+// atomics), 32 channels at a time, so any channel count fits one fixed
+// shared array.  The TPU kernel's 2x2 cover of T-aligned tiles with duplicate
 // blanking has no counterpart: the block reads the window itself.  The mask
 // is kernel_common.cuh's cell_in_circle, shared with
 // tile_count_multilevel.cu (built with -fmad=false, so a boundary cell
@@ -25,7 +26,7 @@
 
 #include "kernel_common.cuh"
 
-#define MAX_C 32
+#define CHUNK_C 32  // channels reduced per pass over the window
 #define THREADS 256
 
 __global__ void tile_count_kernel(
@@ -34,8 +35,7 @@ __global__ void tile_count_kernel(
     const float* __restrict__ radii, // (B,)
     int* __restrict__ out,           // (B, C)
     int S, int T, int C, int scale, int metric_l1) {
-  __shared__ int red[MAX_C];
-  for (int c = threadIdx.x; c < C; c += blockDim.x) red[c] = 0;
+  __shared__ int red[CHUNK_C];
 
   const int b = blockIdx.x;
   const float sc = (float)scale;
@@ -43,35 +43,39 @@ __global__ void tile_count_kernel(
   const float r = radii[b];
   const int ox = min(max((int)floorf(qx / sc) - T / 2, 0), S - T);
   const int oy = min(max((int)floorf(qy / sc) - T / 2, 0), S - T);
-  __syncthreads();
 
   const int lane = threadIdx.x & 31;
   const int cells = T * T;
-  for (int cell0 = 0; cell0 < cells; cell0 += blockDim.x) {
-    const int cell = cell0 + threadIdx.x;
-    bool inside = false;
-    long long base = 0;
-    if (cell < cells) {
-      const int x = ox + cell / T;
-      const int y = oy + cell % T;
-      inside = cell_in_circle(x, y, sc, qx, qy, r, metric_l1);
-      base = ((long long)x * S + y) * C;
+  for (int c0 = 0; c0 < C; c0 += CHUNK_C) {
+    const int cn = min(CHUNK_C, C - c0);
+    for (int c = threadIdx.x; c < cn; c += blockDim.x) red[c] = 0;
+    __syncthreads();
+    for (int cell0 = 0; cell0 < cells; cell0 += blockDim.x) {
+      const int cell = cell0 + threadIdx.x;
+      bool inside = false;
+      long long base = 0;
+      if (cell < cells) {
+        const int x = ox + cell / T;
+        const int y = oy + cell % T;
+        inside = cell_in_circle(x, y, sc, qx, qy, r, metric_l1);
+        base = ((long long)x * S + y) * C + c0;
+      }
+      for (int c = 0; c < cn; ++c) {
+        int v = inside ? level[base + c] : 0;
+        for (int s = 16; s > 0; s >>= 1) v += __shfl_down_sync(0xffffffffu, v, s);
+        if (lane == 0 && v != 0) atomicAdd(&red[c], v);
+      }
     }
-    for (int c = 0; c < C; ++c) {
-      int v = inside ? level[base + c] : 0;
-      for (int s = 16; s > 0; s >>= 1) v += __shfl_down_sync(0xffffffffu, v, s);
-      if (lane == 0 && v != 0) atomicAdd(&red[c], v);
-    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < cn; c += blockDim.x) out[(long long)b * C + c0 + c] = red[c];
+    __syncthreads();  // red is zeroed again for the next chunk
   }
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += blockDim.x) out[(long long)b * C + c] = red[c];
 }
 
 extern "C" int tile_count_launch(const void* level, const void* q,
                                  const void* radii, void* out, int B, int S,
                                  int T, int C, int scale, int metric_l1,
                                  void* stream) {
-  if (C > MAX_C) return (int)cudaErrorInvalidValue;
   tile_count_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
       (const int*)level, (const float*)q, (const float*)radii, (int*)out, S,
       T, C, scale, metric_l1);

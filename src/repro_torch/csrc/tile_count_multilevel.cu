@@ -23,7 +23,8 @@
 // TPU's lane compaction and tile aliasing (DMA elision by block revisiting)
 // have no counterpart: a parked block writes zeros and returns.  Per-channel
 // int32 sums reduce exactly (integer adds commute): warp shuffles, then
-// shared-memory atomics.
+// shared-memory atomics, 32 channels at a time, so any channel count fits
+// one fixed shared array.
 //
 // Numerics: the mask is kernel_common.cuh's cell_in_circle (shared with
 // tile_count.cu), written with __fmul_rn / __fadd_rn and built with
@@ -33,7 +34,7 @@
 
 #include "kernel_common.cuh"
 
-#define MAX_C 32
+#define CHUNK_C 32  // channels reduced per pass over the window
 #define THREADS 256
 
 __global__ void tile_count_multilevel_kernel(
@@ -49,8 +50,7 @@ __global__ void tile_count_multilevel_kernel(
     for (int c = threadIdx.x; c < C; c += blockDim.x) out[(long long)b * C + c] = 0;
     return;
   }
-  __shared__ int red[MAX_C];
-  for (int c = threadIdx.x; c < C; c += blockDim.x) red[c] = 0;
+  __shared__ int red[CHUNK_C];
 
   int lv = levels[b];
   lv = lv < 0 ? 0 : (lv > L - 1 ? L - 1 : lv);
@@ -68,36 +68,40 @@ __global__ void tile_count_multilevel_kernel(
   const int cy = (int)floorf(qy / scale);
   const int ox = min(max(cx - T / 2, 0), s_l - T);
   const int oy = min(max(cy - T / 2, 0), s_l - T);
-  __syncthreads();
 
   const int lane = threadIdx.x & 31;
   const int cells = T * T;
-  for (int cell0 = 0; cell0 < cells; cell0 += blockDim.x) {
-    const int cell = cell0 + threadIdx.x;
-    bool inside = false;
-    long long base = 0;
-    if (cell < cells) {
-      const int x = ox + cell / T;
-      const int y = oy + cell % T;
-      inside = cell_in_circle(x, y, scale, qx, qy, r, metric_l1);
-      const long long tid = off + (long long)(x / T) * nblk + (y / T);
-      base = ((tid * T + (x % T)) * T + (y % T)) * C;
+  for (int c0 = 0; c0 < C; c0 += CHUNK_C) {
+    const int cn = min(CHUNK_C, C - c0);
+    for (int c = threadIdx.x; c < cn; c += blockDim.x) red[c] = 0;
+    __syncthreads();
+    for (int cell0 = 0; cell0 < cells; cell0 += blockDim.x) {
+      const int cell = cell0 + threadIdx.x;
+      bool inside = false;
+      long long base = 0;
+      if (cell < cells) {
+        const int x = ox + cell / T;
+        const int y = oy + cell % T;
+        inside = cell_in_circle(x, y, scale, qx, qy, r, metric_l1);
+        const long long tid = off + (long long)(x / T) * nblk + (y / T);
+        base = ((tid * T + (x % T)) * T + (y % T)) * C + c0;
+      }
+      for (int c = 0; c < cn; ++c) {
+        int v = inside ? tiles[base + c] : 0;
+        for (int s = 16; s > 0; s >>= 1) v += __shfl_down_sync(0xffffffffu, v, s);
+        if (lane == 0 && v != 0) atomicAdd(&red[c], v);
+      }
     }
-    for (int c = 0; c < C; ++c) {
-      int v = inside ? tiles[base + c] : 0;
-      for (int s = 16; s > 0; s >>= 1) v += __shfl_down_sync(0xffffffffu, v, s);
-      if (lane == 0 && v != 0) atomicAdd(&red[c], v);
-    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < cn; c += blockDim.x) out[(long long)b * C + c0 + c] = red[c];
+    __syncthreads();  // red is zeroed again for the next chunk
   }
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += blockDim.x) out[(long long)b * C + c] = red[c];
 }
 
 extern "C" int tile_count_multilevel_launch(
     const void* tiles, const void* q, const void* radii, const void* levels,
     const void* active, void* out, int B, int T, int C, int L, int metric_l1,
     void* stream) {
-  if (C > MAX_C) return (int)cudaErrorInvalidValue;
   tile_count_multilevel_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
       (const int*)tiles, (const float*)q, (const float*)radii,
       (const int*)levels, (const unsigned char*)active, (int*)out, T, C, L,

@@ -5,7 +5,9 @@ Wrapper of `csrc/flash_attention.cu`, the port of the TPU kernel
 the tensor cores (mma.sync, three-pass TF32: float32 accuracy); a block of
 4 warps owns 64 query rows of one head and streams 64-key tiles of K and V
 through a two-stage cp.async ring in shared memory, and the probabilities
-stay in registers.  No path of the system calls it (the reference's models
+stay in registers.  Head dims above 128 (and head counts above the
+grid's 65,535) take a simple wide-head kernel in float32 FMAs, each warp
+owning 1 or 2 query rows.  No path of the system calls it (the reference's models
 compute attention in plain jnp); `chip_smoke.py` times it at
 musicgen-medium's attention width.  The plain version is
 `ref.flash_attention`; `ops.flash_attention` picks between them by device.
@@ -21,9 +23,12 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = "flash_attention"
-MAX_HEAD_DIM = 128  # the widest variant's padded head dim
+TC_HEAD_DIM = 128   # the widest tensor-core variant's padded head dim
+MAX_HEAD_DIM = 1024  # the wide route's widest variant (fw_padded_hd)
+MAX_GRID_Y = 65_535  # (batch, head) pairs of one tensor-core launch
 QUERY_TILE = 64     # FA_BQ in the source: 4 warps of 16 rows
 KEY_TILE = 64       # FA_BK in the source: rows of one K or V stage
+WIDE_KEY_TILE = 16  # FW_BK in the source: K and V rows staged by the wide route
 launches = 0        # kernel launches so far (chip_smoke resets and reads it)
 
 
@@ -37,18 +42,28 @@ def _launcher():
 
 
 def padded_head_dim(hd: int) -> int:
-    """The head dim of the kernel variant that takes hd (fa_padded_hd in
-    the source): 16, 32, 64 or 128, padded with zero columns."""
-    return next(p for p in (16, 32, 64, MAX_HEAD_DIM) if hd <= p)
+    """The head dim of the kernel variant that takes hd, padded with zero
+    columns: 16, 32, 64 or 128 on the tensor cores (fa_padded_hd in the
+    source), 160, 256, 512 or 1024 on the wide route (fw_padded_hd)."""
+    return next(p for p in (16, 32, 64, TC_HEAD_DIM, 160, 256, 512, MAX_HEAD_DIM) if hd <= p)
 
 
-def shared_bytes(hd: int) -> int:
-    """Dynamic shared memory of one block: two stages of a K tile (64 rows
-    of padded_head_dim + 8 floats) and a V tile (rows of + 4), and for the
-    128 variant the query tile's TF32 hi and lo halves in rows of + 8 (its
-    fragments are read per k-step there; narrower variants keep them in
-    registers)."""
+def wide_route(hd: int, h: int = 1) -> bool:
+    """Whether the launch takes the wide-head kernel: hd > 128, or more
+    heads than one tensor-core launch's grid.y holds."""
+    return hd > TC_HEAD_DIM or h > MAX_GRID_Y
+
+
+def shared_bytes(hd: int, h: int = 1) -> int:
+    """Dynamic shared memory of one block.  Tensor-core route: two stages
+    of a K tile (64 rows of padded_head_dim + 8 floats) and a V tile (rows
+    of + 4), and for the 128 variant the query tile's TF32 hi and lo halves
+    in rows of + 8 (its fragments are read per k-step there; narrower
+    variants keep them in registers).  Wide route: a K and a V tile of 16
+    rows of padded_head_dim floats (160 at least)."""
     hdp = padded_head_dim(hd)
+    if wide_route(hd, h):
+        return 4 * 2 * WIDE_KEY_TILE * max(hdp, 160)  # the wide route pads to 160 at least
     qsplit = 2 * QUERY_TILE * (hdp + 8) if hdp > 64 else 0
     return 4 * (2 * KEY_TILE * ((hdp + 8) + (hdp + 4)) + qsplit)
 
@@ -71,8 +86,6 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"k and v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"the flash_attention kernel takes 1 <= hd <= {MAX_HEAD_DIM}, got {hd}")
-    if b * h > 65_535:
-        raise ValueError(f"B*H = {b * h} exceeds the kernel's grid (65,535 (batch, head) pairs)")
 
 
 def flash_attention(

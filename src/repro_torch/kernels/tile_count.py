@@ -17,7 +17,6 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = "tile_count"
-MAX_CHANNELS = 32  # MAX_C in the source
 launches = 0       # kernel launches so far (chip_smoke resets and reads it)
 
 
@@ -49,8 +48,6 @@ def tile_count(
             f"level shape {tuple(level_arr.shape)} is not (S, S, C) with S >= tile={tile}"
         )
     s, _, c = level_arr.shape
-    if c > MAX_CHANNELS:
-        raise ValueError(f"{c} count channels exceed the kernel's {MAX_CHANNELS}")
     b = queries.shape[0]
     _build.check_tensor(level_arr, "level_arr", torch.int32, (s, s, c), dev)
     _build.check_tensor(queries, "queries", torch.float32, (b, 2), dev)

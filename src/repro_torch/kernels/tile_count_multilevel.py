@@ -20,7 +20,6 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import check_tile_layout
 
 SOURCE = "tile_count_multilevel"
-MAX_CHANNELS = 32  # MAX_C in the source
 launches = 0       # kernel launches so far (chip_smoke resets and reads it)
 
 
@@ -50,8 +49,6 @@ def tile_count_multilevel(
     if dev.type != "cuda":
         raise ValueError(f"the tile_count_multilevel kernel takes CUDA tensors, got {dev}")
     b, c = queries.shape[0], tiles.shape[-1]
-    if c > MAX_CHANNELS:
-        raise ValueError(f"{c} count channels exceed the kernel's {MAX_CHANNELS}")
     _build.check_tensor(tiles, "tiles", torch.int32, tuple(tiles.shape), dev)
     _build.check_tensor(queries, "queries", torch.float32, (b, 2), dev)
     _build.check_tensor(radii, "radii", torch.float32, (b,), dev)

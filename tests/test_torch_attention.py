@@ -71,6 +71,18 @@ def test_flash_attention_random_shapes(seed):
     np.testing.assert_allclose(np_(got), np.asarray(kern), rtol=3e-5, atol=3e-5)
 
 
+@pytest.mark.parametrize("s,hd,causal", [(128, 160, True), (128, 160, False),
+                                          (256, 256, True), (64, 256, False)])
+def test_flash_attention_wide_heads_match_reference(s, hd, causal):
+    """Head dims past 128 (stablelm-12b's 160, and 256), which the card
+    runs on its wide-head route, against the reference's kernel in
+    interpret mode and its oracle."""
+    got, kern, oracle = _both(_qkv(s + hd, 1, s, s, 2, hd), causal, 64)
+    assert tuple(got.shape) == (1, s, 2, hd)
+    np.testing.assert_allclose(np_(got), np.asarray(kern), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(np_(got), np.asarray(oracle), rtol=2e-5, atol=2e-5)
+
+
 @pytest.mark.parametrize("s,t,block", [(48, 48, 32), (64, 40, 32), (30, 30, 7)])
 def test_flash_attention_blocks_must_divide(s, t, block):
     q, k, v = _qkv(0, 1, s, t, 1, 16)
@@ -95,8 +107,13 @@ def test_flash_attention_kernel_wrapper_checks():
     """The kernel's wrapper checks shapes and the head dim before the
     device, and refuses CPU tensors without counting a launch."""
     x = torch.zeros((1, 8, 2, 16))
-    with pytest.raises(ValueError, match="hd <= 128"):
-        fa.flash_attention(*(torch.zeros((1, 8, 1, 129)),) * 3)
+    with pytest.raises(ValueError, match="hd <= 1024"):
+        fa.flash_attention(*(torch.zeros((1, 8, 1, 1025)),) * 3)
+    # hd = 160 and B*H past one launch's grid pass the checks and reach the
+    # device check
+    for shape in ((1, 8, 1, 160), (1100, 1, 64, 16)):
+        with pytest.raises(ValueError, match="CUDA"):
+            fa.flash_attention(*(torch.zeros(shape),) * 3)
     with pytest.raises(ValueError, match="do not match"):
         fa.flash_attention(x, torch.zeros((1, 8, 3, 16)), torch.zeros((1, 8, 3, 16)))
     with pytest.raises(ValueError, match="CUDA"):
@@ -114,7 +131,21 @@ def test_flash_attention_shared_bytes():
     assert fa.shared_bytes(36) == fa.shared_bytes(64)
     assert fa.shared_bytes(16) == 4 * 2 * 64 * (24 + 20)
     assert fa.shared_bytes(128) == 4 * (2 * 64 * (136 + 132) + 2 * 64 * 136)
+    assert fa.shared_bytes(fa.TC_HEAD_DIM) <= 232_448
     assert fa.shared_bytes(fa.MAX_HEAD_DIM) <= 232_448
+
+
+def test_flash_attention_wide_route():
+    """Head dims past 128, or more heads than one launch's grid.y holds
+    (65,535), take the wide-head kernel: K and V tiles of 16 rows of the
+    head dim padded to 160, 256, 512 or 1024."""
+    assert [fa.wide_route(hd) for hd in (16, 128, 129, 160, 1024)] == [
+        False, False, True, True, True]
+    assert fa.wide_route(16, 70_000) and not fa.wide_route(16, 65_535)
+    assert [fa.padded_head_dim(hd) for hd in (129, 160, 161, 256, 257, 1000)] == [
+        160, 160, 256, 256, 512, 1024]
+    assert fa.shared_bytes(160) == 4 * 2 * 16 * 160
+    assert fa.shared_bytes(16, 70_000) == fa.shared_bytes(160)
 
 
 # ------------------------------------------- three-pass TF32, emulated ----

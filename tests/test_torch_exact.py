@@ -122,26 +122,55 @@ def test_brute_knn_non_finite_rows_rank_as_padding():
 
 
 def test_brute_knn_kernel_wrapper_checks():
-    """The kernel's wrapper checks k before the device, and refuses CPU
-    tensors without counting a launch."""
+    """The kernel's wrapper checks its arguments before the device (any
+    k >= 0: k > 32 passes them and reaches the device check), and refuses
+    CPU tensors without counting a launch."""
     q, x = torch.zeros((2, 3)), torch.zeros((5, 3))
-    with pytest.raises(ValueError, match=f"k <= {bk.MAX_K}"):
-        bk.brute_knn(q, x, bk.MAX_K + 1)
+    with pytest.raises(ValueError, match="k >= 0"):
+        bk.brute_knn(q, x, -1)
     with pytest.raises(ValueError, match="queries"):
         bk.brute_knn(q, torch.zeros((5, 4)), 2)
-    with pytest.raises(ValueError, match="CUDA"):
-        bk.brute_knn(q, x, 2)
+    for k in (2, 33, 1000):
+        with pytest.raises(ValueError, match="CUDA"):
+            bk.brute_knn(q, x, k)
     assert bk.launches == 0
-    # the plain version has no such limit
-    assert ops.brute_knn(q, x, bk.MAX_K + 1)[0].shape == (2, bk.MAX_K + 1)
+    # the plain version takes any k too, padding past N
+    assert ops.brute_knn(q, x, 33)[0].shape == (2, 33)
 
 
-@pytest.mark.parametrize("b,n,sms,want", [(4096, 1_000_000, 132, 5), (10_000, 1_000_000, 132, 2),
+@pytest.mark.parametrize("b,n,d,k", [(5, 300, 6, 33), (3, 200, 9, 64), (4, 150, 3, 100),
+                                     (2, 70, 5, 100)])
+def test_brute_knn_large_k_matches_reference(b, n, d, k):
+    """k past a warp's 32 lanes, against the reference's kernel (interpret
+    mode) and, where k <= N, its oracle (lax.top_k takes no k > N);
+    (2, 70, 5, 100) has k > N, padded with +inf / -1 as the kernel pads."""
+    q, x = _inputs(b * n + k, b, n, d)
+    got = ops.brute_knn(torch.from_numpy(q), torch.from_numpy(x), k, block_q=8, block_n=64)
+    kern = jops.brute_knn(jnp.asarray(q), jnp.asarray(x), k, block_q=8, block_n=64,
+                          interpret=True)
+    _assert_knn_close(got, kern, q, x)
+    if k <= n:
+        _assert_knn_close(got, jref.brute_knn(jnp.asarray(q), jnp.asarray(x), k), q, x)
+    else:
+        assert (np_(got[1])[:, n:] == -1).all() and np.isinf(np_(got[0])[:, n:]).all()
+
+
+@pytest.mark.parametrize("b,n,sms,want", [(4096, 1_000_000, 132, 16), (10_000, 1_000_000, 132, 6),
                                           (100, 1000, 132, 1), (1, 10_000_000, 132, 528)])
 def test_brute_knn_splits(b, n, sms, want):
-    """Point ranges per query tile: four blocks per SM where the points
-    allow it, each range at least MIN_TILES_PER_SPLIT tiles."""
+    """Point ranges per query tile: at most two full waves of two resident
+    blocks per SM, each range at least MIN_TILES_PER_SPLIT tiles."""
     assert bk.splits_for(b, n, sms) == want
+
+
+def test_brute_knn_scratch():
+    """The kernel's scratch: queries and points transposed to (d, rows
+    padded to 4) with a norm per row, and the (B, splits, k) lists."""
+    assert [bk.padded_rows(r) for r in (1, 4, 5, 1_000_000, 262_147)] == [
+        4, 4, 8, 1_000_000, 262_148]
+    splits = bk.splits_for(2048, 1_000_000, 132)
+    assert bk.scratch_bytes(2048, 1_000_000, 128, 10, 132) == (
+        4 * 129 * (2048 + 1_000_000) + 8 * 2048 * splits * 10)
 
 
 # ------------------------------------------------------- the exact backend ----

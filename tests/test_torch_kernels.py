@@ -125,6 +125,34 @@ def test_tile_count_multilevel_max_radius_top_level():
     np.testing.assert_array_equal(np_(got), np_(want))
 
 
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_counts_take_forty_channels(metric):
+    """n_classes = 40, past 32 count channels: both count paths against the
+    reference's kernels in interpret mode, exact."""
+    cfg, idx, rng = _pyramid_fixture(seed=5, c=40, n=1500)
+    b = 12
+    q = rng.uniform(0, cfg.padded_size, size=(b, 2)).astype(np.float32)
+    r = rng.integers(0, cfg.max_radius + 1, size=(b,)).astype(np.int32)
+    lv = jpyr.level_for_radius(jnp.asarray(r), cfg)
+    want = jops.tile_count_multilevel(
+        idx.pyr_tiles, jnp.asarray(q), jnp.asarray(r, jnp.float32), lv,
+        cfg.tile, cfg.level_nblks, metric=metric, interpret=True,
+    )
+    got = ops.tile_count_multilevel(
+        _t(idx.pyr_tiles), _t(q), _t(r).float(), _t(lv), cfg.tile,
+        cfg.level_nblks, metric=metric,
+    )
+    assert got.shape == (b, 40)
+    np.testing.assert_array_equal(np_(got), np_(want))
+    for level in (0, 2):
+        rf = r.astype(np.float32) / 2
+        want = jops.tile_count(idx.pyramid[level], jnp.asarray(q), jnp.asarray(rf), 1 << level,
+                               cfg.tile, metric=metric, interpret=True)
+        got = ops.tile_count(_t(idx.pyramid[level]), _t(q), _t(rf), 1 << level, cfg.tile,
+                             metric=metric)
+        np.testing.assert_array_equal(np_(got), np_(want), err_msg=f"level {level}")
+
+
 def test_tile_count_multilevel_bad_layout_raises():
     cfg, idx, _ = _pyramid_fixture()
     with pytest.raises(ValueError, match="tiles shape"):
@@ -245,12 +273,13 @@ def test_csr_candidate_topk_store_too_small_raises():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("c", [3, 40])
 @pytest.mark.parametrize("metric", ["l2", "l1"])
-def test_gpu_tile_count_multilevel_kernel_matches_plain(metric):
+def test_gpu_tile_count_multilevel_kernel_matches_plain(metric, c):
     dev = require_cuda()
     from repro_torch.kernels import tile_count_multilevel as tcm
 
-    cfg, idx, rng = _pyramid_fixture(seed=20, grid=128, tile=16)
+    cfg, idx, rng = _pyramid_fixture(seed=20, grid=128, tile=16, c=c)
     b = 512
     q = _t(rng.uniform(0, cfg.padded_size, size=(b, 2)).astype(np.float32))
     r = _t(rng.integers(0, cfg.max_radius + 1, size=(b,)).astype(np.int32))
@@ -290,13 +319,15 @@ def test_gpu_csr_candidate_topk_kernel_matches_plain(paper):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("c", [3, 40])
 @pytest.mark.parametrize("metric", ["l2", "l1"])
-def test_gpu_tile_count_kernel_matches_plain(metric):
-    """Every level of a 128-grid pyramid, grid corners included: exact."""
+def test_gpu_tile_count_kernel_matches_plain(metric, c):
+    """Every level of a 128-grid pyramid, grid corners included, 3 and 40
+    channels: exact."""
     dev = require_cuda()
     from repro_torch.kernels import tile_count as tc
 
-    cfg, idx, rng = _pyramid_fixture(seed=22, grid=128, tile=16)
+    cfg, idx, rng = _pyramid_fixture(seed=22, grid=128, tile=16, c=c)
     g = cfg.padded_size
     q = np.concatenate([np.array([[0, 0], [g - 1e-3, g - 1e-3], [0, g - 1e-3], [g - 1e-3, 0]],
                                  np.float32),
@@ -355,7 +386,8 @@ def test_gpu_csr_shortlist_q8_kernel_matches_plain(metric, d_chunk):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,n,d,k", [(300, 5000, 2, 11), (200, 4099, 13, 20), (64, 70_000, 128, 10),
-                                     (9, 7, 5, 12)])
+                                     (9, 7, 5, 12), (50, 5000, 9, 33), (40, 6000, 128, 64),
+                                     (30, 5000, 9, 257)])
 def test_gpu_brute_knn_kernel_matches_plain(b, n, d, k):
     """Against the plain version on the card: pads exact, ids equal up to
     near-ties, distances within 8 float32 ulps of ‖q‖² + ‖x‖² (the
@@ -388,12 +420,14 @@ def test_gpu_brute_knn_kernel_matches_plain(b, n, d, k):
 @pytest.mark.gpu
 @pytest.mark.parametrize("s,t,h,hd,causal", [(256, 256, 3, 64, True), (100, 70, 2, 20, False),
                                              (130, 130, 1, 128, True), (70, 100, 2, 20, True),
-                                             (128, 128, 2, 36, True)])
+                                             (128, 128, 2, 36, True), (100, 100, 2, 160, True),
+                                             (100, 70, 2, 160, False), (64, 96, 1, 256, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_flash_attention_kernel_matches_plain(s, t, h, hd, causal, dtype):
     """Against the plain version on the card: rtol/atol 2e-5 in float32,
     2e-2 in bf16 (ragged tiles included: 100, 70 and 130 rows; causal with
-    fewer queries than keys; hd = 36, a multiple of 4 but not of 8)."""
+    fewer queries than keys; hd = 36, a multiple of 4 but not of 8; the
+    wide-head route at hd = 160 and 256)."""
     dev = require_cuda()
     from repro_torch.kernels import flash_attention as fa
 
