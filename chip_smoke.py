@@ -17,11 +17,12 @@ per phase:
      candidate_topk bit-equal to csr_candidate_topk on the same rows;
      both count kernels at 40 channels (PROD_GRID's pyramid shape); brute_knn
      at d = 2 / 128 / 40, k = 32, 33, 64, 257 at d = 9 and 128, k = 1000 at
-     a small N, k > N, non-finite rows, and integer lattices (k up to 64;
-     exact, ties to the lower index); flash_attention over head dims 16-128
-     (hd = 36: a multiple of 4, not of 8), ragged tiles (causal with S < T
-     too), causal and full, bf16, the wide-head route (hd = 160, 256, 512,
-     1000; 70,000 heads) and B·H = 70,400 on the tensor cores; ptxas's
+     a small N, k > N, no points (all pads), non-finite rows, and integer
+     lattices (k up to 64; exact, ties to the lower index); flash_attention
+     over head dims 16-128 (hd = 36: a multiple of 4, not of 8), ragged
+     tiles (causal with S < T too), causal and full, bf16, the wide-head
+     route (hd = 160, 256, 512, 1000), and 70,000 heads and B·H = 70,400 on
+     the tensor cores; ptxas's
      registers and spills of each of its variants;
   2  the paper's setup at full scale (PAPER_GRID, 1M 2-D points, 4096
      queries): build, search, classify in both modes on `hopper`, recall
@@ -57,8 +58,8 @@ per phase:
      every head held against the plain version (all heads at S = 4096
      causal and full too), and scaled_dot_product_attention timed on the
      same tensors as a yardstick; bound_ms is the three-pass TF32
-     tensor-core bound, fp32_fma_bound_ms the float32 FMA units' beside it
-     (the wide route's bound).
+     tensor-core bound of both calls, fp32_fma_bound_ms the float32 FMA
+     units' beside it.
 
 Each path runs with every launch counter set to 0 just before it and read
 just after; a kernel of the path that was never launched fails the run.
@@ -258,7 +259,7 @@ def compare_knn(got, want, queries, points, min_equal_rows=0.999):
     check(torch.equal(gi == -1, torch.isinf(gd)), "brute_knn: ids and +inf pads disagree")
     xx = points.double().pow(2).sum(1)
     tol = 8 * F32_EPS * (queries.double().pow(2).sum(1, keepdim=True)
-                         + xx[torch.isfinite(xx)].max())
+                         + torch.cat([xx[torch.isfinite(xx)], xx.new_zeros(1)]).max())
     fin = torch.isfinite(wd)
     err2 = (gd.double() ** 2 - wd.double() ** 2).abs()
     check(bool((err2 <= tol)[fin].all()), "brute_knn squared distances beyond 8 ulps")
@@ -515,11 +516,13 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
 
     # brute_knn: random points at the exact paths' d (2, 128) and k (11,
     # 10), the tests' d, k past a warp's 32 lanes (33, 64, 257 at d = 9 and
-    # 128; 1000 at a small N), k > N, non-finite rows, and integer lattices
-    # where every distance is exact and ties take the lower index
+    # 128; 1000 at a small N), k > N, no points at all, non-finite rows, and
+    # integer lattices where every distance is exact and ties take the lower
+    # index (and the all-pad cases, which are exact too)
     bk = mods["brute_knn"]
     kcases = [("d2_k11", 4096, 262_147, 2, 11, "normal"), ("d128_k10", 1000, 65_537, 128, 10, "normal"),
               ("d40_k20", 300, 5000, 40, 20, "normal"), ("k_exceeds_n", 37, 13, 7, 20, "normal"),
+              ("no_points", 5, 0, 3, 4, "empty"),
               ("non_finite_rows", 64, 500, 4, 8, "nan"), ("k1000_small_n", 20, 1500, 4, 1000, "normal"),
               ("lattice_d2", 500, 3000, 2, 11, "lattice"), ("lattice_d5", 200, 3000, 5, 20, "lattice"),
               ("lattice_d3_k64", 300, 3000, 3, 64, "lattice")]
@@ -537,7 +540,7 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
         got = bk.brute_knn(kq, kx, kk)
         want = ref.brute_knn(kq, kx, kk)
         bit = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        if kind == "lattice":
+        if kind in ("lattice", "empty"):
             check(bit, f"brute_knn {label} not exactly equal")
         if kind == "nan":
             check(not bool(((got[1] == 3) | (got[1] == 5)).any()), "brute_knn ranked a non-finite row")
@@ -555,11 +558,11 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
               (1, 100, 70, 2, 20, False, torch.float32), (1, 64, 64, 2, 32, True, torch.bfloat16),
               (1, 70, 100, 2, 20, True, torch.float32), (1, 128, 128, 2, 36, True, torch.float32),
               # the wide-head route: stablelm-12b's hd = 160, one case per
-              # further variant (256, 512, 1024), 70,000 heads
+              # further variant (256, 512, 1024); 70,000 heads on the tensor cores
               (1, 256, 256, 2, 160, True, torch.float32), (1, 200, 130, 2, 160, False, torch.float32),
               (1, 256, 256, 2, 256, True, torch.float32), (1, 96, 96, 1, 512, True, torch.float32),
               (1, 40, 70, 1, 1000, False, torch.float32), (1, 4, 4, 70_000, 16, False, torch.float32),
-              # B·H = 70,400 (> grid.y's 65,535) on the tensor cores, in batch chunks
+              # B·H = 70,400 (> grid.y's 65,535) on the tensor cores
               (1100, 8, 8, 64, 16, True, torch.float32)]
     for fb, fs, ft, fh, fhd, causal, dtype in fcases:
         fq, fk, fv = (torch.randn((fb, n_, fh, fhd), generator=gen, device=dev).to(dtype)
@@ -573,7 +576,7 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
         max_err["flash_attention"] = max(max_err["flash_attention"], err)
         out["flash_attention"].append({"shape": [fb, fs, ft, fh, fhd], "causal": causal,
                                        "dtype": str(dtype), "tol": tol, "max_abs_err": err,
-                                       "route": "wide" if fa.wide_route(fhd, fh) else "tensor cores"})
+                                       "route": "wide" if fa.wide_route(fhd) else "tensor cores"})
     # registers and spills of each head-dim variant (flash_attention_kernel<HDP>,
     # and the wide route's flash_attention_wide_kernel<NPL, RW>: HDP = 32·NPL)
     from repro_torch.kernels import _build
@@ -1154,7 +1157,9 @@ def phase4(seed, mods, timings, s=32_768, h=24, hd=64, s_check=4096, wide=(4096,
     del lib_out
 
     # the wide-head call: held against the plain version, timed beside its
-    # float32 FMA bound (the route runs on the FMA units) and SDPA
+    # bound and SDPA.  The bound is the same function's on this card: three
+    # TF32 tensor-core products per float32 operation, as the tensor-core
+    # route's; the FMA units' bound (what this route runs on) stands beside it
     want = ref.flash_attention(wq, wk, wv, causal=True)
     check(torch.allclose(out_w, want, rtol=2e-5, atol=2e-5), f"flash_attention differs at hd = {whd}")
     errs[f"stablelm_12b_hd{whd}_causal"] = float((out_w - want).abs().max())
@@ -1169,10 +1174,12 @@ def phase4(seed, mods, timings, s=32_768, h=24, hd=64, s_check=4096, wide=(4096,
 
     w_lib_ms, _ = time_ms(sdpa_wide, reps=5)
     w_pairs = wh * ws * (ws + 1) // 2
-    w_bound = bound(4 * wq.numel() * 4, w_pairs * 4 * whd)
+    w_bound = bound(4 * wq.numel() * 4, 3 * w_pairs * 4 * whd, TF32_TENSOR_OPS_PER_S)
+    w_fma_ms, _ = bound(4 * wq.numel() * 4, w_pairs * 4 * whd)
     wide_rec = {"shape": f"stablelm-12b (1, {ws}, {wh}, {whd}) float32 causal", "route": "wide",
                 "ms": w_ms, "plain_ms": w_plain_ms, "bound_ms": w_bound[0], "bound_by": w_bound[1],
-                "bound": "float32 FMA units", "library_ms": w_lib_ms,
+                "bound": "three-pass TF32 on the tensor cores", "fp32_fma_bound_ms": w_fma_ms,
+                "library_ms": w_lib_ms,
                 "max_abs_err": errs[f"stablelm_12b_hd{whd}_causal"],
                 "smem_bytes": fa.shared_bytes(whd)}
 

@@ -525,8 +525,9 @@ extern "C" int brute_knn_launch(
   const dim3 tb(BK_TR, 8);
   brute_knn_transpose_kernel<<<(Bp + BK_TR - 1) / BK_TR, tb, 0, s>>>(
       (const float*)q, (float*)qt, (float*)qnorm, B, Bp, d);
-  brute_knn_transpose_kernel<<<(Np + BK_TR - 1) / BK_TR, tb, 0, s>>>(
-      (const float*)x, (float*)xt, (float*)xnorm, N, Np, d);
+  if (Np > 0)  // no points: the main kernel visits no tile and every slot pads
+    brute_knn_transpose_kernel<<<(Np + BK_TR - 1) / BK_TR, tb, 0, s>>>(
+        (const float*)x, (float*)xt, (float*)xnorm, N, Np, d);
   int e = (int)cudaGetLastError();
   if (e != 0) return e;
   const int tiles = (N + BK_BN - 1) / BK_BN;

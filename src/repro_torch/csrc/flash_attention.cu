@@ -47,9 +47,9 @@
 // products).  Each warp splits its query fragments once and keeps them in
 // registers (HDP <= 64) or, for HDP = 128, keeps the split query tile in
 // shared memory and loads its fragments per k-step, so that variant does
-// not spill.  Blocks run the query tiles last to first, so the causal rows
-// with the most keys start first.  What limits it: not the bytes, and not
-// the tensor cores alone.  Each warp alternates between tensor-core
+// not spill.  Query tiles run last to first, so the causal rows with the
+// most keys start first (see "Grid").  What limits it: not the bytes, and
+// not the tensor cores alone.  Each warp alternates between tensor-core
 // products and scalar work (the splits: 4 integer operations and a
 // subtraction per element of the K and V tiles it reads; the softmax), and
 // at 252 registers 8 warps share an SM.  Variants with more warps per SM
@@ -89,12 +89,14 @@
 // HDP = 160, 256, 512 or 1024 floats, zero-padded).  Lane l owns head dims
 // l, l + 32, ...: a score is the lane's FMA chain over its dims, summed
 // over the warp by xor-shuffles (every lane gets the same float), and the
-// output accumulates the same
-// dims.  Its grid is one-dimensional, (batch, head) × query tile on
-// grid.x.  The tensor-core kernel keeps (batch, head) on grid.y, which
-// holds 65,535; the launch covers B·H beyond that by looping over chunks of
-// whole batches (pointers offset per chunk, the kernel unchanged), and a
-// head count beyond it goes to the wide kernel.
+// output accumulates the same dims.
+//
+// Grid: (batch, head) sits on grid.x, which holds 2^31 - 1 blocks, so B·H
+// is not held to grid.y's 65,535.  The tensor-core kernel puts the query
+// tile on grid.y (grid.x runs fastest, so the heaviest causal tile of every
+// head starts first); grid.y's 65,535 tiles of 64 rows cap S at 4,194,240,
+// which the wrapper checks.  The wide kernel puts (batch, head) × query
+// tile on grid.x, query tiles last to first within each (batch, head).
 //
 // Causal skipping: key tiles that start past the block's last query row
 // are not visited.  This is exact, not an approximation: every score there
@@ -113,6 +115,7 @@
 #define FA_NEG_INF -1e30f
 #define FULL_MASK 0xffffffffu
 #define FA_LOG2E 1.4426950408889634f
+#define FA_MAX_TILES 65535  // query tiles on grid.y
 
 // Padded head dim of the variant that takes head dim hd (0: none does).
 __host__ __device__ constexpr int fa_padded_hd(int hd) {
@@ -241,8 +244,8 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attention_kernel(
   const int warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int nq = (S + FA_BQ - 1) / FA_BQ;
-  const int qi0 = (nq - 1 - (int)blockIdx.x) * FA_BQ;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int qi0 = (nq - 1 - (int)blockIdx.y) * FA_BQ;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
   const long long rs = (long long)H * hd;  // stride between sequence rows
   const float* qb = q + ((long long)b * S * H + h) * hd;
   const float* kb = k + ((long long)b * T * H + h) * hd;
@@ -443,7 +446,9 @@ static int launch_hdp(const float* q, const float* k, const float* v, float* o,
   const size_t smem = fa_shared_bytes(hd);
   const int e = allow_shared_bytes(flash_attention_kernel<HDP>, smem);
   if (e != 0) return e;
-  const dim3 grid((S + FA_BQ - 1) / FA_BQ, B * H);
+  const int nq = (S + FA_BQ - 1) / FA_BQ;
+  if ((long long)B * H > 0x7fffffffLL || nq > FA_MAX_TILES) return (int)cudaErrorInvalidValue;
+  const dim3 grid(B * H, nq);  // see "Grid"
   flash_attention_kernel<HDP><<<grid, FA_THREADS, smem, stream>>>(q, k, v, o, S, T, H, hd,
                                                                  causal, scale, vec);
   return (int)cudaGetLastError();
@@ -452,7 +457,6 @@ static int launch_hdp(const float* q, const float* k, const float* v, float* o,
 #define FW_WARPS 8
 #define FW_THREADS (32 * FW_WARPS)
 #define FW_BK 16  // key rows per shared tile of the wide route
-#define FA_GRID_Y 65535
 
 // Padded head dim of the wide route (0: none takes hd).
 __host__ __device__ constexpr int fw_padded_hd(int hd) {
@@ -480,7 +484,7 @@ __global__ void __launch_bounds__(FW_THREADS) flash_attention_wide_kernel(
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  // query tiles last to first within each (batch, head), as the other kernel
+  // query tiles last to first within each (batch, head)
   const int bh = (int)(blockIdx.x / nq);
   const int qi0 = (nq - 1 - (int)(blockIdx.x % nq)) * BQ;
   const int b = bh / H, h = bh % H;
@@ -597,7 +601,7 @@ extern "C" int flash_attention_launch(
   const float* vf = (const float*)v;
   float* of = (float*)o;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (hd > 128 || H > FA_GRID_Y) {
+  if (hd > 128) {
     switch (fw_padded_hd(hd)) {
       case 160: return launch_wide<5, 2>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, s);
       case 256: return launch_wide<8, 2>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, s);
@@ -606,22 +610,13 @@ extern "C" int flash_attention_launch(
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  // 16-byte copies need every row of k and v on a 16-byte boundary (a
-  // chunk's offset keeps it: whole batches of rows of hd % 4 == 0 floats)
+  // 16-byte copies need every row of k and v on a 16-byte boundary
   const int vec = hd % 4 == 0 && (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0;
-  const int per = FA_GRID_Y / H;  // whole batches per launch: B·H on grid.y
-  for (int b0 = 0; b0 < B; b0 += per) {
-    const int nb = min(per, B - b0);
-    const long long oq = (long long)b0 * S * H * hd, okv = (long long)b0 * T * H * hd;
-    int e;
-    switch (fa_padded_hd(hd)) {
-      case 16: e = launch_hdp<16>(qf + oq, kf + okv, vf + okv, of + oq, nb, S, T, H, hd, causal, scale, vec, s); break;
-      case 32: e = launch_hdp<32>(qf + oq, kf + okv, vf + okv, of + oq, nb, S, T, H, hd, causal, scale, vec, s); break;
-      case 64: e = launch_hdp<64>(qf + oq, kf + okv, vf + okv, of + oq, nb, S, T, H, hd, causal, scale, vec, s); break;
-      case 128: e = launch_hdp<128>(qf + oq, kf + okv, vf + okv, of + oq, nb, S, T, H, hd, causal, scale, vec, s); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
-    if (e != 0) return e;
+  switch (fa_padded_hd(hd)) {
+    case 16: return launch_hdp<16>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, s);
+    case 32: return launch_hdp<32>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, s);
+    case 64: return launch_hdp<64>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, s);
+    case 128: return launch_hdp<128>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return 0;
 }

@@ -5,12 +5,14 @@ Wrapper of `csrc/flash_attention.cu`, the port of the TPU kernel
 the tensor cores (mma.sync, three-pass TF32: float32 accuracy); a block of
 4 warps owns 64 query rows of one head and streams 64-key tiles of K and V
 through a two-stage cp.async ring in shared memory, and the probabilities
-stay in registers.  Head dims above 128 (and head counts above the
-grid's 65,535) take a simple wide-head kernel in float32 FMAs, each warp
-owning 1 or 2 query rows.  No path of the system calls it (the reference's models
-compute attention in plain jnp); `chip_smoke.py` times it at
-musicgen-medium's attention width.  The plain version is
-`ref.flash_attention`; `ops.flash_attention` picks between them by device.
+stay in registers.  Head dims above 128 take a simple wide-head kernel in
+float32 FMAs, each warp owning 1 or 2 query rows.  Both kernels put
+(batch, head) on grid.x, so B·H is not held to grid.y's 65,535; the
+tensor-core kernel's query tiles on grid.y cap S at MAX_SEQ (4,194,240).
+No path of the system calls it (the reference's models compute attention
+in plain jnp); `chip_smoke.py` times it at musicgen-medium's attention
+width.  The plain version is `ref.flash_attention`; `ops.flash_attention`
+picks between them by device.
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ from repro_torch.kernels import _build
 SOURCE = "flash_attention"
 TC_HEAD_DIM = 128   # the widest tensor-core variant's padded head dim
 MAX_HEAD_DIM = 1024  # the wide route's widest variant (fw_padded_hd)
-MAX_GRID_Y = 65_535  # (batch, head) pairs of one tensor-core launch
 QUERY_TILE = 64     # FA_BQ in the source: 4 warps of 16 rows
+MAX_SEQ = QUERY_TILE * 65_535  # tensor-core route: query tiles on grid.y (FA_MAX_TILES)
 KEY_TILE = 64       # FA_BK in the source: rows of one K or V stage
 WIDE_KEY_TILE = 16  # FW_BK in the source: K and V rows staged by the wide route
 launches = 0        # kernel launches so far (chip_smoke resets and reads it)
@@ -48,13 +50,12 @@ def padded_head_dim(hd: int) -> int:
     return next(p for p in (16, 32, 64, TC_HEAD_DIM, 160, 256, 512, MAX_HEAD_DIM) if hd <= p)
 
 
-def wide_route(hd: int, h: int = 1) -> bool:
-    """Whether the launch takes the wide-head kernel: hd > 128, or more
-    heads than one tensor-core launch's grid.y holds."""
-    return hd > TC_HEAD_DIM or h > MAX_GRID_Y
+def wide_route(hd: int) -> bool:
+    """Whether the launch takes the wide-head kernel: hd > 128."""
+    return hd > TC_HEAD_DIM
 
 
-def shared_bytes(hd: int, h: int = 1) -> int:
+def shared_bytes(hd: int) -> int:
     """Dynamic shared memory of one block.  Tensor-core route: two stages
     of a K tile (64 rows of padded_head_dim + 8 floats) and a V tile (rows
     of + 4), and for the 128 variant the query tile's TF32 hi and lo halves
@@ -62,7 +63,7 @@ def shared_bytes(hd: int, h: int = 1) -> int:
     variants keep them in registers).  Wide route: a K and a V tile of 16
     rows of padded_head_dim floats (160 at least)."""
     hdp = padded_head_dim(hd)
-    if wide_route(hd, h):
+    if wide_route(hd):
         return 4 * 2 * WIDE_KEY_TILE * max(hdp, 160)  # the wide route pads to 160 at least
     qsplit = 2 * QUERY_TILE * (hdp + 8) if hdp > 64 else 0
     return 4 * (2 * KEY_TILE * ((hdp + 8) + (hdp + 4)) + qsplit)
@@ -86,6 +87,9 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"k and v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"the flash_attention kernel takes 1 <= hd <= {MAX_HEAD_DIM}, got {hd}")
+    if not wide_route(hd) and q.shape[1] > MAX_SEQ:
+        raise ValueError(f"the flash_attention kernel takes S <= {MAX_SEQ} at hd <= "
+                         f"{TC_HEAD_DIM}, got {q.shape[1]}")
 
 
 def flash_attention(

@@ -104,16 +104,21 @@ def test_flash_attention_causal_first_row_is_its_value():
 
 
 def test_flash_attention_kernel_wrapper_checks():
-    """The kernel's wrapper checks shapes and the head dim before the
-    device, and refuses CPU tensors without counting a launch."""
+    """The kernel's wrapper checks shapes, the head dim and (on the tensor
+    cores, whose query tiles sit on grid.y) the sequence before the device,
+    and refuses CPU tensors without counting a launch."""
     x = torch.zeros((1, 8, 2, 16))
     with pytest.raises(ValueError, match="hd <= 1024"):
         fa.flash_attention(*(torch.zeros((1, 8, 1, 1025)),) * 3)
-    # hd = 160 and B*H past one launch's grid pass the checks and reach the
-    # device check
-    for shape in ((1, 8, 1, 160), (1100, 1, 64, 16)):
+    assert fa.MAX_SEQ == 64 * 65_535
+    with pytest.raises(ValueError, match="S <= 4194240"):
+        fa.flash_attention(*(torch.zeros(1).expand(1, fa.MAX_SEQ + 1, 1, 16),) * 3)
+    # hd = 160, B*H past grid.y's 65,535, S at the cap, and S past it on the
+    # wide route pass the checks and reach the device check
+    for shape in ((1, 8, 1, 160), (1100, 1, 64, 16), (1, 4, 70_000, 16),
+                  (1, fa.MAX_SEQ, 1, 16), (1, fa.MAX_SEQ + 64, 1, 129)):
         with pytest.raises(ValueError, match="CUDA"):
-            fa.flash_attention(*(torch.zeros(shape),) * 3)
+            fa.flash_attention(*(torch.zeros(1).expand(shape),) * 3)
     with pytest.raises(ValueError, match="do not match"):
         fa.flash_attention(x, torch.zeros((1, 8, 3, 16)), torch.zeros((1, 8, 3, 16)))
     with pytest.raises(ValueError, match="CUDA"):
@@ -136,16 +141,14 @@ def test_flash_attention_shared_bytes():
 
 
 def test_flash_attention_wide_route():
-    """Head dims past 128, or more heads than one launch's grid.y holds
-    (65,535), take the wide-head kernel: K and V tiles of 16 rows of the
-    head dim padded to 160, 256, 512 or 1024."""
+    """Head dims past 128, and only they, take the wide-head kernel: K and V
+    tiles of 16 rows of the head dim padded to 160, 256, 512 or 1024."""
     assert [fa.wide_route(hd) for hd in (16, 128, 129, 160, 1024)] == [
         False, False, True, True, True]
-    assert fa.wide_route(16, 70_000) and not fa.wide_route(16, 65_535)
     assert [fa.padded_head_dim(hd) for hd in (129, 160, 161, 256, 257, 1000)] == [
         160, 160, 256, 256, 512, 1024]
     assert fa.shared_bytes(160) == 4 * 2 * 16 * 160
-    assert fa.shared_bytes(16, 70_000) == fa.shared_bytes(160)
+    assert fa.shared_bytes(256) == 4 * 2 * 16 * 256
 
 
 # ------------------------------------------- three-pass TF32, emulated ----

@@ -387,7 +387,7 @@ def test_gpu_csr_shortlist_q8_kernel_matches_plain(metric, d_chunk):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,n,d,k", [(300, 5000, 2, 11), (200, 4099, 13, 20), (64, 70_000, 128, 10),
                                      (9, 7, 5, 12), (50, 5000, 9, 33), (40, 6000, 128, 64),
-                                     (30, 5000, 9, 257)])
+                                     (30, 5000, 9, 257), (5, 0, 3, 4)])
 def test_gpu_brute_knn_kernel_matches_plain(b, n, d, k):
     """Against the plain version on the card: pads exact, ids equal up to
     near-ties, distances within 8 float32 ulps of ‖q‖² + ‖x‖² (the
@@ -404,7 +404,7 @@ def test_gpu_brute_knn_kernel_matches_plain(b, n, d, k):
     wd, wi = ref.brute_knn(q, x, k)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(np.isinf(np_(gd)), np.isinf(np_(wd)))
-    scale = (q * q).sum(1, keepdim=True) + (x * x).sum(1).max()
+    scale = (q * q).sum(1, keepdim=True) + torch.cat([(x * x).sum(1), x.new_zeros(1)]).max()
     fin = torch.isfinite(wd)
     err = (gd.double() ** 2 - wd.double() ** 2).abs()
     assert bool((err[fin] <= (8 * np.finfo(np.float32).eps * scale.double()).expand_as(err)[fin]).all())
