@@ -15,12 +15,19 @@ per phase:
      paper-mode and d=2 results exact; d=128 float distances within rtol
      1e-5, ids equal up to near-ties, which are counted), and
      candidate_topk bit-equal to csr_candidate_topk on the same rows;
+     the three candidate kernels past their old shared-memory caps
+     (windows of 32,768 and 65,536 slots, C = 65,536), on unaligned rows
+     (d = 2, 9, 13, 37 in float32, 130 in int8), at d_chunk = 5, with k and
+     rerank_k = 1, 257 and past (or all of) the window, spans clamped at
+     the store's ends, queries with no valid slot and a live count below
+     the store;
      both count kernels at 40 channels (PROD_GRID's pyramid shape); brute_knn
      at d = 2 / 128 / 40, k = 32, 33, 64, 257 at d = 9 and 128, k = 1000 at
      a small N, k > N, no points (all pads), non-finite rows, and integer
      lattices (k up to 64; exact, ties to the lower index); flash_attention
      over head dims 16-128 (hd = 36: a multiple of 4, not of 8), ragged
-     tiles (causal with S < T too), causal and full, bf16, the wide-head
+     tiles (causal with S < T too), causal and full, bf16, query tiles
+     split over three launches, the wide-head
      route (hd = 160, 256, 512, 1000), and 70,000 heads and B·H = 70,400 on
      the tensor cores; ptxas's
      registers and spills of each of its variants;
@@ -50,7 +57,10 @@ per phase:
      candidate bytes float32 against int8, times, idle share, peak memory,
      its own CPU cross-check) and `hopper_gather` on one chunk (equal to
      `hopper`); the candidate kernels timed on one chunk, each output held
-     against its plain version's as in phase 1;
+     against its plain version's as in phase 1, with `gathered_ms` (every
+     valid (query, row) pair's row read once: the floor when queries share
+     nothing in L2) beside the distinct-row bound, and each kernel's
+     registers and shared memory;
   4  flash_attention, which no path of the system calls, at
      musicgen-medium's attention width (24 heads, head_dim 64) and a 32,768
      sequence, float32, causal, and at stablelm-12b's (32 heads, head_dim
@@ -156,6 +166,37 @@ def ptxas_summary(log: str) -> dict:
     entries = ptxas_by_entry(log).values()
     return {key: [e.get(key, 0) for e in entries]
             for key in ("registers", "static_smem_bytes", "spill_store_bytes")}
+
+
+def ptxas_of(source: str) -> dict:
+    """ptxas's registers, static shared memory and spills of each entry
+    function of a source built in this run, keyed by its mangled name."""
+    from repro_torch.kernels import _build
+
+    return ptxas_by_entry(_build.BUILD_LOG.get(source, {}).get("ptxas", ""))
+
+
+def check_candidate_static_smem() -> None:
+    """The candidate wrappers' shared_bytes count the static arrays of
+    kernel_common.cuh's top-k and of the staged score chunk by constants
+    (candidate_topk.TOPK_SHARED_BYTES, TOPK_CHUNK): hold them against
+    ptxas's static shared memory of every candidate entry function.  The
+    staged csr_candidate_topk_kernel<true> stages rows, not scores.  A
+    source built by an earlier run in this checkout has no ptxas report
+    (phase 0 marks it cached); a fresh checkout builds and checks all three."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.candidate_topk import TOPK_CHUNK, TOPK_SHARED_BYTES
+
+    for source in ("candidate_topk", "csr_candidate_topk", "csr_candidate_topk_q8"):
+        if source not in _build.BUILD_LOG:
+            continue
+        entries = ptxas_of(source)
+        check(bool(entries), f"no ptxas report for {source}")
+        for entry, info in entries.items():
+            want = TOPK_SHARED_BYTES + (0 if "ILb1E" in entry else 4 * TOPK_CHUNK)
+            got = info.get("static_smem_bytes")
+            check(got == want, f"{entry}: ptxas gives {got} bytes of static shared memory, "
+                               f"the wrappers count {want}")
 
 
 def device_profile(fn) -> dict:
@@ -512,6 +553,112 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
     out["candidate_topk"].append({"case": "same_rows_as_csr_candidate_topk", "B": b128,
                                   "C": prod.window * prod.row_cap, "d": 128,
                                   "d_chunks": [None, 48], "bit_equal": True})
+    # past the old kernels' shared-memory caps (4*d + 8*w*row_cap and
+    # 4*d + 4*C <= 232,448 bytes): windows of 32,768 and 65,536 slots; spans
+    # clamped at the store's start (< 0) and end (> n_pad - row_cap), a
+    # quarter of the queries with no valid slot, a live count below the
+    # store; unaligned rows (d = 2, 9, 13 in float32, 130 in int8), d_chunk =
+    # 5, k and rerank_k = 1, 257 and past (or, for rerank_k, all of) the window
+    def wide_spans(b, w, rcap, n):
+        st = torch.randint(-8, n, (b, w), generator=gen, device=dev, dtype=torch.int32)
+        st[:, 0] = n - 3  # clamped at the store's end
+        ln = torch.randint(0, rcap + 8, (b, w), generator=gen, device=dev, dtype=torch.int32)
+        en = torch.minimum(st + ln, torch.tensor(n, device=dev)).int()
+        en[: b // 4] = st[: b // 4]
+        return st, en
+
+    def runs_of_scales(rows):  # per-cell scales: runs of 16 rows share one
+        return (torch.rand((rows // 16 + 1, 1), generator=gen, device=dev) * 0.05 + 0.001
+                ).repeat_interleave(16, dim=0)[:rows].contiguous()
+
+    wcases = []
+    st32, en32 = wide_spans(64, 512, 64, 200_000)
+    st64, en64 = wide_spans(32, 1024, 64, 400_000)
+    sts, ens = wide_spans(256, 64, 64, 50_000)
+    x16 = torch.randn((200_000, 16), generator=gen, device=dev)
+    x9, x13 = (torch.randn((50_000, dd), generator=gen, device=dev) for dd in (9, 13))
+    q64 = torch.randn((64, 16), generator=gen, device=dev)
+    wcases.append(("window_32768_d16", (x16, st32, en32, q64, 10, 199_993, 64), {}, 1e-5))
+    wcases.append(("window_32768_d2_paper", (crd[:200_000], st32, en32, qg[:64], 11,
+                                             199_993, 64),
+                   dict(radii=rad[:64], center_cells=True), 0.0))
+    for kk in (1, 257, 1024 * 64 + 3):
+        wcases.append((f"window_65536_d128_k{kk}", (pts[:400_000], st64, en64, q128[:32], kk,
+                                                    399_993, 64), {}, 1e-5))
+    for metric in ("l2", "l1"):
+        wcases.append((f"d9_dchunk5_{metric}", (x9, sts, ens, q128[:, :9].contiguous(), 10,
+                                                49_993, 64), dict(metric=metric, d_chunk=5), 1e-5))
+    wcases.append(("d13_k257", (x13, sts, ens, q128[:, :13].contiguous(), 257, 49_993, 64), {},
+                   1e-5))
+    # d = 37: staged rows that are not 16-byte aligned (4-byte copies), a
+    # partial last stage, and chunk boundaries inside stages
+    x37 = torch.randn((50_000, 37), generator=gen, device=dev)
+    wcases.append(("d37_dchunk5", (x37, sts, ens, q128[:, :37].contiguous(), 10, 49_993, 64),
+                   dict(d_chunk=5), 1e-5))
+    for label, args, kw, rtol in wcases:
+        got = csr.csr_candidate_topk(*args, **kw)
+        want = ref.csr_candidate_topk(*args, **kw)
+        if rtol == 0.0:
+            check_equal_pair(got, want, f"csr_candidate_topk {label}")
+            err, swaps = 0.0, 0
+        else:
+            err, swaps = compare_topk(got, want, args[0], args[3], kw.get("metric", "l2"), rtol)
+        live = got[1][got[1] >= 0]
+        check(bool((live < args[5]).all()), f"csr_candidate_topk {label}: a pad row surfaced")
+        max_err["csr_candidate_topk"] = max(max_err["csr_candidate_topk"], err)
+        out["csr_candidate_topk"].append({"case": label, "B": args[1].shape[0],
+                                          "w": args[1].shape[1], "row_cap": args[6],
+                                          "d": args[0].shape[1], "k": args[4],
+                                          "smem_bytes": csr.shared_bytes(args[0].shape[1],
+                                                                         args[1].shape[1], args[6]),
+                                          "max_abs_err": err, "tie_swaps": swaps})
+        del got, want
+
+    c16 = torch.randint(-127, 128, (200_000, 16), generator=gen, device=dev).to(torch.int8)
+    c130 = torch.randint(-127, 128, (50_000, 130), generator=gen, device=dev).to(torch.int8)
+    s16, s130, s128 = runs_of_scales(200_000), runs_of_scales(50_000), runs_of_scales(400_000)
+    qw = []
+    qw.append(("window_32768_d16", (c16, s16, st32, en32, q64 * 2.0, 40, 199_993, 64), {}))
+    for rk in (1, 257, 1024 * 64):
+        qw.append((f"window_65536_d128_rk{rk}", (codes128[:400_000], s128, st64, en64,
+                                                 q128[:32] * 2.0, rk, 399_993, 64), {}))
+    q130 = torch.randn((256, 130), generator=gen, device=dev) * 2.0
+    for metric in ("l2", "l1"):
+        for dc in (None, 5):
+            qw.append((f"d130_{metric}_dchunk{dc}", (c130, s130, sts, ens, q130, 40, 49_993, 64),
+                       dict(metric=metric, d_chunk=dc)))
+    for label, args, kw in qw:
+        got = q8.csr_shortlist_q8(*args, **kw)
+        check_equal_pair(got, ref.csr_shortlist_q8(*args, **kw), f"csr_shortlist_q8 {label}")
+        live = got[1][got[1] >= 0]
+        check(bool((live < args[6]).all()), f"q8 {label}: a pad row surfaced")
+        out["csr_shortlist_q8"].append({"case": label, "B": args[2].shape[0],
+                                        "w": args[2].shape[1], "row_cap": args[7],
+                                        "d": args[0].shape[1], "rerank_k": args[5],
+                                        "smem_bytes": q8.shared_bytes(args[0].shape[1],
+                                                                      args[2].shape[1], args[7]),
+                                        "exact": True})
+    del x16, x9, x13, x37, c16, c130, s16, s130, s128
+
+    # candidate_topk past the old cap (C = 65,536) and on unaligned rows
+    for label, shape, kk, dc in (("C65536_d4_k1", (16, 65_536, 4), 1, 512),
+                                 ("C65536_d4_k257", (16, 65_536, 4), 257, 512),
+                                 ("C65536_d4_k_past_C", (16, 65_536, 4), 65_539, 512),
+                                 ("C4096_d9_dchunk5", (64, 4096, 9), 10, 5),
+                                 ("C4096_d13_k257", (64, 4096, 13), 257, 512)):
+        cand_w = torch.randn(shape, generator=gen, device=dev)
+        valid_w = torch.rand(shape[:2], generator=gen, device=dev) < 0.8
+        valid_w[0] = False  # a query with no valid candidate
+        qd = torch.randn((shape[0], shape[2]), generator=gen, device=dev)
+        got = ctk.candidate_topk(cand_w, valid_w, qd, kk, d_chunk=dc)
+        want = ref.candidate_topk(cand_w, valid_w, qd, kk, d_chunk=dc)
+        err, swaps = compare_dense(got, want, cand_w, qd, "l2", 1e-5)
+        max_err["candidate_topk"] = max(max_err["candidate_topk"], err)
+        out["candidate_topk"].append({"case": label, "B": shape[0], "C": shape[1], "d": shape[2],
+                                      "k": kk, "metric": "l2",
+                                      "smem_bytes": ctk.shared_bytes(shape[2], shape[1]),
+                                      "max_abs_err": err, "tie_swaps": swaps})
+        del cand_w, valid_w, got, want
     del pts, crd, codes128, codes2, cand
 
     # brute_knn: random points at the exact paths' d (2, 128) and k (11,
@@ -577,6 +724,22 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
         out["flash_attention"].append({"shape": [fb, fs, ft, fh, fhd], "causal": causal,
                                        "dtype": str(dtype), "tol": tol, "max_abs_err": err,
                                        "route": "wide" if fa.wide_route(fhd) else "tensor cores"})
+    # query tiles over several launches: 2 tiles per launch, S = 300 is 5
+    # tiles, so 3 launches (heaviest first), one counted call
+    for causal in (True, False):
+        fq, fk, fv = (torch.randn((2, 300, 3, 64), generator=gen, device=dev) for _ in range(3))
+        got = fa.flash_attention(fq, fk, fv, causal=causal, _tiles_per_launch=2)
+        grids = fa.last_grids
+        want = ref.flash_attention(fq, fk, fv, causal=causal)
+        check(grids == 3, f"flash_attention at 2 tiles per launch started {grids} grids, not 3")
+        check(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
+              f"flash_attention over 3 launches (causal={causal}) differs")
+        err = float((got - want).abs().max())
+        max_err["flash_attention"] = max(max_err["flash_attention"], err)
+        out["flash_attention"].append({"shape": [2, 300, 300, 3, 64], "causal": causal,
+                                       "dtype": "torch.float32", "tol": 2e-5, "max_abs_err": err,
+                                       "route": "tensor cores", "tiles_per_launch": 2,
+                                       "grids": grids})
     # registers and spills of each head-dim variant (flash_attention_kernel<HDP>,
     # and the wide route's flash_attention_wide_kernel<NPL, RW>: HDP = 32·NPL)
     from repro_torch.kernels import _build
@@ -956,10 +1119,15 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
     distinct = int(torch.unique(j[valid]).numel())
     b_ms, b_by = bound(distinct * d * 4 + chunk * (cfg.window * 8 + d * 4 + k * 8),
                        3 * pairs * d)
+    # gathered_ms: every (query, row) pair's row read from device memory,
+    # the floor when the chunk's queries share no row in L2
     timings["csr_candidate_topk"] = {
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "gathered_ms": 1e3 * pairs * d * 4 / HBM_BYTES_PER_S,
         "max_abs_err": err, "shape": f"PROD_GRID d={d} B={chunk}",
         "valid_pairs": pairs, "distinct_rows": distinct, "tie_swaps": swaps,
+        "smem_bytes": mods["csr_candidate_topk"].shared_bytes(d, cfg.window, cfg.row_cap),
+        "ptxas": ptxas_of("csr_candidate_topk"),
     }
 
     # ---- hopper_q8 on the same index, at full size
@@ -995,8 +1163,12 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
                        6 * pairs * d)
     timings["csr_shortlist_q8"] = {
         "ms": q8_ms, "plain_ms": q8_plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "gathered_ms": 1e3 * pairs * (d + 4) / HBM_BYTES_PER_S,
         "max_abs_err": 0.0, "shape": f"PROD_GRID d={d} B={chunk} rerank_k={rk}",
+        "smem_bytes": mods["csr_shortlist_q8"].shared_bytes(d, cfg.window, cfg.row_cap),
+        "ptxas": ptxas_of("csr_candidate_topk_q8"),
     }
+    check_candidate_static_smem()
 
     # candidate_topk at the re-rank shape: the chunk's sorted shortlist rows
     sl_c = got[1]
@@ -1049,7 +1221,9 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
         "exact": {"launches_search": exact_launches, **exact_rec},
         "cpu_crosscheck": {"queries": 256, "id_lists_equal_frac": frac},
         "timed_chunk": {"valid_pairs": pairs, "distinct_rows": distinct,
-                        "max_abs_err": err, "tie_swaps": swaps},
+                        "max_abs_err": err, "tie_swaps": swaps,
+                        **{name: timings[name] for name in ("csr_candidate_topk",
+                                                             "csr_shortlist_q8")}},
         "peak_mem_gb": run["peak_mem_gb"],
         "index_bytes": {key: v for key, v in s.stats().items() if key.endswith("_bytes")},
         "hopper_q8": {

@@ -94,9 +94,11 @@
 // Grid: (batch, head) sits on grid.x, which holds 2^31 - 1 blocks, so B·H
 // is not held to grid.y's 65,535.  The tensor-core kernel puts the query
 // tile on grid.y (grid.x runs fastest, so the heaviest causal tile of every
-// head starts first); grid.y's 65,535 tiles of 64 rows cap S at 4,194,240,
-// which the wrapper checks.  The wide kernel puts (batch, head) × query
-// tile on grid.x, query tiles last to first within each (batch, head).
+// head starts first); past grid.y's 65,535 tiles of 64 rows (S > 4,194,240)
+// it launches again for the next 65,535 tiles, each launch taking the index
+// of its first tile, so the heaviest tiles still go first.  The wide kernel
+// puts (batch, head) × query tile on grid.x, query tiles last to first
+// within each (batch, head).
 //
 // Causal skipping: key tiles that start past the block's last query row
 // are not visited.  This is exact, not an approximation: every score there
@@ -228,7 +230,7 @@ template <int HDP>
 __global__ void __launch_bounds__(FA_THREADS) flash_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
-    int S, int T, int H, int hd, int causal, float scale, int vec) {
+    int S, int T, int H, int hd, int causal, float scale, int vec, int tile_base) {
   constexpr int LDK = fa_k_stride(HDP), LDV = fa_v_stride(HDP);
   constexpr int NT = HDP / 8;            // k-steps of Q·Kᵀ, n-tiles of P·V
   constexpr int NV = NT < 4 ? NT : 4;    // P·V n-tiles per vector read of V
@@ -244,7 +246,7 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attention_kernel(
   const int warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int nq = (S + FA_BQ - 1) / FA_BQ;
-  const int qi0 = (nq - 1 - (int)blockIdx.y) * FA_BQ;
+  const int qi0 = (nq - 1 - (tile_base + (int)blockIdx.y)) * FA_BQ;
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const long long rs = (long long)H * hd;  // stride between sequence rows
   const float* qb = q + ((long long)b * S * H + h) * hd;
@@ -439,19 +441,27 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attention_kernel(
   }
 }
 
+// One launch per max_tiles query tiles (at most FA_MAX_TILES, grid.y's
+// limit), heaviest causal tiles first; see "Grid".  *grids: the launches.
 template <int HDP>
 static int launch_hdp(const float* q, const float* k, const float* v, float* o,
                       int B, int S, int T, int H, int hd, int causal, float scale, int vec,
-                      cudaStream_t stream) {
+                      int max_tiles, int* grids, cudaStream_t stream) {
   const size_t smem = fa_shared_bytes(hd);
-  const int e = allow_shared_bytes(flash_attention_kernel<HDP>, smem);
+  int e = allow_shared_bytes(flash_attention_kernel<HDP>, smem);
   if (e != 0) return e;
   const int nq = (S + FA_BQ - 1) / FA_BQ;
-  if ((long long)B * H > 0x7fffffffLL || nq > FA_MAX_TILES) return (int)cudaErrorInvalidValue;
-  const dim3 grid(B * H, nq);  // see "Grid"
-  flash_attention_kernel<HDP><<<grid, FA_THREADS, smem, stream>>>(q, k, v, o, S, T, H, hd,
-                                                                 causal, scale, vec);
-  return (int)cudaGetLastError();
+  if ((long long)B * H > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int per = max_tiles > 0 && max_tiles < FA_MAX_TILES ? max_tiles : FA_MAX_TILES;
+  for (int base = 0; base < nq; base += per) {
+    const dim3 grid(B * H, min(per, nq - base));
+    flash_attention_kernel<HDP><<<grid, FA_THREADS, smem, stream>>>(q, k, v, o, S, T, H, hd,
+                                                                   causal, scale, vec, base);
+    e = (int)cudaGetLastError();
+    if (e != 0) return e;
+    ++*grids;
+  }
+  return 0;
 }
 
 #define FW_WARPS 8
@@ -581,7 +591,8 @@ __global__ void __launch_bounds__(FW_THREADS) flash_attention_wide_kernel(
 
 template <int NPL, int RW>
 static int launch_wide(const float* q, const float* k, const float* v, float* o, int B, int S,
-                       int T, int H, int hd, int causal, float scale, cudaStream_t stream) {
+                       int T, int H, int hd, int causal, float scale, int* grids,
+                       cudaStream_t stream) {
   const size_t smem = fw_shared_bytes(hd);
   const int e = allow_shared_bytes(flash_attention_wide_kernel<NPL, RW>, smem);
   if (e != 0) return e;
@@ -590,33 +601,44 @@ static int launch_wide(const float* q, const float* k, const float* v, float* o,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   flash_attention_wide_kernel<NPL, RW><<<(unsigned)blocks, FW_THREADS, smem, stream>>>(
       q, k, v, o, S, T, H, hd, causal, scale, nq);
-  return (int)cudaGetLastError();
+  const int err = (int)cudaGetLastError();
+  if (err == 0) *grids = 1;
+  return err;
 }
 
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S, int T,
-    int H, int hd, int causal, float scale, void* stream) {
+    int H, int hd, int causal, float scale, int max_tiles, int* grids, void* stream) {
   const float* qf = (const float*)q;
   const float* kf = (const float*)k;
   const float* vf = (const float*)v;
   float* of = (float*)o;
   const cudaStream_t s = (cudaStream_t)stream;
+  *grids = 0;
   if (hd > 128) {
     switch (fw_padded_hd(hd)) {
-      case 160: return launch_wide<5, 2>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, s);
-      case 256: return launch_wide<8, 2>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, s);
-      case 512: return launch_wide<16, 1>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, s);
-      case 1024: return launch_wide<32, 1>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, s);
+      case 160: return launch_wide<5, 2>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, grids, s);
+      case 256: return launch_wide<8, 2>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, grids, s);
+      case 512: return launch_wide<16, 1>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, grids, s);
+      case 1024: return launch_wide<32, 1>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, grids, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   // 16-byte copies need every row of k and v on a 16-byte boundary
   const int vec = hd % 4 == 0 && (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0;
   switch (fa_padded_hd(hd)) {
-    case 16: return launch_hdp<16>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, s);
-    case 32: return launch_hdp<32>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, s);
-    case 64: return launch_hdp<64>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, s);
-    case 128: return launch_hdp<128>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, s);
+    case 16:
+      return launch_hdp<16>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, max_tiles,
+                            grids, s);
+    case 32:
+      return launch_hdp<32>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, max_tiles,
+                            grids, s);
+    case 64:
+      return launch_hdp<64>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, max_tiles,
+                            grids, s);
+    case 128:
+      return launch_hdp<128>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, max_tiles,
+                             grids, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

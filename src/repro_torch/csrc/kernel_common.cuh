@@ -1,9 +1,11 @@
 // Device code shared by the port's kernels (included by the .cu sources).
 //
-// One definition each of the three pieces whose rounding must agree
-// between kernels: the chunked l1/l2 row distance (csr_candidate_topk,
-// candidate_topk), the circle mask of a pyramid cell (tile_count,
-// tile_count_multilevel) and the block arg-min top-k (every candidate
+// One definition each of the three pieces whose results must agree
+// between kernels: the chunked l1/l2 row distance (chunked_distance in
+// candidate_topk and csr_candidate_topk at d < 32, ChunkedSum in the staged
+// csr_candidate_topk, both built on distance_term and fold_chunk), the
+// circle mask of a pyramid cell (tile_count,
+// tile_count_multilevel) and the exact top-k selection (every candidate
 // kernel).  Two kernels that rank the same row therefore produce the same
 // float, which the reference's "shortlist containment => bit parity"
 // contract and hopper_gather == hopper rest on.
@@ -15,10 +17,27 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 
-#define TOPK_THREADS 256
-#define TOPK_WARPS (TOPK_THREADS / 32)
+// One term of a row distance: x (or, with center_cells, its cell center
+// floor(x) + 0.5) against q, added to the running chunk's partial sum.
+__device__ __forceinline__ float distance_term(float part, float x, float q, int metric_l1,
+                                               int center_cells) {
+  if (center_cells) x = __fadd_rn(floorf(x), 0.5f);
+  const float df = __fsub_rn(x, q);
+  return metric_l1 ? __fadd_rn(part, fabsf(df)) : __fadd_rn(part, __fmul_rn(df, df));
+}
+
+// A finished chunk's partial sum added to the row's sum; the first chunk
+// starts it.
+__device__ __forceinline__ float fold_chunk(float acc, float part, bool first) {
+  return first ? part : __fadd_rn(acc, part);
+}
+
+__device__ __forceinline__ float row_distance(float acc, int metric_l1) {
+  return metric_l1 ? acc : sqrtf(fmaxf(acc, 0.0f));
+}
 
 // l1 or l2 distance of row x (d floats) to the query qs (d floats): summed
 // per d_chunk block in order, then across blocks in order.  center_cells
@@ -30,17 +49,34 @@ __device__ __forceinline__ float chunked_distance(
   for (int c0 = 0; c0 < d; c0 += d_chunk) {
     const int c1 = min(c0 + d_chunk, d);
     float part = 0.0f;
-    for (int c = c0; c < c1; ++c) {
-      float v = x[c];
-      if (center_cells) v = __fadd_rn(floorf(v), 0.5f);
-      const float df = __fsub_rn(v, qs[c]);
-      part = metric_l1 ? __fadd_rn(part, fabsf(df))
-                       : __fadd_rn(part, __fmul_rn(df, df));
-    }
-    acc = c0 == 0 ? part : __fadd_rn(acc, part);
+    for (int c = c0; c < c1; ++c) part = distance_term(part, x[c], qs[c], metric_l1, center_cells);
+    acc = fold_chunk(acc, part, c0 == 0);
   }
-  return metric_l1 ? acc : sqrtf(fmaxf(acc, 0.0f));
+  return row_distance(acc, metric_l1);
 }
+
+// chunked_distance's sum for a row that arrives in pieces, feature by
+// feature in order (csr_candidate_topk.cu's stages): call boundary(c)
+// before feature c's term wherever a chunk may end at c, then add().
+struct ChunkedSum {
+  float acc, part;
+  int next;    // where the running chunk ends
+  bool first;  // no chunk folded yet
+  __device__ explicit ChunkedSum(int d_chunk) : acc(0.0f), part(0.0f), next(d_chunk), first(true) {}
+  __device__ __forceinline__ void boundary(int c, int d_chunk) {
+    if (c != next) return;
+    acc = fold_chunk(acc, part, first);
+    first = false;
+    part = 0.0f;
+    next += d_chunk;
+  }
+  __device__ __forceinline__ void add(float x, float q, int metric_l1, int center_cells) {
+    part = distance_term(part, x, q, metric_l1, center_cells);
+  }
+  __device__ __forceinline__ float finish(int metric_l1) const {
+    return row_distance(fold_chunk(acc, part, first), metric_l1);
+  }
+};
 
 // Whether the center ((x+0.5)*scale, (y+0.5)*scale) of level cell (x, y)
 // lies inside the l1/l2 circle of radius r around (qx, qy).
@@ -57,46 +93,231 @@ __device__ __forceinline__ bool better(float v, int s, float bv, int bs) {
   return v < bv || (v == bv && s < bs);
 }
 
-// k rounds of a block arg-min over dist[0, slots) in shared memory: round
-// r writes the smallest remaining (value, slot) pair, smaller slot first on
-// ties, to out_d[r] and out_i[r] (gidx[slot], or the slot itself when gidx
-// is null; -1 once only +inf is left), then retires the slot.  k may
-// exceed slots.  Every thread of a TOPK_THREADS block calls it.
-__device__ __forceinline__ void block_topk(float* dist, const int* gidx,
-                                           int slots, int k, float* out_d,
-                                           int* out_i) {
-  __shared__ float warp_v[TOPK_WARPS];
-  __shared__ int warp_s[TOPK_WARPS];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int round = 0; round < k; ++round) {
-    float bv = INFINITY;
-    int bs = slots;  // past every slot: any slot beats it, ties included
-    for (int s = threadIdx.x; s < slots; s += blockDim.x) {
-      if (better(dist[s], s, bv, bs)) { bv = dist[s]; bs = s; }
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, bv, o);
-      const int os = __shfl_down_sync(0xffffffffu, bs, o);
-      if (better(ov, os, bv, bs)) { bv = ov; bs = os; }
-    }
-    if (lane == 0) { warp_v[warp] = bv; warp_s[warp] = bs; }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < TOPK_WARPS ? warp_v[lane] : INFINITY;
-      bs = lane < TOPK_WARPS ? warp_s[lane] : slots;
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, bv, o);
-        const int os = __shfl_down_sync(0xffffffffu, bs, o);
-        if (better(ov, os, bv, bs)) { bv = ov; bs = os; }
+// Exact top-k of a block's stream of (value, slot) candidates, in shared
+// memory that depends on k, not on the number of slots: filter, then merge
+// (brute_knn.cu's pattern, for one query per block).
+//
+// The order is total: smaller value first, then smaller slot.  A running
+// list of the k best pairs, sorted, lives in shared memory for
+// k <= TOPK_SMEM_K, else in the caller's output row (device memory the
+// wrapper allocates); unfilled entries are (+inf, INT_MAX).  A candidate
+// is offered only if its value is finite and it is better() than the
+// list's k-th pair (the threshold), so no tie is lost; survivors go to a
+// shared buffer of TOPK_BUF pairs.  The block offers at most TOPK_WAVE
+// pairs between two checks; a check (topk_check, at a barrier of the
+// caller's loop) merges when fewer than TOPK_WAVE places are left, and
+// once early, as soon as k pairs wait, so that the threshold becomes
+// finite.  The callers rank their candidates from the middle of the
+// window out (middle_out, centred_chunk): a window is centred on its
+// query, so the nearest come first and the threshold is tight early.  A
+// merge sorts the buffer (bitonic), ranks each survivor in the list by
+// binary search, shifts the list's tail up, writes the survivors that
+// rank below k and reads the new threshold.  The result is what k rounds
+// of a block arg-min over every slot give: the same pairs, best first,
+// (+inf, -1) where fewer than k slots have a finite value (k may exceed
+// the slots), and -1 for every slot whose value is not finite.
+
+#define TOPK_THREADS 256
+#define TOPK_BUF 512     // survivor buffer (a power of two)
+#define TOPK_WAVE 256    // offers at most between two checks
+#define TOPK_SMEM_K 128  // lists of k <= TOPK_SMEM_K live in shared memory
+#define TOPK_CHUNK 4096  // scores a caller stages per topk_offer_chunk
+// TopkShared takes 8 * (TOPK_BUF + TOPK_SMEM_K) + 16 bytes
+// (kernels/candidate_topk.py: TOPK_SHARED_BYTES, checked by chip_smoke.py)
+
+struct TopkShared {
+  float buf_v[TOPK_BUF];
+  int buf_s[TOPK_BUF];
+  float list_v[TOPK_SMEM_K];
+  int list_s[TOPK_SMEM_K];
+  float thr_v;  // the list's k-th pair: the bar a candidate must beat
+  int thr_s;
+  int cnt;      // survivors in the buffer
+  int early;    // before the first merge, k - 1: the k-th survivor asks for one
+};
+
+// The running list of one block: in shared memory or in its output row.
+struct TopkList {
+  float* v;
+  int* s;
+  int k;
+};
+
+// Start an empty list (out_d / out_i: the block's output row, k entries).
+// Every thread calls it; the caller's next barrier publishes it.
+__device__ __forceinline__ TopkList topk_init(TopkShared& t, float* out_d, int* out_i, int k) {
+  const bool smem = k <= TOPK_SMEM_K;
+  TopkList l{smem ? t.list_v : out_d, smem ? t.list_s : out_i, k};
+  for (int i = threadIdx.x; i < k; i += blockDim.x) {
+    l.v[i] = INFINITY;
+    l.s[i] = INT_MAX;
+  }
+  if (threadIdx.x == 0) {
+    t.thr_v = INFINITY;
+    t.thr_s = INT_MAX;
+    t.cnt = 0;
+    t.early = k - 1;
+  }
+  return l;
+}
+
+// Offer one candidate.  Returns whether the buffer now needs a merge
+// before the next wave: fewer than TOPK_WAVE places are left, or it holds
+// the first k survivors (a merge then sets the first finite threshold).
+__device__ __forceinline__ bool topk_offer(TopkShared& t, float v, int s) {
+  if (!(v < INFINITY) || !better(v, s, t.thr_v, t.thr_s)) return false;
+  const int pos = atomicAdd(&t.cnt, 1);
+  t.buf_v[pos] = v;
+  t.buf_s[pos] = s;
+  return pos >= TOPK_BUF - TOPK_WAVE || pos == t.early;
+}
+
+// The i-th of n blocks in middle-out order: n/2, n/2 - 1, n/2 + 1, ...
+// A window is centred on its query, so its middle holds the nearest
+// candidates; ranked first, they set a tight threshold early.
+__device__ __forceinline__ int middle_out(int i, int n) {
+  const int h = (i + 1) >> 1;
+  return (i & 1) ? n / 2 - h : n / 2 + h;
+}
+
+// Entries of a sorted array (n pairs) that are better than (v, s).
+__device__ __forceinline__ int topk_rank(const float* av, const int* as, int n, float v, int s) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (better(av[mid], as[mid], v, s)) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Merge the buffer into the list.  Every thread calls it after a barrier
+// that follows the offers; it ends with a barrier.
+__device__ void topk_merge(TopkShared& t, TopkList l) {
+  const int c = t.cnt;  // the same for every thread: read after a barrier
+  if (c == 0) return;
+  int p = 2;
+  while (p < c) p <<= 1;
+  for (int i = c + threadIdx.x; i < p; i += blockDim.x) {
+    t.buf_v[i] = INFINITY;
+    t.buf_s[i] = INT_MAX;
+  }
+  __syncthreads();
+  for (int size = 2; size <= p; size <<= 1) {  // bitonic sort, best first
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < p / 2; i += blockDim.x) {
+        const int lo = 2 * stride * (i / stride) + i % stride, hi = lo + stride;
+        const bool up = (lo & size) == 0;
+        if (better(t.buf_v[hi], t.buf_s[hi], t.buf_v[lo], t.buf_s[lo]) == up) {
+          const float v = t.buf_v[lo];
+          const int s = t.buf_s[lo];
+          t.buf_v[lo] = t.buf_v[hi];
+          t.buf_s[lo] = t.buf_s[hi];
+          t.buf_v[hi] = v;
+          t.buf_s[hi] = s;
+        }
       }
-      if (lane == 0) {
-        out_d[round] = bv;
-        out_i[round] = isfinite(bv) ? (gidx != nullptr ? gidx[bs] : bs) : -1;
-        if (bs < slots) dist[bs] = INFINITY;
-      }
+      __syncthreads();
+    }
+  }
+  // each survivor's place in the merged list: its rank in the buffer plus
+  // the list entries that beat it (slots are distinct: no ties)
+  const int k = l.k;
+  const int first = topk_rank(l.v, l.s, k, t.buf_v[0], t.buf_s[0]);
+  int pos[TOPK_BUF / TOPK_THREADS];
+#pragma unroll
+  for (int r = 0; r < TOPK_BUF / TOPK_THREADS; ++r) {
+    const int i = threadIdx.x + r * TOPK_THREADS;
+    pos[r] = i < c ? i + topk_rank(l.v, l.s, k, t.buf_v[i], t.buf_s[i]) : k;
+  }
+  __syncthreads();
+  // list entries from `first` up move up by the survivors that beat them;
+  // top chunk first, so no entry is overwritten before it is read
+  for (int top = first + ((k - 1 - first) / TOPK_THREADS) * TOPK_THREADS;
+       first < k && top >= first; top -= TOPK_THREADS) {
+    const int i = top + threadIdx.x;
+    float v = INFINITY;
+    int s = INT_MAX, shift = 0;
+    if (i < k) {
+      v = l.v[i];
+      s = l.s[i];
+      shift = topk_rank(t.buf_v, t.buf_s, c, v, s);
     }
     __syncthreads();
+    if (i < k && shift > 0 && i + shift < k) {
+      l.v[i + shift] = v;
+      l.s[i + shift] = s;
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < TOPK_BUF / TOPK_THREADS; ++r) {
+    const int i = threadIdx.x + r * TOPK_THREADS;
+    if (pos[r] < k) {
+      l.v[pos[r]] = t.buf_v[i];
+      l.s[pos[r]] = t.buf_s[i];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    t.thr_v = l.v[k - 1];
+    t.thr_s = l.s[k - 1];
+    t.cnt = 0;
+    t.early = -1;
+  }
+  __syncthreads();
+}
+
+// The check between waves: a block-wide barrier that merges when any
+// thread's offer (full: topk_offer's result) asked for a merge.  Every
+// thread calls it.
+__device__ __forceinline__ void topk_check(TopkShared& t, TopkList l, bool full) {
+  if (__syncthreads_or(full)) topk_merge(t, l);
+}
+
+// Chunks of TOPK_CHUNK of n items centred on n / 2: step 0 is the middle
+// chunk [n/2 - TOPK_CHUNK/2, n/2 + TOPK_CHUNK/2), then the next one above,
+// the next below, and so on, clipped to [0, n).  chunk_steps(n) steps
+// cover the items; centred_chunk(i, n) is step i's [x, y), empty (x >= y)
+// where the clipping leaves nothing.
+__device__ __forceinline__ int chunk_steps(int n) {
+  return 2 * ((n - n / 2 + TOPK_CHUNK / 2 + TOPK_CHUNK - 1) / TOPK_CHUNK) + 1;
+}
+
+__device__ __forceinline__ int2 centred_chunk(int i, int n) {
+  const int k = (i & 1) ? (i + 1) / 2 : -(i / 2);
+  const int lo = n / 2 - TOPK_CHUNK / 2 + k * TOPK_CHUNK;
+  return make_int2(max(lo, 0), min(lo + TOPK_CHUNK, n));
+}
+
+// Offer a chunk of scores staged in shared memory: sc[i] is slot base +
+// i's score (+inf where the slot is no candidate), i < cn <= TOPK_CHUNK.
+// Every thread calls it after writing its scores: a barrier publishes
+// them, then waves of TOPK_WAVE offers, each followed by a check, from the
+// chunk's middle out.  On return sc may be written again.  Computing a
+// chunk's scores needs no barrier, so its loads overlap across slots.
+__device__ __forceinline__ void topk_offer_chunk(TopkShared& t, TopkList l, const float* sc,
+                                                 int base, int cn) {
+  __syncthreads();
+  const int waves = (cn + TOPK_WAVE - 1) / TOPK_WAVE;
+  for (int wi = 0; wi < waves; ++wi) {
+    const int i = middle_out(wi, waves) * TOPK_WAVE + threadIdx.x;
+    topk_check(t, l, i < cn && topk_offer(t, sc[i], base + i));
+  }
+}
+
+// After the last wave: merge what is left, then write the block's k pairs
+// to its output row, each slot through row_of (its global row, or the slot
+// itself), (+inf, -1) for the pads.  Every thread calls it.
+template <typename RowOf>
+__device__ __forceinline__ void topk_finish(TopkShared& t, TopkList l, float* out_d,
+                                            int* out_i, RowOf row_of) {
+  __syncthreads();
+  topk_merge(t, l);
+  for (int i = threadIdx.x; i < l.k; i += blockDim.x) {
+    const float v = l.v[i];
+    const int s = l.s[i];
+    out_d[i] = v;
+    out_i[i] = v < INFINITY ? row_of(s) : -1;
   }
 }
 

@@ -16,10 +16,11 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import MAX_SHARED_BYTES, check_csr_args
+from repro_torch.kernels.candidate_topk import TOPK_CHUNK, TOPK_SHARED_BYTES
+from repro_torch.kernels.ref import check_csr_args
 
 SOURCE = "csr_candidate_topk"
-STATIC_SHARED_BYTES = 64  # the arg-min's per-warp scratch in the source
+STAGES, TILE_ROWS, TILE_DIMS = 2, 256, 32  # CSR_STAGES, CSR_TR, CSR_TD in the source
 launches = 0              # kernel launches so far (chip_smoke resets and reads it)
 
 
@@ -32,9 +33,13 @@ def _launcher():
 
 
 def shared_bytes(d: int, w: int, row_cap: int) -> int:
-    """Dynamic shared memory of one block: the query plus w*row_cap
-    (distance, row) pairs."""
-    return 4 * d + 8 * w * row_cap
+    """Shared memory of one block: at d >= TILE_DIMS the ring of staged
+    tiles (rows of TILE_DIMS + 4 floats) and their row numbers, below it a
+    chunk of staged distances; the query, and the top-k's buffer and list.
+    It does not grow with the window (w, row_cap)."""
+    del w, row_cap
+    staged = STAGES * TILE_ROWS * (TILE_DIMS + 4 + 1) * 4 if d >= TILE_DIMS else 4 * TOPK_CHUNK
+    return staged + 4 * d + TOPK_SHARED_BYTES
 
 
 def csr_candidate_topk(
@@ -59,12 +64,6 @@ def csr_candidate_topk(
         raise ValueError(f"the csr_candidate_topk kernel takes CUDA tensors, got {dev}")
     n_pad, d = store.shape
     b, w = starts.shape
-    smem = shared_bytes(d, w, row_cap)
-    if smem + STATIC_SHARED_BYTES > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"window of {w}x{row_cap} slots at d={d} needs {smem} bytes of "
-            f"shared memory per block; the card allows {MAX_SHARED_BYTES}"
-        )
     _build.check_tensor(store, "store", torch.float32, (n_pad, d), dev)
     _build.check_tensor(starts, "starts", torch.int32, (b, w), dev)
     _build.check_tensor(ends, "ends", torch.int32, (b, w), dev)

@@ -8,7 +8,8 @@ through a two-stage cp.async ring in shared memory, and the probabilities
 stay in registers.  Head dims above 128 take a simple wide-head kernel in
 float32 FMAs, each warp owning 1 or 2 query rows.  Both kernels put
 (batch, head) on grid.x, so B·H is not held to grid.y's 65,535; the
-tensor-core kernel's query tiles on grid.y cap S at MAX_SEQ (4,194,240).
+tensor-core kernel puts its query tiles on grid.y and launches once per
+65,535 of them (MAX_TILES_PER_LAUNCH), so S is not held to it either.
 No path of the system calls it (the reference's models compute attention
 in plain jnp); `chip_smoke.py` times it at musicgen-medium's attention
 width.  The plain version is `ref.flash_attention`; `ops.flash_attention`
@@ -28,17 +29,18 @@ SOURCE = "flash_attention"
 TC_HEAD_DIM = 128   # the widest tensor-core variant's padded head dim
 MAX_HEAD_DIM = 1024  # the wide route's widest variant (fw_padded_hd)
 QUERY_TILE = 64     # FA_BQ in the source: 4 warps of 16 rows
-MAX_SEQ = QUERY_TILE * 65_535  # tensor-core route: query tiles on grid.y (FA_MAX_TILES)
+MAX_TILES_PER_LAUNCH = 65_535  # tensor-core route: query tiles on grid.y (FA_MAX_TILES)
 KEY_TILE = 64       # FA_BK in the source: rows of one K or V stage
 WIDE_KEY_TILE = 16  # FW_BK in the source: K and V rows staged by the wide route
 launches = 0        # kernel launches so far (chip_smoke resets and reads it)
+last_grids = 0      # grids the last launch started: one per MAX_TILES_PER_LAUNCH query tiles
 
 
 @functools.cache  # bound once, not on every launch
 def _launcher():
     fn = _build.load(SOURCE).flash_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -87,9 +89,6 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"k and v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"the flash_attention kernel takes 1 <= hd <= {MAX_HEAD_DIM}, got {hd}")
-    if not wide_route(hd) and q.shape[1] > MAX_SEQ:
-        raise ValueError(f"the flash_attention kernel takes S <= {MAX_SEQ} at hd <= "
-                         f"{TC_HEAD_DIM}, got {q.shape[1]}")
 
 
 def flash_attention(
@@ -97,11 +96,12 @@ def flash_attention(
     k: torch.Tensor,  # (B, T, H, hd)
     v: torch.Tensor,  # (B, T, H, hd)
     causal: bool = True,
+    _tiles_per_launch: int = MAX_TILES_PER_LAUNCH,  # smaller: several launches at a small S
 ) -> torch.Tensor:
     """Attention (B, S, H, hd) in q's dtype from the CUDA kernel, computed
     in float32 (bf16 inputs are cast up and the output cast back, as the
     reference's wrapper does around its kernel).  CUDA tensors only."""
-    global launches
+    global launches, last_grids
     check_args(q, k, v)
     dev = q.device
     if dev.type != "cuda":
@@ -115,11 +115,14 @@ def flash_attention(
     if b * h * s == 0:
         return out.to(q.dtype)
     launch = _launcher()
+    grids = ctypes.c_int(0)
     with torch.cuda.device(dev):
         err = launch(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(), b, s, t, h,
-            hd, int(causal), 1.0 / hd ** 0.5, torch.cuda.current_stream(dev).cuda_stream,
+            hd, int(causal), 1.0 / hd ** 0.5, max(1, min(_tiles_per_launch, MAX_TILES_PER_LAUNCH)),
+            ctypes.byref(grids), torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check_launch(SOURCE, err)
     launches += 1
+    last_grids = grids.value
     return out.to(q.dtype)

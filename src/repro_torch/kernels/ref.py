@@ -13,9 +13,6 @@ import torch
 
 from repro_torch.core.projection import matmul_f32
 
-# Dynamic shared memory one block may use on an H100 (227 KB).
-MAX_SHARED_BYTES = 232_448
-
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root on every device.

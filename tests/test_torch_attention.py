@@ -14,12 +14,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import np_
+from _torch_port import np_, require_cuda
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
 
 
 def _qkv(seed, b, s, t, h, hd):
@@ -104,19 +105,19 @@ def test_flash_attention_causal_first_row_is_its_value():
 
 
 def test_flash_attention_kernel_wrapper_checks():
-    """The kernel's wrapper checks shapes, the head dim and (on the tensor
-    cores, whose query tiles sit on grid.y) the sequence before the device,
-    and refuses CPU tensors without counting a launch."""
+    """The kernel's wrapper checks shapes and the head dim before the
+    device, and refuses CPU tensors without counting a launch.  The
+    sequence is not capped: past grid.y's 65,535 query tiles of 64 the
+    tensor-core route launches again."""
     x = torch.zeros((1, 8, 2, 16))
     with pytest.raises(ValueError, match="hd <= 1024"):
         fa.flash_attention(*(torch.zeros((1, 8, 1, 1025)),) * 3)
-    assert fa.MAX_SEQ == 64 * 65_535
-    with pytest.raises(ValueError, match="S <= 4194240"):
-        fa.flash_attention(*(torch.zeros(1).expand(1, fa.MAX_SEQ + 1, 1, 16),) * 3)
-    # hd = 160, B*H past grid.y's 65,535, S at the cap, and S past it on the
-    # wide route pass the checks and reach the device check
+    assert fa.MAX_TILES_PER_LAUNCH == 65_535
+    # hd = 160, B*H past grid.y's 65,535, S past 65,535 query tiles on the
+    # tensor cores and on the wide route pass the checks and reach the
+    # device check
     for shape in ((1, 8, 1, 160), (1100, 1, 64, 16), (1, 4, 70_000, 16),
-                  (1, fa.MAX_SEQ, 1, 16), (1, fa.MAX_SEQ + 64, 1, 129)):
+                  (1, 64 * 65_535 + 64, 1, 16), (1, 64 * 65_535 + 64, 1, 129)):
         with pytest.raises(ValueError, match="CUDA"):
             fa.flash_attention(*(torch.zeros(1).expand(shape),) * 3)
     with pytest.raises(ValueError, match="do not match"):
@@ -203,3 +204,22 @@ def test_three_pass_tf32_meets_the_float32_tolerance(b, s, t, h, hd, causal):
     np.testing.assert_allclose(three, want, rtol=2e-5, atol=2e-5)
     one = _attention_tf32(q, k, v, causal, passes=1)
     assert not np.allclose(one, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_gpu_flash_attention_over_several_launches(causal):
+    """Query tiles split over several launches (2 tiles each: S = 300 is 5
+    tiles, 3 launches), heaviest tiles first: within 2e-5 of the plain
+    version, one counted call of 3 grids."""
+    dev = require_cuda()
+    rng = np.random.default_rng(300)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 300, 3, 64)).astype(np.float32)).to(dev)
+               for _ in range(3))
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=causal, _tiles_per_launch=2)
+    assert fa.last_grids == 3
+    want = tref.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    np.testing.assert_allclose(np_(got), np_(want), rtol=2e-5, atol=2e-5)

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import assert_dists_close, np_, require_cuda
+from _torch_port import DIST_RTOL, assert_dists_close, np_, require_cuda
 
 from repro.core import pyramid as jpyr
 from repro.core.grid import GridConfig as JGridConfig
@@ -269,6 +269,47 @@ def test_csr_candidate_topk_store_too_small_raises():
         )
 
 
+def _wide_window(seed, b=2, w=512, rcap=64, n=40_000, d=4):
+    """Spans of a window of w*row_cap slots, past the old kernels' shared-
+    memory cap (4*d + 8*w*row_cap > 232,448 bytes): empty through
+    overflowing spans, starts clamped at the store's start and end."""
+    rng = np.random.default_rng(seed)
+    store = rng.normal(size=(n, d)).astype(np.float32)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    starts = rng.integers(-8, n, size=(b, w)).astype(np.int32)
+    ends = np.minimum(starts + rng.integers(0, rcap + 8, size=(b, w)), n).astype(np.int32)
+    return store, starts, ends, q
+
+
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_plain_csr_candidate_topk_past_the_old_window_cap(metric):
+    """ref.csr_candidate_topk at w*row_cap = 32,768 equals the reference's
+    plain oracle (ids exact, distances within DIST_RTOL)."""
+    store, starts, ends, q = _wide_window(seed=30)
+    assert 4 * 4 + 8 * 512 * 64 > 232_448
+    want = jref.csr_candidate_topk(jnp.asarray(store), jnp.asarray(starts), jnp.asarray(ends),
+                                   jnp.asarray(q), 20, store.shape[0] - 100, 64, metric=metric)
+    got = ref.csr_candidate_topk(_t(store), _t(starts), _t(ends), _t(q), 20,
+                                 store.shape[0] - 100, 64, metric=metric)
+    np.testing.assert_array_equal(np_(got[1]), np.asarray(want[1]))
+    assert_dists_close(got[0], want[0])
+
+
+@pytest.mark.parametrize("which", ["csr_candidate_topk", "csr_candidate_topk_q8", "candidate_topk"])
+def test_candidate_kernels_shared_bytes_do_not_grow_with_the_window(which):
+    """The candidate kernels' shared memory depends on d (and the staging
+    tile), not on the window: the same at 4,096 and 65,536 slots, and
+    within a block's 232,448 bytes at d = 128."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.kernels.{which}")
+    if which == "candidate_topk":
+        small, large = mod.shared_bytes(128, 4096), mod.shared_bytes(128, 65_536)
+    else:
+        small, large = mod.shared_bytes(128, 64, 64), mod.shared_bytes(128, 1024, 64)
+    assert small == large <= 232_448
+
+
 # --------------------------------------------------------------- the card ----
 
 
@@ -440,3 +481,124 @@ def test_gpu_flash_attention_kernel_matches_plain(s, t, h, hd, causal, dtype):
     assert got.dtype == dtype
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     np.testing.assert_allclose(np_(got.float()), np_(want.float()), rtol=tol, atol=tol)
+
+
+def _window_case(case):
+    """Spans, store and queries of one named window case (numpy, from a
+    seed): the window size, d, and the spans' shape vary."""
+    b, w, rcap, n, d = 64, 8, 16, 120, 6
+    kind = case
+    if case.startswith("wide"):
+        b, w, rcap, n, d = ((8, 512, 64, 40_000, 16) if case == "wide_32768"
+                            else (4, 1024, 64, 80_000, 8))
+    elif case.startswith("d"):
+        d = int(case[1:])
+    rng = np.random.default_rng(sum(map(ord, case)))
+    store = rng.normal(size=(n, d)).astype(np.float32)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    # starts clamped at the store's start (< 0) and end (> n - row_cap)
+    starts = rng.integers(-8, n, size=(b, w)).astype(np.int32)
+    ends = np.minimum(starts + rng.integers(0, rcap + 8, size=(b, w)), n).astype(np.int32)
+    if kind == "all_invalid":
+        ends[: b // 2] = starts[: b // 2]  # half the queries have no valid slot
+    return store, starts, ends, q
+
+
+WINDOW_CASES = ["wide_32768", "wide_65536", "d2", "d9", "d13", "d37", "all_invalid"]
+
+
+def _assert_ids_equal_up_to_ties(gi, wi, rows, q, metric):
+    """Selected rows exact, except that near-tied rows may trade places: a
+    query whose id list differs must list equally far rows (distances
+    recomputed in float64 from rows(b, ids), sorted, within DIST_RTOL).
+    The kernel and the plain version sum a row in different orders, so
+    distances an ulp apart may rank the other way."""
+    gi, wi = gi.cpu(), wi.cpu()
+    for b in (gi != wi).any(dim=1).nonzero().flatten().tolist():
+        ds = []
+        for ids in (gi[b], wi[b]):
+            diff = rows(b, ids.clamp_min(0).long()).double() - q[b].double()
+            dist = diff.abs().sum(-1) if metric == "l1" else diff.pow(2).sum(-1).sqrt()
+            dist = torch.where(ids >= 0, dist, torch.full_like(dist, float("inf")))
+            ds.append(dist.sort().values)
+        np.testing.assert_array_equal(np.isinf(np_(ds[0])), np.isinf(np_(ds[1])))
+        fin = torch.isfinite(ds[1])
+        np.testing.assert_allclose(np_(ds[0][fin]), np_(ds[1][fin]), rtol=DIST_RTOL, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WINDOW_CASES)
+@pytest.mark.parametrize("k", [1, 10, 257, -1])
+def test_gpu_csr_candidate_topk_windows(case, k):
+    """Windows of 32,768 and 65,536 slots, unaligned rows (d = 2, 9, 13
+    read directly, 37 staged by 4-byte copies), all-invalid windows, spans
+    clamped at the store's ends and a live count below the store; k = 1,
+    257 and more than the window: slots exact up to near-ties, distances
+    within DIST_RTOL (bit-equal at d = 2)."""
+    dev = require_cuda()
+    from repro_torch.kernels import csr_candidate_topk as csr
+
+    store, starts, ends, q = _window_case(case)
+    rcap = 64 if case.startswith("wide") else 16
+    k = starts.shape[1] * rcap + 3 if k == -1 else k  # -1: past the window
+    args = [_t(a) for a in (store, starts, ends, q)]
+    n_live = store.shape[0] - 7
+    for kw in ({}, {"metric": "l1", "d_chunk": 5}):
+        wd, wi = ref.csr_candidate_topk(*args, k, n_live, rcap, **kw)
+        gd, gi = csr.csr_candidate_topk(*[a.to(dev) for a in args], k, n_live, rcap, **kw)
+        torch.cuda.synchronize()
+        _assert_ids_equal_up_to_ties(gi, wi, lambda b, ids: args[0][ids], args[3],
+                                     kw.get("metric", "l2"))
+        assert_dists_close(gd, wd)
+        if store.shape[1] <= 2:
+            assert torch.equal(gd.cpu(), wd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WINDOW_CASES + ["d130", "d128", "d600"])
+@pytest.mark.parametrize("rerank_k", [1, 40, 257, -1])
+def test_gpu_csr_shortlist_q8_windows(case, rerank_k):
+    """The int8 shortlist over the same window cases, plus d = 128 (16-byte
+    units), 130 (unaligned rows, two units per lane) and 600 (the generic
+    variant); rerank_k = 1, 40, 257 and the whole window (-1), d_chunk
+    None and 5: scores and rows bit-equal."""
+    dev = require_cuda()
+    from repro_torch.kernels import csr_candidate_topk_q8 as q8
+
+    store, starts, ends, q = _window_case(case)
+    rcap = 64 if case.startswith("wide") else 16
+    rk = starts.shape[1] * rcap if rerank_k == -1 else min(rerank_k, starts.shape[1] * rcap)
+    scales = np.abs(store).max(axis=1, keepdims=True) / 100.0 + 1e-3
+    scales[10:40] = scales[10]  # a cell's rows share one scale
+    codes = np.clip(np.round(store / scales), -127, 127).astype(np.int8)
+    args = [_t(a) for a in (codes, scales.astype(np.float32), starts, ends, q * 3.0)]
+    for kw in ({}, {"metric": "l1"}, {"d_chunk": 5}):
+        want = ref.csr_shortlist_q8(*args, rk, store.shape[0] - 7, rcap, **kw)
+        got = q8.csr_shortlist_q8(*[a.to(dev) for a in args], rk, store.shape[0] - 7, rcap, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1]), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,d", [(65_536, 4), (4096, 2), (4096, 9), (4096, 13)])
+@pytest.mark.parametrize("k", [1, 257, -1])
+def test_gpu_candidate_topk_wide(c, d, k):
+    """Dense candidates past the old cap (C = 65,536) and unaligned rows;
+    k = 1, 257 and past C (-1): slots exact up to near-ties, distances
+    within DIST_RTOL."""
+    dev = require_cuda()
+    from repro_torch.kernels import candidate_topk as ctk
+
+    rng = np.random.default_rng(c + d)
+    b = 8
+    cand = _t(rng.normal(size=(b, c, d)).astype(np.float32))
+    valid = _t(rng.uniform(size=(b, c)) < 0.8)
+    valid[0] = False  # a query with no valid candidate
+    q = _t(rng.normal(size=(b, d)).astype(np.float32))
+    kk = c + 3 if k == -1 else k
+    for dc in (512, 5):
+        wd, wi = ref.candidate_topk(cand, valid, q, kk, d_chunk=dc)
+        gd, gi = ctk.candidate_topk(cand.to(dev), valid.to(dev), q.to(dev), kk, d_chunk=dc)
+        torch.cuda.synchronize()
+        _assert_ids_equal_up_to_ties(gi, wi, lambda b, ids: cand[b][ids], q, "l2")
+        assert_dists_close(gd, wd)

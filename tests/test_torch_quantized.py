@@ -120,6 +120,29 @@ def test_csr_shortlist_q8_matches_reference_exactly(metric, d_chunk):
     assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
 
 
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_plain_csr_shortlist_q8_past_the_old_window_cap(metric):
+    """ref.csr_shortlist_q8 at w*row_cap = 32,768 (past the old kernel's
+    shared-memory cap) equals the reference's plain oracle bit for bit:
+    starts clamped at the store's start and end, empty and overflowing
+    spans, the live boundary."""
+    from repro.kernels import ref as jref
+
+    rng = np.random.default_rng(31)
+    b, w, rcap, n, d = 2, 512, 64, 40_000, 4
+    codes = rng.integers(-127, 128, size=(n, d)).astype(np.int8)
+    scales = (rng.uniform(size=(n, 1)) * 0.05 + 0.001).astype(np.float32)
+    scales[1000:1100] = scales[1000]  # a cell's rows share one scale
+    q = (rng.normal(size=(b, d)) * 2.0).astype(np.float32)
+    starts = rng.integers(-8, n, size=(b, w)).astype(np.int32)
+    ends = np.minimum(starts + rng.integers(0, rcap + 8, size=(b, w)), n).astype(np.int32)
+    args = (codes, scales, starts, ends, q, 40, n - 100, rcap)
+    want = jref.csr_shortlist_q8(*(jnp.asarray(a) for a in args[:5]), *args[5:], metric=metric)
+    got = ref.csr_shortlist_q8(*(torch.from_numpy(a) for a in args[:5]), *args[5:], metric=metric)
+    np.testing.assert_array_equal(np_(got[1]), np.asarray(want[1]))
+    np.testing.assert_array_equal(np_(got[0]), np.asarray(want[0]))
+
+
 def test_q8_d_chunks_cap_the_int32_sum():
     assert ref.q8_d_chunks(1200, None) == [(0, 512), (512, 512), (1024, 176)]
     assert ref.q8_d_chunks(8, 3) == [(0, 3), (3, 3), (6, 2)]
