@@ -4,14 +4,15 @@
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout on a machine with one card and the CUDA
-toolkit.  It builds the seven Hopper kernels from src/repro_torch/csrc
+toolkit.  It builds the eight Hopper kernels from src/repro_torch/csrc
 with nvcc (one process per source, all at once) and prints one JSON line
 per phase:
 
   0  device: name, count, power limit; every kernel built for sm_90a, with
      build seconds and ptxas's registers / shared memory / spills;
   1  each kernel against its plain PyTorch version on the card, on random
-     inputs at the shapes of phases 2-4 (counts, int8 shortlists,
+     inputs at the shapes of phases 2-4 (the Eq.-1 loop's five stats,
+     counts, int8 shortlists,
      paper-mode and d=2 results exact; d=128 float distances within rtol
      1e-5, ids equal up to near-ties, which are counted), and
      candidate_topk bit-equal to csr_candidate_topk on the same rows;
@@ -21,6 +22,11 @@ per phase:
      rerank_k = 1, 257 and past (or all of) the window, spans clamped at
      the store's ends, queries with no valid slot and a live count below
      the store;
+     radius_search_loop on indexes of 1M points at phase 2's and a phase-3
+     chunk's shapes (l2, l1, adaptive_r0, early_exit off, 40 channels,
+     T = 8) and on edge cases (n = 0 on every pass, radii at 1 and at
+     r_max, counts of exactly k and k_hi, lanes out of iterations, Eq.-1
+     products on a half);
      both count kernels at 40 channels (PROD_GRID's pyramid shape); brute_knn
      at d = 2 / 128 / 40, k = 32, 33, 64, 257 at d = 9 and 128, k = 1000 at
      a small N, k > N, no points (all pads), non-finite rows, and integer
@@ -33,9 +39,12 @@ per phase:
      registers and spills of each of its variants;
   2  the paper's setup at full scale (PAPER_GRID, 1M 2-D points, 4096
      queries): build, search, classify in both modes on `hopper`, recall
-     and class agreement against `exact`, launch counts, and the first
-     256 queries re-run on the CPU through the plain versions (exactly
-     equal); `exact` on the brute_knn kernel (its only launches), held
+     and class agreement against `exact`, launch counts (a search: one
+     radius_search_loop, one csr_candidate_topk, no tile_count_multilevel),
+     the search's Eq.-1 stats equal to the lock-step loop's, `count_at` at
+     the final radii on tile_count_multilevel (totals equal to the loop's
+     counts), and the first 256 queries re-run on the CPU through the
+     plain versions (exactly equal); `exact` on the brute_knn kernel (its only launches), held
      against the plain version it replaced (ids equal on >= 99.9% of
      queries, squared distances within 8 ulps of ‖q‖² + ‖x‖²; the first
      chunk's share of id lists equal to float64 distances), both timed,
@@ -44,8 +53,10 @@ per phase:
      then `hopper_stacked.count_at` at the loop's final radii
      (equal to `hopper`'s, one tile_count launch per level),
      `hopper_gather` (both modes equal to `hopper` in every field) and
-     `hopper_q8` (paper mode equal to `hopper`, refined recall); the count
-     kernels timed at this path's first pass, exact against their plain
+     `hopper_q8` (paper mode equal to `hopper`, refined recall, device
+     time and idle share); the loop kernel timed at this path's shape, its
+     bound over the distinct in-circle cells of all passes together; the count
+     kernels timed at the loop's first pass, exact against their plain
      versions;
   3  a SIFT1M-shaped datastore (1M points, d=128, 10,000 queries; planted
      data, nothing downloaded): PROD_GRID, PCA projection, k=10, chunks of
@@ -56,7 +67,9 @@ per phase:
      `hopper`'s top-10 and those lanes equal to `hopper` in every field,
      candidate bytes float32 against int8, times, idle share, peak memory,
      its own CPU cross-check) and `hopper_gather` on one chunk (equal to
-     `hopper`); the candidate kernels timed on one chunk, each output held
+     `hopper`); launches and `count_at` as in phase 2 (one
+     radius_search_loop per chunk); the loop kernel and the candidate
+     kernels timed on one chunk, each output held
      against its plain version's as in phase 1, with `gathered_ms` (every
      valid (query, row) pair's row read once: the floor when queries share
      nothing in L2) beside the distinct-row bound, and each kernel's
@@ -89,6 +102,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -112,6 +126,7 @@ FP32_OPS_PER_S = 67e12
 TF32_TENSOR_OPS_PER_S = 495e12
 # kernel name -> (wrapper module and CUDA source under repro_torch, the TPU kernel it replaces)
 KERNELS = {
+    "radius_search_loop": ("radius_search_loop", "src/repro/kernels/tile_count_multilevel.py:95"),
     "tile_count_multilevel": ("tile_count_multilevel", "src/repro/kernels/tile_count_multilevel.py:95"),
     "csr_candidate_topk": ("csr_candidate_topk", "src/repro/kernels/csr_candidate_topk.py:148"),
     "tile_count": ("tile_count", "src/repro/kernels/tile_count.py:111"),
@@ -121,9 +136,10 @@ KERNELS = {
     "flash_attention": ("flash_attention", "src/repro/kernels/flash_attention.py:89"),
 }
 SOURCES = tuple(src for src, _ in KERNELS.values())
-FUSED_PATH = ("tile_count_multilevel", "csr_candidate_topk")  # the kernels `hopper` runs
+FUSED_PATH = ("radius_search_loop", "csr_candidate_topk")  # the kernels `hopper` searches on
 NO_PATH = ("flash_attention",)  # no path of the system calls it: phase 4 only
 F32_EPS = float(np.finfo(np.float32).eps)
+LOOP_STATS = ("radius", "count", "iters", "converged", "tile_dmas_skipped")
 
 
 def emit(obj) -> None:
@@ -242,10 +258,12 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> 
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def distinct_window_cells(q_grid, levels, tile, nblks) -> int:
-    """Distinct pyramid cells the count windows of these lanes read: each
-    lane's clamped T x T window at its level (the plain version's window
-    arithmetic), keyed by (level, x, y)."""
+def circle_cells(q_grid, radii, levels, tile, nblks, metric) -> torch.Tensor:
+    """The pyramid cells a count at these radii reads, keyed by
+    (level, x, y), one key per lane and cell: each lane's clamped T x T
+    window at its level (the plain version's window arithmetic), only the
+    cells whose centres lie in the circle, since the count kernels load
+    only those."""
     dev = q_grid.device
     lv = levels.long()
     side = torch.tensor(nblks, device=dev)[lv] * tile
@@ -254,8 +272,120 @@ def distinct_window_cells(q_grid, levels, tile, nblks) -> int:
                          side - tile) for a in (0, 1)]
     ar = torch.arange(tile, device=dev)
     xs, ys = (org[0][:, None] + ar)[:, :, None], (org[1][:, None] + ar)[:, None, :]
+    sc, r = scale[:, None, None], radii.float()[:, None, None]
+    dx = (xs.float() + 0.5) * sc - q_grid[:, 0, None, None]
+    dy = (ys.float() + 0.5) * sc - q_grid[:, 1, None, None]
+    inside = dx.abs() + dy.abs() <= r if metric == "l1" else dx * dx + dy * dy <= r * r
     s0 = nblks[0] * tile
-    return int(torch.unique((lv[:, None, None] * s0 + xs) * s0 + ys).numel())
+    return ((lv[:, None, None] * s0 + xs) * s0 + ys)[inside]
+
+
+def loop_args(tiles, q_grid, r0, k, k_hi, cfg) -> tuple:
+    return (tiles, q_grid, r0, k, k_hi, cfg.max_radius, cfg.max_iters, cfg.tile,
+            cfg.level_nblks)
+
+
+def hold_loop(mods, label, args, metric, early_exit=True) -> dict:
+    """The loop kernel and its plain version (the lock-step loop) on the
+    same card tensors, all five stats exactly equal; returns the plain
+    version's stats."""
+    from repro_torch.kernels import ref
+
+    got = mods["radius_search_loop"].radius_search_loop(*args, metric=metric,
+                                                        early_exit=early_exit)
+    want = ref.radius_search_loop(*args, metric=metric, early_exit=early_exit)
+    same_loop_stats(got, want, f"radius_search_loop {label}")
+    return want
+
+
+def same_loop_stats(got: dict, want: dict, what: str) -> None:
+    for key in LOOP_STATS:
+        check(torch.equal(got[key], want[key]), f"{what}: {key} differs")
+
+
+def loop_passes(args, metric) -> tuple[dict, list]:
+    """The plain version's schedule with its count passes recorded: the
+    lock-step loop (core/batched.py) counting through
+    ref.tile_count_multilevel, as ref.radius_search_loop does; returns its
+    stats and each pass's (radii, live-lane mask), the recount included."""
+    from repro_torch.core.batched import lockstep_radius_loop
+    from repro_torch.kernels import ref
+
+    tiles, q, r0, k, k_hi, r_max, max_iters, tile, nblks = args
+    passes: list = []
+
+    def count(r, active):
+        passes.append((r, active))
+        levels = ref.level_for_radius(r, tile, len(nblks))
+        return ref.tile_count_multilevel(tiles, q, r.float(), levels, tile, nblks,
+                                         metric=metric, active=active).sum(-1, dtype=torch.int32)
+
+    return lockstep_radius_loop(count, r0, k, k_hi, r_max, max_iters, masked=True), passes
+
+
+def time_loop(mods, index, cfg, q_grid, k, shape: str) -> dict:
+    """The loop kernel at a path's shape (the global r0), exact against the
+    plain version, timed beside it (the wrapper's call with the L2
+    flushed, as every kernel here; and the launch alone).  The bound's
+    bytes are the distinct cells (C int32 each) that the live lanes of all
+    passes of the lock-step schedule and the recount read, counted once
+    over the union of the passes (a lane that stays on one level re-reads
+    its window from cache) and only inside each pass's circle (the kernel
+    loads no other cell), plus the queries and start radii read once and
+    the four outputs written once; the operations are ten float operations
+    per cell of every live lane's window (the mask) and C adds per cell
+    read."""
+    from repro_torch.kernels import ref
+
+    b, c, t = q_grid.shape[0], cfg.n_channels, cfg.tile
+    k_hi = max(k, math.ceil(k * cfg.k_slack))
+    r0 = torch.full((b,), cfg.r0, dtype=torch.int32, device=q_grid.device)
+    args = loop_args(index.pyr_tiles, q_grid.contiguous(), r0, k, k_hi, cfg)
+    want = hold_loop(mods, shape, args, cfg.metric)
+    recorded, passes = loop_passes(args, cfg.metric)
+    same_loop_stats(recorded, want, f"the recorded lock-step loop at {shape}")
+    kernel = mods["radius_search_loop"].radius_search_loop
+    ms, _ = time_ms(lambda: kernel(*args, metric=cfg.metric))
+    plain_ms, _ = time_ms(lambda: ref.radius_search_loop(*args, metric=cfg.metric), reps=3)
+    # the launch alone, without the wrapper's tile_dmas_skipped reduction
+    # and its host time: the profiler's device time of one warm call
+    kernel_ms = sum(v for name, v in device_profile(lambda: kernel(*args, metric=cfg.metric))
+                    ["top_kernels_ms"].items() if "radius_search_loop_kernel" in name)
+    cells = [circle_cells(q_grid[act], r[act], ref.level_for_radius(r, t, cfg.levels)[act],
+                          t, cfg.level_nblks, cfg.metric) for r, act in passes]
+    distinct = int(torch.unique(torch.cat(cells)).numel())
+    read = sum(int(x.numel()) for x in cells)
+    lane_passes = sum(int(act.sum()) for _, act in passes)
+    b_ms, b_by = bound(distinct * c * 4 + b * (8 + 4) + b * (3 * 4 + 1),
+                       lane_passes * t * t * 10 + read * c)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "kernel_only_warm_ms": kernel_ms, "max_abs_err": 0.0, "shape": shape,
+            "passes": len(passes),
+            "lane_passes": lane_passes, "cells_read_all_passes": read,
+            "distinct_cells_all_passes": distinct,
+            "library": "none"}, want
+
+
+def same_stats(stats: dict, res, what: str, lanes=slice(None)) -> None:
+    """A search's Eq.-1 fields equal to loop stats of the same queries."""
+    for key in ("radius", "count", "iters", "converged"):
+        check(torch.equal(stats[key], getattr(res, key)[lanes]), f"{what}: {key} differs")
+
+
+def count_at_run(label, searcher, queries, res, mods, chunks: int) -> dict:
+    """hopper's count_at at a search's final radii, counted: one
+    tile_count_multilevel launch per chunk and nothing else, and each
+    lane's total equal to the loop kernel's count (a converged lane's count
+    is the count at its final radius; the others were recounted there)."""
+    reset(mods)
+    cnt = searcher.count_at(queries, res.radius)
+    torch.cuda.synchronize()
+    launches = counts(mods)
+    check(launches["tile_count_multilevel"] == chunks and sum(launches.values()) == chunks,
+          f"{label}: count_at launched {launches}, expected {chunks} tile_count_multilevel")
+    check(torch.equal(cnt.sum(dim=-1, dtype=torch.int32), res.count),
+          f"{label}: count_at's totals differ from the loop kernel's counts")
+    return launches
 
 
 def to_np(t: torch.Tensor) -> np.ndarray:
@@ -346,6 +476,112 @@ def same_result(a, b, what: str, lanes=None) -> None:
         check(torch.equal(x, y), f"{what}: {field} differs")
 
 
+def phase1_loop(seed, cfgs, mods, rows: list, b=4096, n=1_000_000, chunk=2048) -> None:
+    """radius_search_loop against ref.radius_search_loop on the card, all
+    five stats exactly equal: on indexes of 1M random points at phase 2's
+    shape (PAPER_GRID, 4096 queries, k = 11) and at a phase-3 chunk's
+    (PROD_GRID, 2048 queries, k = 10), l2 and l1, from the global r0 and
+    from adaptive_r0's seeds, early_exit off; 40 channels at PROD_GRID's
+    pyramid shape, T = 8 at PROD_GRID's grid; and on PAPER_GRID-shaped edge cases: an empty pyramid
+    (n = 0 on every pass: radii double to r_max, every lane runs out of
+    iterations), a dense one (radii clamp at 1), counts landing on k and on
+    k_hi, and Eq.-1 products r * sqrt(k / n) that fall on a half (k = 1,
+    n = 4 at odd r, n = 16 at r = 2 mod 4), which round half to even."""
+    import dataclasses
+
+    from repro_torch import api
+    from repro_torch.core import projection, pyramid
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    i32 = dict(dtype=torch.int32, device=DEV)
+
+    def index_of(cfg, spread):
+        pts = torch.randn((n, 2), generator=gen, device=DEV) * spread
+        labels = torch.randint(0, cfg.n_channels, (n,), generator=gen, **i32)
+        return api.ActiveSearcher.build(pts, labels=labels if cfg.n_classes else None, cfg=cfg,
+                                        proj=projection.identity_projection(pts),
+                                        device=DEV).index
+
+    def grid_of(index, cfg, m, spread):
+        q = torch.randn((m, 2), generator=gen, device=DEV) * spread
+        return projection.to_grid_coords(index.proj, q, cfg.grid_size).contiguous()
+
+    def held(label, tiles, q_grid, r0, k, k_hi, cfg, early_exit=True, **cover):
+        want = hold_loop(mods, label, loop_args(tiles, q_grid, r0, k, k_hi, cfg), cfg.metric,
+                         early_exit=early_exit)
+        it, conv, rad = want["iters"], want["converged"], want["radius"]
+        rows.append({"case": label, "B": q_grid.shape[0], "C": tiles.shape[-1],
+                     "levels": cfg.levels, "metric": cfg.metric, "k": k, "k_hi": k_hi,
+                     "max_iters": cfg.max_iters, "early_exit": early_exit, "exact": True,
+                     "converged": int(conv.sum()),
+                     "out_of_iters": int(((it == cfg.max_iters) & ~conv).sum()),
+                     "at_radius_1": int((rad == 1).sum()),
+                     "at_r_max": int((rad == cfg.max_radius).sum()),
+                     "tile_dmas_skipped": int(want["tile_dmas_skipped"]), **cover})
+        return want
+
+    def start(cfg, m):
+        return torch.full((m,), cfg.r0, **i32)
+
+    paper, prod = cfgs["PAPER_GRID"], cfgs["PROD_GRID"]
+    for name, base, k, m, spread in (
+            ("PAPER_GRID", paper, 11, b, 1.0), ("PROD_GRID_chunk", prod, 10, chunk, 50.0),
+            ("PROD_GRID_40_channels", dataclasses.replace(prod, n_classes=40), 10, chunk, 50.0),
+            # T = 8: the kernel's instance for a tile side other than 16
+            ("PROD_GRID_tile8", dataclasses.replace(prod, tile=8), 10, chunk, 50.0)):
+        index = index_of(base, spread)
+        q_grid = grid_of(index, base, m, spread)
+        for metric in ("l2", "l1"):
+            cfg = dataclasses.replace(base, metric=metric)
+            k_hi = max(k, math.ceil(k * cfg.k_slack))
+            held(f"{name}_{metric}", index.pyr_tiles, q_grid, start(cfg, m), k, k_hi, cfg)
+            held(f"{name}_{metric}_adaptive_r0", index.pyr_tiles, q_grid,
+                 pyramid.seed_radius(index, cfg, q_grid, k), k, k_hi, cfg)
+        held(f"{name}_no_early_exit", index.pyr_tiles, q_grid, start(base, m), k,
+             max(k, math.ceil(k * base.k_slack)), base, early_exit=False)
+        if base is paper:
+            paper_index, paper_grid = index, q_grid
+        else:
+            del index
+
+    # edge cases on PAPER_GRID's pyramid shape, phase 2's queries
+    shape = paper_index.pyr_tiles.shape[:-1]
+    q_grid = paper_grid
+    r0 = torch.randint(1, paper.max_radius + 1, (b,), generator=gen, **i32)
+    want = held("empty_pyramid", torch.zeros(shape + (1,), **i32), q_grid, r0, 11, 11, paper)
+    check(bool((want["radius"] == paper.max_radius).all() & (want["count"] == 0).all()
+               & (want["iters"] == paper.max_iters).all()),
+          "empty pyramid: a lane did not end at r_max after max_iters with count 0")
+    want = held("dense_pyramid", torch.ones(shape + (3,), **i32), q_grid, r0, 1, 1, paper)
+    check(bool((want["radius"] == 1).all()), "dense pyramid: a lane did not clamp at r = 1")
+    sparse = (torch.rand(shape + (1,), generator=gen, device=DEV) < 0.05).int()
+    del paper_index
+
+    def first_pass(r):
+        lv = pyramid.level_for_radius(r, paper)
+        return ref.tile_count_multilevel(sparse, q_grid, r.float(), lv, paper.tile,
+                                         paper.level_nblks).sum(-1)
+
+    r_small = torch.randint(1, 31, (b,), generator=gen, **i32)
+    n1 = first_pass(r_small)
+    vals = torch.sort(n1[n1 > 0]).values
+    k_lo = int(vals[len(vals) // 2])
+    above = vals[vals > k_lo]
+    k_hi = int(above[len(above) // 2])
+    want = held("sparse_k_and_k_hi", sparse, q_grid, r_small, k_lo, k_hi, paper,
+                first_pass_at_k=int((n1 == k_lo).sum()), first_pass_at_k_hi=int((n1 == k_hi).sum()))
+    conv = want["converged"]
+    check(bool((conv & (want["count"] == k_lo)).any() & (conv & (want["count"] == k_hi)).any()),
+          "no lane converged with a count of exactly k and of exactly k_hi")
+    r_odd = 2 * torch.randint(0, 8, (b,), generator=gen, **i32) + 1
+    r_odd[b // 2:] += 1                             # and even radii, 2 mod 4 among them
+    n1 = first_pass(r_odd)
+    ties = int((((n1 == 4) & (r_odd % 2 == 1)) | ((n1 == 16) & (r_odd % 4 == 2))).sum())
+    check(ties > 0, "no first pass falls on a half")
+    held("half_even_ties", sparse, q_grid, r_odd, 1, 1, paper, first_pass_ties=ties)
+
+
 def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
     from repro_torch.core import pyramid
     from repro_torch.kernels import ref
@@ -355,6 +591,7 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
     gen = torch.Generator(device=dev).manual_seed(seed)
     out = {"phase": 1, **{name: [] for name in KERNELS}}
     max_err = {name: 0.0 for name in KERNELS}
+    phase1_loop(seed, cfgs, mods, out["radius_search_loop"], b=b, n=n)
 
     for name, cfg in cfgs.items():
         c = cfg.n_channels
@@ -799,7 +1036,8 @@ def run_main_path(label, searcher, queries, k, mods, classify: bool, expect=None
     """Search (and classify) on the card with the launch counters zeroed
     just before; returns the results, timings and the counts just after,
     then the wall time of five more searches (not counted).  Every kernel
-    in `expect` (default: all) must have launched."""
+    in `expect` (default: all) must have launched, a search one
+    radius_search_loop per chunk and no tile_count_multilevel."""
     searcher.search(queries, k)                             # warm-up, not counted
     torch.cuda.synchronize()
     reset(mods)
@@ -807,6 +1045,10 @@ def run_main_path(label, searcher, queries, k, mods, classify: bool, expect=None
     res = searcher.search(queries, k)
     torch.cuda.synchronize()
     per_search = counts(mods)
+    chunks = -(-queries.shape[0] // (searcher.plan.chunk_size or queries.shape[0]))
+    check(per_search["radius_search_loop"] == chunks and per_search["tile_count_multilevel"] == 0,
+          f"{label}: a search launched {per_search}, expected one radius_search_loop per "
+          f"chunk ({chunks}) and no tile_count_multilevel")
     check(on_card(*res), f"{label}: search output left the card")
     out = {"search": res, "per_search": per_search}
     if classify:
@@ -937,6 +1179,15 @@ def phase2(seed, api, cfg, k, mods, timings, n=1_000_000, b=4096):
     prof = device_profile(lambda: s.search(q, k))
     q_grid = projection.to_grid_coords(s.index.proj, q, cfg.grid_size)
     stats = batched.radius_search_batched(s.index, cfg, q_grid, k)
+    same_stats(stats, res, "phase 2 radius_search_batched")
+    # the loop kernel at this path's shape, exact against the lock-step
+    # loop, whose stats equal the search's; count_at on the one-pass kernel
+    timings["radius_search_loop"], plain_stats = time_loop(mods, s.index, cfg, q_grid, k,
+                                                           f"PAPER_GRID B={b}")
+    same_stats(plain_stats, res, "phase 2 ref.radius_search_loop")
+    check(torch.equal(plain_stats["tile_dmas_skipped"], stats["tile_dmas_skipped"]),
+          "phase 2: tile_dmas_skipped differs from the lock-step loop's")
+    count_launches = count_at_run("phase 2", s, q, res, mods, chunks=1)
 
     truth, truth_cls, exact_launches, exact_rec = run_exact("phase 2", s, q, k, mods, classify=True)
 
@@ -966,9 +1217,10 @@ def phase2(seed, api, cfg, k, mods, timings, n=1_000_000, b=4096):
     check(torch.equal(got, want), "tile_count_multilevel differs at phase 2's first pass")
     cells = cfg.tile * cfg.tile
     c = cfg.n_channels
-    distinct = distinct_window_cells(q_grid, levels, cfg.tile, cfg.level_nblks)
+    read = circle_cells(q_grid, radii, levels, cfg.tile, cfg.level_nblks, cfg.metric)
+    distinct = int(torch.unique(read).numel())
     b_ms, b_by = bound(distinct * c * 4 + b * (2 * 4 + 4 + 4) + b * c * 4,
-                       b * cells * (10 + c))
+                       b * cells * 10 + read.numel() * c)
     timings["tile_count_multilevel"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                                         "bound_by": b_by, "max_abs_err": 0.0,
                                         "shape": f"PAPER_GRID B={b}",
@@ -1012,7 +1264,7 @@ def phase2(seed, api, cfg, k, mods, timings, n=1_000_000, b=4096):
     # hopper_gather: both modes equal to hopper in every field
     gather = s.with_plan(backend="hopper_gather")
     run_g = run_main_path("phase 2 hopper_gather", gather, q, k, mods, classify=False,
-                          expect=("tile_count_multilevel", "candidate_topk"))
+                          expect=("radius_search_loop", "candidate_topk"))
     same_result(run_g["search"], res, "phase 2 hopper_gather refined")
     paper = s.search(q, k, mode="paper")
     same_result(gather.search(q, k, mode="paper"), paper, "phase 2 hopper_gather paper")
@@ -1020,7 +1272,8 @@ def phase2(seed, api, cfg, k, mods, timings, n=1_000_000, b=4096):
     # hopper_q8: paper mode (the fused stage) equal to hopper; refined recall
     q8s = s.with_plan(backend="hopper_q8")
     run_q = run_main_path("phase 2 hopper_q8", q8s, q, k, mods, classify=False,
-                          expect=("tile_count_multilevel", "csr_shortlist_q8", "candidate_topk"))
+                          expect=("radius_search_loop", "csr_shortlist_q8", "candidate_topk"))
+    prof_q = device_profile(lambda: q8s.search(q, k))
     same_result(q8s.search(q, k, mode="paper"), paper, "phase 2 hopper_q8 paper")
     torch.cuda.synchronize()
 
@@ -1051,11 +1304,15 @@ def phase2(seed, api, cfg, k, mods, timings, n=1_000_000, b=4096):
                       "rerank_k": batched.resolve_rerank_k(cfg, k, None),
                       "recall_at_k_vs_exact": recall(run_q["search"].ids, truth.ids, k),
                       "launches_per_search": run_q["per_search"],
-                      "search_ms": run_q["search_wall_ms"], "peak_mem_gb": run_q["peak_mem_gb"]},
+                      "search_ms": run_q["search_wall_ms"],
+                      **idle(prof_q, run_q["search_wall_ms"]["median"]),
+                      "peak_mem_gb": run_q["peak_mem_gb"]},
+        "count_at": {"launches": count_launches, "totals_equal_loop_counts": True},
+        "radius_search_loop": timings["radius_search_loop"],
     })
     timings["brute_knn_d2"] = exact_rec
-    return [run["launches"], stacked_launches, run_g["launches"], run_q["launches"],
-            exact_launches]
+    return [run["launches"], count_launches, stacked_launches, run_g["launches"],
+            run_q["launches"], exact_launches]
 
 
 def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
@@ -1085,6 +1342,8 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
     prof = device_profile(lambda: s.search(q, k))
     stats = batched.radius_search_batched(
         s.index, cfg, projection.to_grid_coords(s.index.proj, q, cfg.grid_size), k)
+    same_stats(stats, res, "phase 3 radius_search_batched (one launch, 10,000 lanes)")
+    count_launches = count_at_run("phase 3", s, q, res, mods, chunks=-(-b // chunk))
     truth, _, exact_launches, exact_rec = run_exact("phase 3", s, q, k, mods, classify=False)
     timings["brute_knn"] = exact_rec
 
@@ -1104,6 +1363,9 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
     # output held against the plain version's (rtol 1e-5, near-ties counted)
     qc = q[:chunk].contiguous()
     q_grid = projection.to_grid_coords(s.index.proj, qc, cfg.grid_size)
+    loop_rec, plain_stats = time_loop(mods, s.index, cfg, q_grid, k, f"PROD_GRID B={chunk}")
+    same_stats(plain_stats, res, "phase 3 chunk ref.radius_search_loop", lanes=slice(0, chunk))
+    timings["radius_search_loop"]["chunk_shape"] = loop_rec
     pts_pad, _, _, _, n_live, n_pad = padded_csr(s.index, cfg.row_cap)
     st, en = window_spans(s.index, cfg, q_grid)
     args = (pts_pad, st, en, qc, k, n_live, cfg.row_cap)
@@ -1133,7 +1395,7 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
     # ---- hopper_q8 on the same index, at full size
     q8s = s.with_plan(backend="hopper_q8")
     run_q = run_main_path("phase 3 hopper_q8", q8s, q, k, mods, classify=False,
-                          expect=("tile_count_multilevel", "csr_shortlist_q8", "candidate_topk"))
+                          expect=("radius_search_loop", "csr_shortlist_q8", "candidate_topk"))
     res_q = run_q["search"]
     prof_q = device_profile(lambda: q8s.search(q, k))
     store = q8s._quantized_store
@@ -1203,7 +1465,7 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
     # ---- hopper_gather on one chunk, equal to hopper in every field
     gather = s.with_plan(backend="hopper_gather")
     run_g = run_main_path("phase 3 hopper_gather", gather, qc, k, mods, classify=False,
-                          expect=("tile_count_multilevel", "candidate_topk"))
+                          expect=("radius_search_loop", "candidate_topk"))
     same_result(run_g["search"], type(res)(*(f[:chunk] for f in res)), "phase 3 hopper_gather")
 
     emit({
@@ -1219,6 +1481,8 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
         "tile_dmas_skipped": int(stats["tile_dmas_skipped"]),
         "recall_at_k_vs_exact": recall(res.ids, truth.ids, k),
         "exact": {"launches_search": exact_launches, **exact_rec},
+        "count_at": {"launches": count_launches, "totals_equal_loop_counts": True},
+        "radius_search_loop_chunk": loop_rec,
         "cpu_crosscheck": {"queries": 256, "id_lists_equal_frac": frac},
         "timed_chunk": {"valid_pairs": pairs, "distinct_rows": distinct,
                         "max_abs_err": err, "tie_swaps": swaps,
@@ -1249,7 +1513,8 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
                                     "search_ms": run_g["search_wall_ms"],
                                     "peak_mem_gb": run_g["peak_mem_gb"]},
     })
-    return [run["launches"], run_q["launches"], run_g["launches"], exact_launches]
+    return [run["launches"], count_launches, run_q["launches"], run_g["launches"],
+            exact_launches]
 
 
 # ----------------------------------------------------------------- phase 4 ---
@@ -1387,7 +1652,7 @@ def kernels_line(max_err: dict, timings: dict, launches: dict) -> dict:
     and the timed call's numbers; brute_knn adds its phase-2 (d=2) shape,
     candidate_topk its gather shape."""
     extra = {"candidate_topk": "gather_shape", "brute_knn": "d2_shape",
-             "flash_attention": "wide_head"}
+             "flash_attention": "wide_head", "radius_search_loop": "chunk_shape"}
     timings = {**timings, "brute_knn": {**timings["brute_knn"],
                                         "d2_shape": timings["brute_knn_d2"]}}
     return {"kernels": [
@@ -1400,6 +1665,7 @@ def kernels_line(max_err: dict, timings: dict, launches: dict) -> dict:
          "bound_by": timings[name]["bound_by"], "library_ms": timings[name].get("library_ms"),
          "shape": timings[name]["shape"],
          **({"two_call_ms": timings[name]["two_call_ms"]} if "two_call_ms" in timings[name] else {}),
+         **({"library": timings[name]["library"]} if "library" in timings[name] else {}),
          **({extra[name]: timings[name][extra[name]]} if name in extra else {})}
         for name, (src, replaces) in KERNELS.items()
     ]}

@@ -4,10 +4,12 @@ Port of `repro/core/batched.py`.  The whole batch moves through the
 paper's algorithm together on hand-written Hopper kernels (CPU tensors
 take their plain versions, `kernels/ops.py`):
 
-  1. Eq.-1 radius adaptation for the whole batch: each iteration is ONE
-     `tile_count_multilevel` launch that counts every live query's circle
-     at its own pyramid level (`batched_counts_stacked` keeps the per-level
-     `tile_count` stack as the `hopper_stacked` baseline);
+  1. Eq.-1 radius adaptation for the whole batch: ONE `radius_search_loop`
+     launch runs every query's loop and recount on the card, each count at
+     the query's own pyramid level; `tile_count_multilevel` counts at given
+     radii in one launch (count_at, classify), and `batched_counts_stacked`
+     keeps the per-level `tile_count` stack as the `hopper_stacked`
+     baseline;
   2. the candidate stage as a pluggable `CandidatePipeline`:
        "fused"  (default) — `csr_candidate_topk` reads candidate rows
                 straight from the CSR-sorted store and emits (dists, GLOBAL
@@ -55,34 +57,34 @@ from repro_torch.kernels.ref import take_slots, window_slots
 # --------------------------------------------------------------- counting ----
 
 
-def batched_counts(
-    index: GridIndex,
-    cfg: GridConfig,
-    q_grid: torch.Tensor,
-    radii: torch.Tensor,
-    active: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """Per-class circle counts (B, C) int32 for a batch of queries and
-    integer radii.
-
-    Pyramid counter: ONE `tile_count_multilevel` launch; each query is
-    counted at its `level_for_radius` level.  `active` (B,) parks lanes:
-    their rows are 0 and the kernel reads nothing for them.  The sat
-    counter ignores the mask — its integral-image lookup reads four cells.
-    """
-    if cfg.counter == "sat":
-        return integral_lib.count_linf(index.sat, q_grid, radii)
-    tiles = index.pyr_tiles
-    if tiles is None:
+def _pyr_tiles(index: GridIndex) -> torch.Tensor:
+    if index.pyr_tiles is None:
         raise ValueError(
             "GridIndex.pyr_tiles is missing (pre-layout index): the count "
             "path needs the pyramid pre-cut into T-tiles.  Wrap the index "
             "once via repro_torch.api.ActiveSearcher.from_index(index, cfg)."
         )
+    return index.pyr_tiles
+
+
+def batched_counts(
+    index: GridIndex,
+    cfg: GridConfig,
+    q_grid: torch.Tensor,
+    radii: torch.Tensor,
+) -> torch.Tensor:
+    """Per-class circle counts (B, C) int32 for a batch of queries and
+    integer radii.
+
+    Pyramid counter: ONE `tile_count_multilevel` launch; each query is
+    counted at its `level_for_radius` level (count_at, classify).  The sat
+    counter reads four cells of the integral image per query."""
+    if cfg.counter == "sat":
+        return integral_lib.count_linf(index.sat, q_grid, radii)
     levels = pyr.level_for_radius(radii, cfg)
     return ops.tile_count_multilevel(
-        tiles, q_grid.contiguous(), radii.to(torch.float32), levels, cfg.tile,
-        cfg.level_nblks, metric=cfg.metric, active=active,
+        _pyr_tiles(index), q_grid.contiguous(), radii.to(torch.float32), levels, cfg.tile,
+        cfg.level_nblks, metric=cfg.metric,
     )
 
 
@@ -108,41 +110,25 @@ def batched_counts_stacked(
     return torch.take_along_dim(per_level, levels.long()[None, :, None], dim=0)[0]
 
 
-def radius_search_batched(
-    index: GridIndex,
-    cfg: GridConfig,
-    q_grid: torch.Tensor,
-    k: int,
-    adaptive_r0: bool = False,
-) -> dict[str, torch.Tensor]:
-    """Eq. 1 for a whole batch at once — every iteration is a SINGLE
-    level-scheduled count launch; finished lanes freeze while the rest
-    keep iterating.  The loop asks the device once per iteration whether a
-    lane is still live (one host sync per iteration).
+def lockstep_radius_loop(count, r0: torch.Tensor, k: int, k_hi: int, r_max: int,
+                         max_iters: int, masked: bool) -> dict:
+    """Eq. 1 for a whole batch in lock step, one count pass per iteration.
 
-    Early exit: the live-lane mask goes into the count kernel, so
-    converged lanes stop paying, and the post-loop recount only re-counts
-    the lanes that fell back to their best radius; a converged lane's
-    final count is the count it saw at its hit iteration.
-
-    adaptive_r0=True seeds each lane's start radius from the pyramid's top
-    levels (`pyramid.seed_radius`) instead of the global cfg.r0.
-
-    Returns the Eq.-1 stats plus `tile_dmas_skipped`: 4 per parked lane
-    per count pass, the 2x2-cover tile loads the reference's TPU kernel
-    elides (0 when the counter reads no tiles).
-    """
-    b = q_grid.shape[0]
-    dev = q_grid.device
+    `count(radii, active)` gives each lane's total count (B,) int32 at its
+    integer radius; `active` is the live-lane mask when `masked`, else
+    None.  Finished lanes freeze while the rest iterate; the loop asks the
+    device once per pass whether a lane is still live.  A lane that hits
+    keeps its in-loop count; the others are counted once more at their
+    final radius (only they when `masked`, every lane otherwise).
+    `tile_dmas_skipped` is 4 per parked lane per pass plus 4 per converged
+    lane at the recount when `masked` (the 2x2-cover tile loads the
+    reference's TPU kernel elides), else 0.  The sat counter's host loop
+    and the pyramid counter's plain version (`ref.radius_search_loop`) run
+    it."""
+    b = r0.shape[0]
+    dev = r0.device
     i32 = dict(dtype=torch.int32, device=dev)
-    k_hi = max(k, math.ceil(k * cfg.k_slack))
-    r_max = cfg.max_radius
-    reads_tiles = cfg.counter == "pyramid"  # the sat lookup ignores the mask
-
-    if adaptive_r0:
-        r = pyr.seed_radius(index, cfg, q_grid, k)
-    else:
-        r = torch.full((b,), cfg.r0, **i32)
+    r = r0.to(torch.int32)
     t = torch.zeros((b,), **i32)
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     best = torch.full((b,), r_max + 1, **i32)
@@ -150,12 +136,10 @@ def radius_search_batched(
     skipped = torch.zeros((), **i32)
 
     while True:
-        active = (t < cfg.max_iters) & ~done
+        active = (t < max_iters) & ~done
         if not bool(active.any()):
             break
-        n = batched_counts(
-            index, cfg, q_grid, r, active=active,
-        ).sum(dim=-1, dtype=torch.int32)  # parked lanes read 0, frozen below
+        n = count(r, active if masked else None)  # parked lanes are frozen below
         hit = (n >= k) & (n <= k_hi)
         best_new = torch.where(n >= k, torch.minimum(best, r), best)
         r_new = torch.round(r.to(torch.float32) * pyr.eq1_ratio(k, n)).to(torch.int32)
@@ -164,7 +148,7 @@ def radius_search_batched(
         step = torch.where(n < k, 1, -1).to(torch.int32)
         r_new = torch.where((r_new == r) & ~hit, r + step, r_new)
         r_next = torch.where(hit, r, torch.clamp(r_new, 1, r_max))
-        if reads_tiles:
+        if masked:
             skipped = skipped + 4 * (~active).sum(dtype=torch.int32)
         t = torch.where(active, t + 1, t)
         r = torch.where(active, r_next, r)
@@ -178,12 +162,11 @@ def radius_search_batched(
     r_final = torch.where(
         converged, r, torch.where(best <= r_max, best, torch.full_like(best, r_max))
     )
-    n_re = batched_counts(
-        index, cfg, q_grid, r_final, active=~converged
-    ).sum(dim=-1, dtype=torch.int32)
-    n_final = torch.where(converged, n_hit, n_re)
-    if reads_tiles:
+    if masked:
+        n_final = torch.where(converged, n_hit, count(r_final, ~converged))
         skipped = skipped + 4 * converged.sum(dtype=torch.int32)
+    else:
+        n_final = count(r_final, None)
     return {
         "radius": r_final,
         "count": n_final,
@@ -191,6 +174,53 @@ def radius_search_batched(
         "converged": converged,
         "tile_dmas_skipped": skipped,
     }
+
+
+def radius_search_batched(
+    index: GridIndex,
+    cfg: GridConfig,
+    q_grid: torch.Tensor,
+    k: int,
+    adaptive_r0: bool = False,
+    early_exit: bool = True,
+) -> dict[str, torch.Tensor]:
+    """Eq. 1 for a whole batch: radius, count, iters, converged (B,) and
+    the scalar `tile_dmas_skipped`, lane for lane the reference's.
+
+    Pyramid counter: ONE `ops.radius_search_loop` call.  On the card that
+    is one launch that runs every lane's loop and recount, with no host
+    read; on the CPU the plain lock-step loop, where each pass counts the
+    live lanes and finished lanes freeze.  `tile_dmas_skipped` counts the
+    2x2-cover tile loads the reference's TPU kernel elides: 4 per parked
+    lane per lock-step pass and 4 per converged lane at the recount.
+
+    early_exit=False is the reference's unmasked schedule (every lane
+    counted every pass and recounted at the end): the same radius, count,
+    iters and converged, with tile_dmas_skipped 0.  On the card it runs
+    the same kernel.
+
+    The sat counter keeps the lock-step loop on the host (an O(1)
+    integral-image lookup, no tiles to skip; one sync per pass).
+
+    adaptive_r0=True seeds each lane's start radius from the pyramid's top
+    levels (`pyramid.seed_radius`) instead of the global cfg.r0.
+    """
+    b = q_grid.shape[0]
+    k_hi = max(k, math.ceil(k * cfg.k_slack))
+    if adaptive_r0:
+        r0 = pyr.seed_radius(index, cfg, q_grid, k)
+    else:
+        r0 = torch.full((b,), cfg.r0, dtype=torch.int32, device=q_grid.device)
+    if cfg.counter == "sat":
+        return lockstep_radius_loop(
+            lambda r, _active: integral_lib.count_linf(index.sat, q_grid, r).sum(
+                dim=-1, dtype=torch.int32),
+            r0, k, k_hi, cfg.max_radius, cfg.max_iters, masked=False,
+        )
+    return ops.radius_search_loop(
+        _pyr_tiles(index), q_grid.contiguous(), r0, k, k_hi, cfg.max_radius, cfg.max_iters,
+        cfg.tile, cfg.level_nblks, metric=cfg.metric, early_exit=early_exit,
+    )
 
 
 # ----------------------------------------------------------------- gather ----
@@ -493,8 +523,9 @@ def classify(
     d_chunk: int | None = None,
     adaptive_r0: bool = False,
 ) -> torch.Tensor:
-    """Batched kNN classification (B,) int32, every count pass on the
-    tile_count_multilevel kernel."""
+    """Batched kNN classification (B,) int32: the Eq.-1 loop on the
+    radius_search_loop kernel, the final-radius counts on
+    tile_count_multilevel."""
     if cfg.n_classes <= 0:
         raise ValueError("classify() needs an index built with n_classes > 0")
     pipe = get_candidate_pipeline(pipeline)  # eager: bad names raise here

@@ -444,8 +444,8 @@ def _exact_classify(s: ActiveSearcher, queries, k, mode):
 register_backend("hopper", BackendImpl(
     search=_hopper_search, classify=_hopper_classify, count_at=_hopper_count_at,
     supports_d_chunk=True, supports_adaptive_r0=True,
-    description="batched kernel pipeline: level-scheduled "
-                "tile_count_multilevel + fused csr_candidate_topk, both "
+    description="batched kernel pipeline: the whole Eq.-1 loop in one "
+                "radius_search_loop launch + fused csr_candidate_topk, both "
                 "hand-written for Hopper (core/batched.py, csrc/)",
 ))
 register_backend("hopper_gather", BackendImpl(

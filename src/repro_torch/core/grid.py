@@ -98,7 +98,8 @@ class GridConfig:
     @property
     def level_nblks(self) -> tuple[int, ...]:
         """Per-level T-block counts S_l // tile — static layout of the
-        flattened tile array read by the tile_count_multilevel kernel."""
+        flattened tile array read by the radius_search_loop and
+        tile_count_multilevel kernels."""
         return tuple(1 << (self.levels - 1 - l) for l in range(self.levels))
 
 

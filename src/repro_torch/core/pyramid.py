@@ -5,7 +5,7 @@ Pick the pyramid level l where the circle's diameter fits a fixed T x T
 tile, read ONE (T, T, C) window around the query, mask cell centers by the
 circle, and sum.  Cost is O(T^2 * C) regardless of r and N — level
 selection IS the zoom.  The hot loop reaches the same count through the
-`tile_count_multilevel` kernel (core/batched.py); the functions here serve
+`radius_search_loop` kernel (core/batched.py); the functions here serve
 the start-radius seed and the plain per-level count.
 """
 
@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.core import integral as integral_lib
 from repro_torch.core.grid import GridConfig, GridIndex
-from repro_torch.kernels.ref import sqrt_rn
+from repro_torch.kernels import ref
+from repro_torch.kernels.ref import eq1_ratio
 
 
 def level_for_radius(r: torch.Tensor, cfg: GridConfig) -> torch.Tensor:
@@ -23,27 +24,10 @@ def level_for_radius(r: torch.Tensor, cfg: GridConfig) -> torch.Tensor:
 
     The reference computes ceil(log2(max(2r / (T - 3), 1))) in float32.
     For the integer radii every caller passes, that is the smallest l with
-    (T - 3) * 2**l >= 2r, which this evaluates in integers so that no
-    device's log2 can move a level (tests check every r in
-    [0, max_radius] against the reference)."""
-    if r.is_floating_point():
-        raise TypeError("level_for_radius takes integer radii (pixels)")
-    two_r = 2 * r.to(torch.int64)
-    level = torch.zeros_like(two_r)
-    for j in range(cfg.levels - 1):
-        level += ((cfg.tile - 3) << j) < two_r
-    return level.to(torch.int32)
-
-
-def eq1_ratio(k: int, n: torch.Tensor) -> torch.Tensor:
-    """sqrt(k / max(n, 1)) in float32, the factor of Eq. 1.
-
-    Both steps round as the reference's do: the division is tensor by
-    tensor (`k / tensor` in PyTorch multiplies by a rounded reciprocal) and
-    the root is correctly rounded (`sqrt_rn`); an ulp here can move a
-    rounded radius."""
-    nf = torch.clamp_min(n, 1).to(torch.float32)
-    return sqrt_rn(torch.full_like(nf, float(k)) / nf)
+    (T - 3) * 2**l >= 2r, which `ref.level_for_radius` evaluates in
+    integers so that no device's log2 can move a level (tests check every
+    r in [0, max_radius] against the reference)."""
+    return ref.level_for_radius(r, cfg.tile, cfg.levels)
 
 
 def _count_at_level(

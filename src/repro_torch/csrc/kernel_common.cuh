@@ -1,12 +1,13 @@
 // Device code shared by the port's kernels (included by the .cu sources).
 //
-// One definition each of the three pieces whose results must agree
+// One definition each of the four pieces whose results must agree
 // between kernels: the chunked l1/l2 row distance (chunked_distance in
 // candidate_topk and csr_candidate_topk at d < 32, ChunkedSum in the staged
 // csr_candidate_topk, both built on distance_term and fold_chunk), the
-// circle mask of a pyramid cell (tile_count,
-// tile_count_multilevel) and the exact top-k selection (every candidate
-// kernel).  Two kernels that rank the same row therefore produce the same
+// circle mask of a pyramid cell (tile_count, tile_count_multilevel,
+// radius_search_loop), the level window of a count (level_window and
+// window_cell: tile_count_multilevel, radius_search_loop) and the exact
+// top-k selection (every candidate kernel).  Two kernels that rank the same row therefore produce the same
 // float, which the reference's "shortlist containment => bit parity"
 // contract and hopper_gather == hopper rest on.
 //
@@ -87,6 +88,47 @@ __device__ __forceinline__ bool cell_in_circle(int x, int y, float scale,
   const float dy = __fsub_rn(__fmul_rn(__fadd_rn((float)y, 0.5f), scale), qy);
   if (metric_l1) return __fadd_rn(fabsf(dx), fabsf(dy)) <= r;
   return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)) <= __fmul_rn(r, r);
+}
+
+// The clamped T x T window that a count reads around (qx, qy) at pyramid
+// level lv (clamped to [0, L-1]) of the flattened tile array
+// (sum_l nblk_l^2, T, T, C), nblk_l = 2^(L-1-l): the level's first tile, its
+// block count, its cell scale and the window's origin.  tile_count_multilevel
+// and radius_search_loop read their windows through level_window and
+// window_cell, so both count the same cells.
+struct LevelWindow {
+  long long off;  // first tile of the level
+  int nblk, ox, oy;
+  float scale;
+};
+
+__device__ __forceinline__ LevelWindow level_window(int lv, int L, int T, float qx, float qy) {
+  LevelWindow w;
+  lv = lv < 0 ? 0 : (lv > L - 1 ? L - 1 : lv);
+  w.nblk = 1 << (L - 1 - lv);
+  w.off = 0;
+  for (int j = 0; j < lv; ++j) {
+    const long long nb = 1LL << (L - 1 - j);
+    w.off += nb * nb;
+  }
+  w.scale = (float)(1 << lv);
+  const int s_l = w.nblk * T;
+  w.ox = min(max((int)floorf(qx / w.scale) - T / 2, 0), s_l - T);
+  w.oy = min(max((int)floorf(qy / w.scale) - T / 2, 0), s_l - T);
+  return w;
+}
+
+// Cell `cell` (row-major, x = cell / T) of the window: whether its center
+// lies inside the circle of radius r, and in *base the index of its first
+// channel (tile off + (x/T)*nblk + (y/T), in-tile (x%T, y%T)).
+__device__ __forceinline__ bool window_cell(const LevelWindow& w, int cell, int T, int C,
+                                            float qx, float qy, float r, int metric_l1,
+                                            long long* base) {
+  const int x = w.ox + cell / T;
+  const int y = w.oy + cell % T;
+  const long long tid = w.off + (long long)(x / T) * w.nblk + (y / T);
+  *base = ((tid * T + (x % T)) * T + (y % T)) * C;
+  return cell_in_circle(x, y, w.scale, qx, qy, r, metric_l1);
 }
 
 __device__ __forceinline__ bool better(float v, int s, float bv, int bs) {

@@ -11,8 +11,8 @@
 //
 // What bounds it on this card: bytes.  A live lane reads T*T*C int32 of the
 // flattened pyramid (3 KB at T=16, C=3) at a data-dependent address and does
-// about ten float operations per cell, far below the compute rate; at the
-// loop's batch sizes the launch itself is a large share.
+// about ten float operations per cell, far below the compute rate; at count_at's
+// batch sizes the launch itself is a large share.
 //
 // Design: one block per query, one thread per window cell (threads stride
 // when T*T exceeds the block).  Each thread reads its cell once, straight
@@ -25,6 +25,11 @@
 // int32 sums reduce exactly (integer adds commute): warp shuffles, then
 // shared-memory atomics, 32 channels at a time, so any channel count fits
 // one fixed shared array.
+//
+// The window (level clamp, origin, tile address and mask) is
+// kernel_common.cuh's level_window / window_cell, shared with
+// radius_search_loop.cu, which runs this count inside the whole Eq.-1 loop;
+// this one-pass kernel serves count_at and classify's counts.
 //
 // Numerics: the mask is kernel_common.cuh's cell_in_circle (shared with
 // tile_count.cu), written with __fmul_rn / __fadd_rn and built with
@@ -52,22 +57,9 @@ __global__ void tile_count_multilevel_kernel(
   }
   __shared__ int red[CHUNK_C];
 
-  int lv = levels[b];
-  lv = lv < 0 ? 0 : (lv > L - 1 ? L - 1 : lv);
-  const int nblk = 1 << (L - 1 - lv);
-  long long off = 0;  // first tile of level lv
-  for (int j = 0; j < lv; ++j) {
-    const long long nb = 1LL << (L - 1 - j);
-    off += nb * nb;
-  }
-  const float scale = (float)(1 << lv);
   const float qx = q[2 * b], qy = q[2 * b + 1];
   const float r = radii[b];
-  const int s_l = nblk * T;
-  const int cx = (int)floorf(qx / scale);
-  const int cy = (int)floorf(qy / scale);
-  const int ox = min(max(cx - T / 2, 0), s_l - T);
-  const int oy = min(max(cy - T / 2, 0), s_l - T);
+  const LevelWindow w = level_window(levels[b], L, T, qx, qy);
 
   const int lane = threadIdx.x & 31;
   const int cells = T * T;
@@ -80,11 +72,8 @@ __global__ void tile_count_multilevel_kernel(
       bool inside = false;
       long long base = 0;
       if (cell < cells) {
-        const int x = ox + cell / T;
-        const int y = oy + cell % T;
-        inside = cell_in_circle(x, y, scale, qx, qy, r, metric_l1);
-        const long long tid = off + (long long)(x / T) * nblk + (y / T);
-        base = ((tid * T + (x % T)) * T + (y % T)) * C + c0;
+        inside = window_cell(w, cell, T, C, qx, qy, r, metric_l1, &base);
+        base += c0;
       }
       for (int c = 0; c < cn; ++c) {
         int v = inside ? tiles[base + c] : 0;

@@ -15,6 +15,7 @@ from repro_torch.kernels import candidate_topk as _ctk
 from repro_torch.kernels import csr_candidate_topk as _csr
 from repro_torch.kernels import csr_candidate_topk_q8 as _q8
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import radius_search_loop as _rsl
 from repro_torch.kernels import ref
 from repro_torch.kernels import tile_count as _tc
 from repro_torch.kernels import tile_count_multilevel as _tcm
@@ -31,6 +32,15 @@ def tile_count_multilevel(
 ):
     fn = _tcm.tile_count_multilevel if tiles.is_cuda else ref.tile_count_multilevel
     return fn(tiles, queries, radii, levels, tile, nblks, metric=metric, active=active)
+
+
+def radius_search_loop(
+    tiles: torch.Tensor, queries, r0, k, k_hi, r_max, max_iters, tile, nblks, metric="l2",
+    early_exit=True,
+):
+    fn = _rsl.radius_search_loop if tiles.is_cuda else ref.radius_search_loop
+    return fn(tiles, queries, r0, k, k_hi, r_max, max_iters, tile, nblks, metric=metric,
+              early_exit=early_exit)
 
 
 def csr_candidate_topk(

@@ -199,6 +199,66 @@ def tile_count_multilevel(
     return out
 
 
+def level_for_radius(r: torch.Tensor, tile: int, n_levels: int) -> torch.Tensor:
+    """Smallest pyramid level whose T-cell window FULLY contains the circle
+    of integer radius r (int32): the smallest l with (T - 3) * 2**l >= 2r,
+    at most n_levels - 1, in integers (the reference's float32
+    ceil(log2(...)) gives the same level for every integer radius)."""
+    if r.is_floating_point():
+        raise TypeError("level_for_radius takes integer radii (pixels)")
+    two_r = 2 * r.to(torch.int64)
+    level = torch.zeros_like(two_r)
+    for j in range(n_levels - 1):
+        level += ((tile - 3) << j) < two_r
+    return level.to(torch.int32)
+
+
+def eq1_ratio(k: int, n: torch.Tensor) -> torch.Tensor:
+    """sqrt(k / max(n, 1)) in float32, the factor of Eq. 1.
+
+    Both steps round as the reference's do: the division is tensor by
+    tensor (`k / tensor` in PyTorch multiplies by a rounded reciprocal) and
+    the root is correctly rounded (`sqrt_rn`); an ulp here can move a
+    rounded radius."""
+    nf = torch.clamp_min(n, 1).to(torch.float32)
+    return sqrt_rn(torch.full_like(nf, float(k)) / nf)
+
+
+def radius_search_loop(
+    tiles: torch.Tensor,     # (sum_l nblk_l^2, T, T, C) int32 flattened pyramid
+    queries: torch.Tensor,   # (B, 2) float32, base-pixel units
+    r0: torch.Tensor,        # (B,) int32 start radii
+    k: int,
+    k_hi: int,
+    r_max: int,
+    max_iters: int,
+    tile: int,
+    nblks: tuple[int, ...],  # per-level block counts S_l // T
+    metric: str = "l2",
+    early_exit: bool = True,
+) -> dict:
+    """The Eq.-1 loop on the pyramid counter, the whole batch in lock step:
+    each pass is one `tile_count_multilevel` over every lane at its own
+    radius's level, parked lanes masked when `early_exit` (the reference's
+    schedule; `early_exit=False` counts every lane every pass and gives
+    the same radius, count, iters and converged, with tile_dmas_skipped 0).
+    Returns radius, count, iters, converged and tile_dmas_skipped.  The
+    schedule is core/batched.py's `lockstep_radius_loop`, which owns Eq. 1."""
+    # imported here: core.batched imports this module
+    from repro_torch.core.batched import lockstep_radius_loop
+
+    check_tile_layout(tiles, tile, nblks)
+
+    def count(r, active):
+        levels = level_for_radius(r, tile, len(nblks))
+        return tile_count_multilevel(
+            tiles, queries, r.to(torch.float32), levels, tile, nblks, metric=metric,
+            active=active,
+        ).sum(dim=-1, dtype=torch.int32)
+
+    return lockstep_radius_loop(count, r0, k, k_hi, r_max, max_iters, masked=early_exit)
+
+
 def window_slots(starts, ends, n_pad: int, n: int, row_cap: int):
     """Global CSR row of every window slot, and whether it is valid.
 

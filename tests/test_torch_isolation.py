@@ -87,10 +87,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert tcm.launches == 0 and csr.launches == 0
 
 
-@pytest.mark.parametrize("name", ["tile_count", "candidate_topk", "csr_candidate_topk_q8"])
+@pytest.mark.parametrize("name", ["tile_count", "candidate_topk", "csr_candidate_topk_q8",
+                                  "radius_search_loop"])
 def test_slice2_kernel_wrappers_refuse_cpu_tensors(name):
-    """The wrappers of tile_count, candidate_topk and csr_shortlist_q8 raise
-    on CPU tensors and count no launch."""
+    """The wrappers of tile_count, candidate_topk, csr_shortlist_q8 and
+    radius_search_loop raise on CPU tensors and count no launch."""
     import importlib
 
     mod = importlib.import_module(f"repro_torch.kernels.{name}")
@@ -104,6 +105,9 @@ def test_slice2_kernel_wrappers_refuse_cpu_tensors(name):
         "csr_candidate_topk_q8": lambda: mod.csr_shortlist_q8(
             torch.zeros((4, 2), dtype=torch.int8), torch.ones((4, 1)),
             torch.zeros((1, 1), **i32), torch.ones((1, 1), **i32), torch.zeros((1, 2)), 2, 4, 4),
+        "radius_search_loop": lambda: mod.radius_search_loop(
+            torch.zeros((1, 4, 4, 1), **i32), torch.zeros((1, 2)), torch.ones(1, **i32),
+            2, 2, 4, 16, 4, (1,)),
     }
     with pytest.raises(ValueError, match="CUDA"):
         calls[name]()

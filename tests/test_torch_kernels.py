@@ -14,6 +14,7 @@ import pytest
 import torch
 from _torch_port import DIST_RTOL, assert_dists_close, np_, require_cuda
 
+from repro.core import batched as jbatched
 from repro.core import pyramid as jpyr
 from repro.core.grid import GridConfig as JGridConfig
 from repro.core.grid import build_index as jbuild_index
@@ -160,6 +161,66 @@ def test_tile_count_multilevel_bad_layout_raises():
             _t(idx.pyr_tiles)[:-1], torch.zeros((1, 2)), torch.ones((1,)),
             torch.zeros((1,), dtype=torch.int32), cfg.tile, cfg.level_nblks,
         )
+
+
+def _loop_fixture(metric, c=3):
+    """A reference index with a dense cluster (lanes there shrink to r = 1
+    and never converge), a sparse cluster across an empty quadrant (lanes
+    there see n = 0 and double), and queries on both and between."""
+    rng = np.random.default_rng(9)
+    dense = rng.normal(scale=1e-3, size=(600, 2)) - 1.0
+    sparse = rng.uniform(0.0, 1.0, size=(300, 2))
+    pts = jnp.asarray(np.concatenate([dense, sparse]), jnp.float32)
+    labels = jnp.asarray(rng.integers(0, c, size=pts.shape[0]), jnp.int32)
+    cfg = JGridConfig(grid_size=64, tile=8, n_classes=c, r0=8, metric=metric)
+    idx = jbuild_index(pts, cfg, jidentity(pts), labels=labels)
+    q = np.concatenate([np.full((4, 2), -1.0), [[1.0, -1.0], [-1.0, 1.0], [0.5, 0.5]],
+                        rng.uniform(-1, 1, size=(25, 2))]).astype(np.float32)
+    from repro.core import projection as jproj
+
+    return cfg, idx, jproj.to_grid_coords(idx.proj, jnp.asarray(q), cfg.grid_size)
+
+
+@pytest.mark.parametrize("adaptive_r0", [False, True])
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_plain_radius_search_loop_edge_cases_match_reference(metric, adaptive_r0, monkeypatch):
+    """ref.radius_search_loop against the reference's radius_search_batched
+    where radii clamp at 1 and reach r_max, counts are 0, and lanes run
+    out of iterations: all five stats exact (a spy on its count records
+    each pass's radii)."""
+    from repro_torch.core import pyramid
+    from repro_torch.core.grid import GridConfig
+
+    cfg, idx, jgrid = _loop_fixture(metric)
+    k = 5
+    want = jbatched.radius_search_batched(idx, cfg, jgrid, k, True, adaptive_r0=adaptive_r0)
+    tcfg = GridConfig(grid_size=64, tile=8, n_classes=3, r0=8, metric=metric)
+    grid = _t(jgrid)
+    if adaptive_r0:
+        import jax
+
+        from repro_torch.convert import index_from_numpy
+
+        tidx = index_from_numpy(jax.tree.map(np.asarray, idx)._asdict(), tcfg, device="cpu")
+        r0 = pyramid.seed_radius(tidx, tcfg, grid, k)
+    else:
+        r0 = torch.full((grid.shape[0],), cfg.r0, dtype=torch.int32)
+    passes = []
+    plain_count = ref.tile_count_multilevel
+
+    def spy(tiles, queries, radii, *args, **kwargs):
+        passes.append(radii)
+        return plain_count(tiles, queries, radii, *args, **kwargs)
+
+    monkeypatch.setattr(ref, "tile_count_multilevel", spy)
+    got = ref.radius_search_loop(_t(idx.pyr_tiles), grid, r0, k, k, cfg.max_radius,
+                                 cfg.max_iters, cfg.tile, cfg.level_nblks, metric=metric)
+    for key in ("radius", "count", "iters", "converged", "tile_dmas_skipped"):
+        np.testing.assert_array_equal(np_(got[key]), np_(want[key]), err_msg=key)
+    radius, iters, conv = np_(got["radius"]), np_(got["iters"]), np_(got["converged"])
+    assert (radius == 1).any() and ((iters == cfg.max_iters) & ~conv).any() and conv.any()
+    assert any(bool((r == cfg.max_radius).any()) for r in passes)
+    assert len(passes) == iters.max() + 1
 
 
 # ------------------------------------------------------ csr_candidate_topk ----
@@ -335,6 +396,49 @@ def test_gpu_tile_count_multilevel_kernel_matches_plain(metric, c):
     )
     torch.cuda.synchronize()
     np.testing.assert_array_equal(np_(got), np_(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("adaptive_r0", [False, True])
+@pytest.mark.parametrize("c", [3, 40])
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+@pytest.mark.parametrize("grid", ["PAPER_GRID", "PROD_GRID", "PROD_GRID_tile8"])
+def test_gpu_radius_search_loop_kernel_matches_plain(grid, metric, c, adaptive_r0):
+    """The loop kernel against ref.radius_search_loop on the card, at the
+    paper's and the production pyramid shapes (and at T = 8, the kernel's
+    instance for a tile side other than 16): all five stats exact, one
+    launch."""
+    import dataclasses
+
+    dev = require_cuda()
+    from repro_torch import api
+    from repro_torch.configs import paper_active_search as configs
+    from repro_torch.core import projection, pyramid
+    from repro_torch.kernels import radius_search_loop as rsl
+
+    name, _, tile8 = grid.partition("_tile")
+    cfg = dataclasses.replace(getattr(configs, name), n_classes=c, metric=metric,
+                              tile=8 if tile8 else 16)
+    gen = torch.Generator(device=dev).manual_seed(c)
+    pts = torch.randn((200_000, 2), generator=gen, device=dev)
+    labels = torch.randint(0, c, (200_000,), generator=gen, device=dev, dtype=torch.int32)
+    s = api.ActiveSearcher.build(pts, labels=labels, cfg=cfg,
+                                 proj=api.identity_projection(pts), device=dev)
+    q = torch.randn((2048, 2), generator=gen, device=dev) * 1.5
+    q_grid = projection.to_grid_coords(s.index.proj, q, cfg.grid_size)
+    k = 11
+    k_hi = max(k, int(np.ceil(k * cfg.k_slack)))
+    r0 = (pyramid.seed_radius(s.index, cfg, q_grid, k) if adaptive_r0
+          else torch.full((2048,), cfg.r0, dtype=torch.int32, device=dev))
+    args = (s.index.pyr_tiles, q_grid.contiguous(), r0, k, k_hi, cfg.max_radius,
+            cfg.max_iters, cfg.tile, cfg.level_nblks)
+    before = rsl.launches
+    got = rsl.radius_search_loop(*args, metric=metric)
+    want = ref.radius_search_loop(*args, metric=metric)
+    torch.cuda.synchronize()
+    assert rsl.launches == before + 1
+    for key in ("radius", "count", "iters", "converged", "tile_dmas_skipped"):
+        np.testing.assert_array_equal(np_(got[key]), np_(want[key]), err_msg=key)
 
 
 @pytest.mark.gpu

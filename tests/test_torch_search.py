@@ -137,6 +137,104 @@ def test_radius_loop_stats_match_reference(l2_pair, adaptive_r0):
         np.testing.assert_array_equal(np_(got[key]), np.asarray(want[key]), err_msg=key)
 
 
+STATS = ("radius", "count", "iters", "converged", "tile_dmas_skipped")
+
+
+def _reference_loop(js, q, k, **kw):
+    """(reference stats, its grid coordinates as a torch tensor)."""
+    from repro.core import projection as jproj
+
+    jgrid = jproj.to_grid_coords(js.index.proj, jnp.asarray(q), js.cfg.grid_size)
+    want = jbatched.radius_search_batched(js.index, js.cfg, jgrid, k, True, **kw)
+    return want, torch.from_numpy(np.array(jgrid))
+
+
+def _assert_stats_equal(got, want):
+    assert set(got) == set(want) == set(STATS)
+    for key in STATS:
+        np.testing.assert_array_equal(np_(got[key]), np.asarray(want[key]), err_msg=key)
+        assert np_(got[key]).dtype == np.asarray(want[key]).dtype, key
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+@pytest.mark.parametrize("adaptive_r0", [False, True])
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_plain_radius_loop_matches_reference(request, metric, adaptive_r0, early_exit):
+    """ref.radius_search_loop (the loop kernel's plain version, on the
+    index's tile array) and radius_search_batched against the reference's
+    radius_search_batched: all five stats exact, at PAPER_GRID's
+    max_iters = 16 with lanes that never converge."""
+    from repro_torch.core import pyramid
+    from repro_torch.kernels import ref
+
+    js, ts, q = request.getfixturevalue(f"{metric}_pair")
+    cfg = ts.cfg
+    assert cfg.max_iters == 16
+    want, tgrid = _reference_loop(js, q, K, adaptive_r0=adaptive_r0, early_exit=early_exit)
+    never = (np.asarray(want["iters"]) == cfg.max_iters) & ~np.asarray(want["converged"])
+    assert never.any() and np.asarray(want["converged"]).any()
+    r0 = (pyramid.seed_radius(ts.index, cfg, tgrid, K) if adaptive_r0
+          else torch.full((len(q),), cfg.r0, dtype=torch.int32))
+    k_hi = max(K, int(np.ceil(K * cfg.k_slack)))
+    got = ref.radius_search_loop(ts.index.pyr_tiles, tgrid, r0, K, k_hi, cfg.max_radius,
+                                 cfg.max_iters, cfg.tile, cfg.level_nblks, metric=cfg.metric,
+                                 early_exit=early_exit)
+    _assert_stats_equal(got, want)
+    _assert_stats_equal(batched.radius_search_batched(
+        ts.index, cfg, tgrid, K, adaptive_r0=adaptive_r0, early_exit=early_exit), want)
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+def test_plain_radius_loop_empty_batch(l2_pair, early_exit):
+    """B = 0: empty stats of the reference's dtypes and tile_dmas_skipped
+    0 (the reference's Pallas count raises on an empty batch, so its dtypes
+    come from a one-query call)."""
+    js, ts, q = l2_pair
+    want, _ = _reference_loop(js, q[:1], K, early_exit=early_exit)
+    got = batched.radius_search_batched(ts.index, ts.cfg, torch.zeros((0, 2)), K,
+                                        early_exit=early_exit)
+    assert set(got) == set(STATS)
+    for key in STATS:
+        w = np.asarray(want[key])
+        assert np_(got[key]).dtype == w.dtype and np_(got[key]).shape == (0,) * w.ndim, key
+    assert int(got["tile_dmas_skipped"]) == 0
+
+
+@pytest.mark.parametrize("adaptive_r0", [False, True])
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_dma_skip_identity_holds_on_reference(request, metric, adaptive_r0):
+    """The statistic the loop kernel computes after its launch, from
+    per-lane outputs alone: 4 * sum(max iters - iters) + 4 * sum(converged)
+    equals the reference's lock-step tile_dmas_skipped."""
+    js, _, q = request.getfixturevalue(f"{metric}_pair")
+    want, _ = _reference_loop(js, q, K, adaptive_r0=adaptive_r0)
+    it = np.asarray(want["iters"]).astype(np.int64)
+    conv = np.asarray(want["converged"]).astype(np.int64)
+    assert 4 * (it.max() - it).sum() + 4 * conv.sum() == int(want["tile_dmas_skipped"]) > 0
+
+
+@pytest.mark.parametrize("counter", ["pyramid", "sat"])
+def test_radius_search_calls_the_loop_dispatch_once(monkeypatch, counter):
+    """The pyramid counter reaches ops.radius_search_loop exactly once per
+    radius_search_batched call (once per chunk of a search); the sat
+    counter keeps its host loop and never calls it."""
+    from repro_torch.kernels import ops
+
+    calls = []
+    real = ops.radius_search_loop
+
+    def spy(*args, **kwargs):
+        calls.append(args[1].shape[0])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(ops, "radius_search_loop", spy)
+    _, ts, q = _pair(seed=4, counter=counter, k_slack=2.0)
+    grid = batched.proj_lib.to_grid_coords(ts.index.proj, torch.from_numpy(q), ts.cfg.grid_size)
+    batched.radius_search_batched(ts.index, ts.cfg, grid, K)
+    ts.with_plan(chunk_size=16).search(q, K)
+    assert calls == ([len(q), 16, 16, 16] if counter == "pyramid" else [])
+
+
 def test_chunked_search_matches_reference(l2_pair):
     """chunk_size that does not divide B: the padded last chunk is sliced off."""
     js, ts, q = l2_pair
