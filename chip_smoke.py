@@ -31,12 +31,12 @@ per phase:
      at d = 2 / 128 / 40, k = 32, 33, 64, 257 at d = 9 and 128, k = 1000 at
      a small N, k > N, no points (all pads), non-finite rows, and integer
      lattices (k up to 64; exact, ties to the lower index); flash_attention
-     over head dims 16-128 (hd = 36: a multiple of 4, not of 8), ragged
-     tiles (causal with S < T too), causal and full, bf16, query tiles
-     split over three launches, the wide-head
-     route (hd = 160, 256, 512, 1000), and 70,000 heads and B·H = 70,400 on
-     the tensor cores; ptxas's
-     registers and spills of each of its variants;
+     over head dims 16-256 on the tensor cores (hd = 36: a multiple of 4,
+     not of 8; 129 and 131: 4-byte copies; 160, 200, 256), ragged tiles
+     (causal with S < T too), causal and full, bf16, query tiles split
+     over three launches at hd = 64 and 160, the float32-FMA route (hd =
+     512, 1000), 70,000 heads, and B·H = 70,400 at hd = 16 and 160; ptxas's
+     registers and spills of each of its variants (none may spill);
   2  the paper's setup at full scale (PAPER_GRID, 1M 2-D points, 4096
      queries): build, search, classify in both modes on `hopper`, recall
      and class agreement against `exact`, launch counts (a search: one
@@ -76,13 +76,14 @@ per phase:
      registers and shared memory;
   4  flash_attention, which no path of the system calls, at
      musicgen-medium's attention width (24 heads, head_dim 64) and a 32,768
-     sequence, float32, causal, and at stablelm-12b's (32 heads, head_dim
-     160, the wide-head route) at S = 4096: two counted calls, their times,
-     every head held against the plain version (all heads at S = 4096
-     causal and full too), and scaled_dot_product_attention timed on the
-     same tensors as a yardstick; bound_ms is the three-pass TF32
-     tensor-core bound of both calls, fp32_fma_bound_ms the float32 FMA
-     units' beside it.
+     sequence, float32, causal, and at S = 4096 at stablelm-12b's width
+     (32 heads, head_dim 160), minitron-8b's (32 heads, head_dim 128) and
+     4 heads of head_dim 512 (the float32-FMA route): four counted calls,
+     their times, every head held against the plain version (causal, and
+     full at S = 4096), and scaled_dot_product_attention timed on the same
+     tensors as a yardstick (`slower_than_library` says which way each
+     shape falls); bound_ms is the three-pass TF32 tensor-core bound of
+     each call, fp32_fma_bound_ms the float32 FMA units' beside it.
 
 Each path runs with every launch counter set to 0 just before it and read
 just after; a kernel of the path that was never launched fails the run.
@@ -935,19 +936,27 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
                                  "rows_differ": differ, "bit_equal": bit})
 
     # flash_attention: the reference tests' shapes, ragged tiles (100 / 70
-    # rows), head dims 16-128, causal and full, bf16; float32 within 2e-5
+    # rows), head dims 16-256 on the tensor cores, causal and full, bf16;
+    # float32 within 2e-5
     fa = mods["flash_attention"]
     fcases = [(2, 64, 64, 4, 32, True, torch.float32), (2, 32, 96, 3, 16, False, torch.float32),
               (1, 256, 256, 1, 128, True, torch.float32), (1, 100, 100, 2, 48, True, torch.float32),
               (1, 100, 70, 2, 20, False, torch.float32), (1, 64, 64, 2, 32, True, torch.bfloat16),
               (1, 70, 100, 2, 20, True, torch.float32), (1, 128, 128, 2, 36, True, torch.float32),
-              # the wide-head route: stablelm-12b's hd = 160, one case per
-              # further variant (256, 512, 1024); 70,000 heads on the tensor cores
+              # wide heads on the tensor cores: stablelm-12b's hd = 160, 129
+              # and 131 (4-byte copies), 200 and 256, ragged, causal with
+              # S < T, bf16
               (1, 256, 256, 2, 160, True, torch.float32), (1, 200, 130, 2, 160, False, torch.float32),
-              (1, 256, 256, 2, 256, True, torch.float32), (1, 96, 96, 1, 512, True, torch.float32),
-              (1, 40, 70, 1, 1000, False, torch.float32), (1, 4, 4, 70_000, 16, False, torch.float32),
+              (1, 256, 256, 2, 256, True, torch.float32), (1, 100, 100, 2, 129, True, torch.float32),
+              (1, 100, 70, 2, 131, False, torch.float32), (1, 70, 100, 2, 160, True, torch.float32),
+              (1, 130, 130, 1, 200, False, torch.float32), (1, 100, 70, 2, 256, False, torch.float32),
+              (1, 70, 100, 1, 200, True, torch.float32), (1, 64, 64, 2, 160, True, torch.bfloat16),
+              (1, 100, 70, 2, 256, False, torch.bfloat16),
+              # the float32-FMA route (hd 257-1024); 70,000 heads on the tensor cores
+              (1, 96, 96, 1, 512, True, torch.float32), (1, 40, 70, 1, 1000, False, torch.float32),
+              (1, 4, 4, 70_000, 16, False, torch.float32),
               # B·H = 70,400 (> grid.y's 65,535) on the tensor cores
-              (1100, 8, 8, 64, 16, True, torch.float32)]
+              (1100, 8, 8, 64, 16, True, torch.float32), (1100, 8, 8, 64, 160, True, torch.float32)]
     for fb, fs, ft, fh, fhd, causal, dtype in fcases:
         fq, fk, fv = (torch.randn((fb, n_, fh, fhd), generator=gen, device=dev).to(dtype)
                       for n_ in (fs, ft, ft))
@@ -960,33 +969,38 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
         max_err["flash_attention"] = max(max_err["flash_attention"], err)
         out["flash_attention"].append({"shape": [fb, fs, ft, fh, fhd], "causal": causal,
                                        "dtype": str(dtype), "tol": tol, "max_abs_err": err,
-                                       "route": "wide" if fa.wide_route(fhd) else "tensor cores"})
-    # query tiles over several launches: 2 tiles per launch, S = 300 is 5
-    # tiles, so 3 launches (heaviest first), one counted call
-    for causal in (True, False):
-        fq, fk, fv = (torch.randn((2, 300, 3, 64), generator=gen, device=dev) for _ in range(3))
+                                       "route": "float32 FMAs" if fa.wide_route(fhd)
+                                       else "tensor cores"})
+    # query tiles over several launches: 2 tiles per launch, S of 5 tiles,
+    # so 3 launches (heaviest first), one counted call; at hd = 64 and 160
+    for causal, fhd in ((True, 64), (False, 64), (True, 160), (False, 160)):
+        fs = 4 * fa.query_tile(fhd) + 44
+        fq, fk, fv = (torch.randn((2, fs, 3, fhd), generator=gen, device=dev) for _ in range(3))
         got = fa.flash_attention(fq, fk, fv, causal=causal, _tiles_per_launch=2)
         grids = fa.last_grids
         want = ref.flash_attention(fq, fk, fv, causal=causal)
         check(grids == 3, f"flash_attention at 2 tiles per launch started {grids} grids, not 3")
         check(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
-              f"flash_attention over 3 launches (causal={causal}) differs")
+              f"flash_attention over 3 launches (causal={causal}, hd={fhd}) differs")
         err = float((got - want).abs().max())
         max_err["flash_attention"] = max(max_err["flash_attention"], err)
-        out["flash_attention"].append({"shape": [2, 300, 300, 3, 64], "causal": causal,
+        out["flash_attention"].append({"shape": [2, fs, fs, 3, fhd], "causal": causal,
                                        "dtype": "torch.float32", "tol": 2e-5, "max_abs_err": err,
                                        "route": "tensor cores", "tiles_per_launch": 2,
                                        "grids": grids})
     # registers and spills of each head-dim variant (flash_attention_kernel<HDP>,
-    # and the wide route's flash_attention_wide_kernel<NPL, RW>: HDP = 32·NPL)
+    # and the FMA route's flash_attention_wide_kernel<NPL>: HDP = 32·NPL);
+    # none may spill (a rerun that reuses the built library has no report)
     from repro_torch.kernels import _build
     variants = {}
     for entry, info in ptxas_by_entry(_build.BUILD_LOG.get("flash_attention", {})
                                       .get("ptxas", "")).items():
         if m := re.search(r"flash_attention_kernelILi(\d+)E", entry):
             variants[f"HDP={m[1]}"] = info
-        elif m := re.search(r"flash_attention_wide_kernelILi(\d+)ELi(\d+)E", entry):
-            variants[f"wide HDP={32 * int(m[1])} RW={m[2]}"] = info
+        elif m := re.search(r"flash_attention_wide_kernelILi(\d+)E", entry):
+            variants[f"FMA route HDP={32 * int(m[1])}"] = info
+        check(info.get("spill_store_bytes", 0) == 0 and info.get("spill_load_bytes", 0) == 0,
+              f"flash_attention variant {entry} spills: {info}")
     out["flash_attention_variants"] = variants
     emit(out)
     return max_err
@@ -1520,12 +1534,17 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
 # ----------------------------------------------------------------- phase 4 ---
 
 
-def phase4(seed, mods, timings, s=32_768, h=24, hd=64, s_check=4096, wide=(4096, 32, 160)):
+def phase4(seed, mods, timings, s=32_768, h=24, hd=64, s_check=4096,
+           widths=(("stablelm-12b", 4096, 32, 160), ("minitron-8b", 4096, 32, 128),
+                   ("fma-route", 4096, 4, 512))):
     """flash_attention at musicgen-medium's attention width (24 heads, kv
     24, head_dim 64; src/repro/configs/musicgen_medium.py) and prefill_32k's
-    sequence (src/repro/configs/shapes.py), batch 1, float32, causal, and
-    at stablelm-12b's width on the wide-head route.  No path of the system
-    calls it, so the phase's two calls at full width are its run, counted
+    sequence (src/repro/configs/shapes.py), batch 1, float32, causal; and
+    at S = 4096 at stablelm-12b's width (32 heads, head_dim 160;
+    src/repro/configs/stablelm_12b.py), minitron-8b's (32 heads, head_dim
+    128; src/repro/configs/minitron_8b.py) and a head_dim of 512 with 4
+    heads (the float32-FMA route), each beside SDPA.  No path of the system
+    calls it, so the phase's four calls at full width are its run, counted
     as the paths are."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1535,8 +1554,29 @@ def phase4(seed, mods, timings, s=32_768, h=24, hd=64, s_check=4096, wide=(4096,
     fa = mods["flash_attention"]
     gen = torch.Generator(device=DEV).manual_seed(seed + 4)
 
-    def qkv(n):
-        return [torch.randn((1, n, h, hd), generator=gen, device=DEV) for _ in range(3)]
+    def qkv(n, heads=h, dim=hd):
+        return [torch.randn((1, n, heads, dim), generator=gen, device=DEV) for _ in range(3)]
+
+    def sdpa_ms(q, k, v):
+        """Yardstick only (the port never calls it): SDPA's memory-efficient
+        backend on the same float32 tensors, (B, H, S, hd) views."""
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+        lib_ms, lib_out = time_ms(sdpa, reps=5)
+        return lib_ms, lib_out.transpose(1, 2)
+
+    def tf32_bound(q):
+        """The function's bound on this card, causal: three TF32
+        tensor-core products per float32 operation; the FMA units' beside."""
+        _, n, heads, dim = q.shape
+        pairs = heads * n * (n + 1) // 2
+        b_ms, b_by = bound(4 * q.numel() * 4, 3 * pairs * 4 * dim, TF32_TENSOR_OPS_PER_S)
+        fma_ms, _ = bound(4 * q.numel() * 4, pairs * 4 * dim)
+        return b_ms, b_by, fma_ms, pairs
 
     # every head at S = 4096, causal and full, against the plain version
     small = qkv(s_check)
@@ -1550,18 +1590,15 @@ def phase4(seed, mods, timings, s=32_768, h=24, hd=64, s_check=4096, wide=(4096,
     del small, got, want
 
     q, k, v = qkv(s)
-    # stablelm-12b's attention width (32 heads, head_dim 160;
-    # src/repro/configs/stablelm_12b.py) at S = 4096, which the wide-head
-    # route runs
-    ws, wh, whd = wide
-    wq, wk, wv = (torch.randn((1, ws, wh, whd), generator=gen, device=DEV) for _ in range(3))
+    wide = {name: qkv(n, heads, dim) for name, n, heads, dim in widths}
     reset(mods)
     torch.cuda.reset_peak_memory_stats()
     out = fa.flash_attention(q, k, v, causal=True)
-    out_w = fa.flash_attention(wq, wk, wv, causal=True)
+    outs = {name: fa.flash_attention(*wide[name], causal=True) for name in wide}
     torch.cuda.synchronize()
     launches = counts(mods)
-    check(launches["flash_attention"] == 2 and sum(launches.values()) == 2,
+    calls = 1 + len(widths)
+    check(launches["flash_attention"] == calls and sum(launches.values()) == calls,
           f"phase 4 launched {launches}")
     check(tuple(out.shape) == (1, s, h, hd) and out.dtype == torch.float32
           and bool(torch.isfinite(out).all()), "phase 4 output is not finite (1, S, H, hd) float32")
@@ -1582,64 +1619,56 @@ def phase4(seed, mods, timings, s=32_768, h=24, hd=64, s_check=4096, wide=(4096,
     errs[f"S{s}_causal_all_heads"] = max(float((out[:, :, i:i + 1] - w).abs().max())
                                          for i, w in enumerate(want))
     del want
-
-    # yardstick only (the port never calls it): SDPA's memory-efficient
-    # backend on the same float32 tensors, (B, H, S, hd) views
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-
-    def sdpa():
-        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-
-    lib_ms, lib_out = time_ms(sdpa, reps=5)
-    lib_err = float((lib_out.transpose(1, 2) - out).abs().max())
+    lib_ms, lib_out = sdpa_ms(q, k, v)
+    lib_err = float((lib_out - out).abs().max())
     del lib_out
 
-    # the wide-head call: held against the plain version, timed beside its
-    # bound and SDPA.  The bound is the same function's on this card: three
-    # TF32 tensor-core products per float32 operation, as the tensor-core
-    # route's; the FMA units' bound (what this route runs on) stands beside it
-    want = ref.flash_attention(wq, wk, wv, causal=True)
-    check(torch.allclose(out_w, want, rtol=2e-5, atol=2e-5), f"flash_attention differs at hd = {whd}")
-    errs[f"stablelm_12b_hd{whd}_causal"] = float((out_w - want).abs().max())
-    del want
-    w_ms, _ = time_ms(lambda: fa.flash_attention(wq, wk, wv, causal=True), reps=5)
-    w_plain_ms, _ = time_ms(lambda: ref.flash_attention(wq, wk, wv, causal=True), reps=2)
-    wqt, wkt, wvt = (t.transpose(1, 2) for t in (wq, wk, wv))
+    # the S = 4096 widths: every head against the plain version, causal (the
+    # counted call's output) and full, timed beside their bound and SDPA
+    records = {}
+    for name, n, heads, dim in widths:
+        wq, wk, wv = wide[name]
+        err = {}
+        for causal in (True, False):
+            got = outs[name] if causal else fa.flash_attention(wq, wk, wv, causal=False)
+            want = ref.flash_attention(wq, wk, wv, causal=causal)
+            check(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
+                  f"flash_attention differs at {name}'s width causal={causal}")
+            err["causal" if causal else "full"] = float((got - want).abs().max())
+            del got, want
+        w_ms, _ = time_ms(lambda: fa.flash_attention(wq, wk, wv, causal=True), reps=5)
+        w_plain_ms, _ = time_ms(lambda: ref.flash_attention(wq, wk, wv, causal=True), reps=2)
+        w_lib_ms, _ = sdpa_ms(wq, wk, wv)
+        w_bound, w_by, w_fma_ms, _ = tf32_bound(wq)
+        records[name] = {
+            "shape": f"{name} (1, {n}, {heads}, {dim}) float32 causal",
+            "route": "float32 FMAs" if fa.wide_route(dim) else "tensor cores",
+            "padded_head_dim": fa.padded_head_dim(dim), "ms": w_ms, "plain_ms": w_plain_ms,
+            "bound_ms": w_bound, "bound_by": w_by, "bound": "three-pass TF32 on the tensor cores",
+            "fp32_fma_bound_ms": w_fma_ms, "library_ms": w_lib_ms,
+            "slower_than_library": w_ms > w_lib_ms, "max_abs_err": max(err.values()),
+            "max_abs_err_by_mask": err, "smem_bytes": fa.shared_bytes(dim)}
+        errs[f"{name}_hd{dim}"] = max(err.values())
+    del wide, outs
 
-    def sdpa_wide():
-        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-            return F.scaled_dot_product_attention(wqt, wkt, wvt, is_causal=True)
-
-    w_lib_ms, _ = time_ms(sdpa_wide, reps=5)
-    w_pairs = wh * ws * (ws + 1) // 2
-    w_bound = bound(4 * wq.numel() * 4, 3 * w_pairs * 4 * whd, TF32_TENSOR_OPS_PER_S)
-    w_fma_ms, _ = bound(4 * wq.numel() * 4, w_pairs * 4 * whd)
-    wide_rec = {"shape": f"stablelm-12b (1, {ws}, {wh}, {whd}) float32 causal", "route": "wide",
-                "ms": w_ms, "plain_ms": w_plain_ms, "bound_ms": w_bound[0], "bound_by": w_bound[1],
-                "bound": "three-pass TF32 on the tensor cores", "fp32_fma_bound_ms": w_fma_ms,
-                "library_ms": w_lib_ms,
-                "max_abs_err": errs[f"stablelm_12b_hd{whd}_causal"],
-                "smem_bytes": fa.shared_bytes(whd)}
-
-    pairs = h * s * (s + 1) // 2                  # causal (query, key) pairs
-    # three TF32 tensor-core products for each float32 operation
-    b_ms, b_by = bound(4 * q.numel() * 4, 3 * pairs * 4 * hd, TF32_TENSOR_OPS_PER_S)
-    fma_ms, _ = bound(4 * q.numel() * 4, pairs * 4 * hd)
+    b_ms, b_by, fma_ms, pairs = tf32_bound(q)
     timings["flash_attention"] = {
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "fp32_fma_bound_ms": fma_ms,
         "library_ms": lib_ms, "max_abs_err": max(errs.values()),
         "shape": f"musicgen-medium (1, {s}, {h}, {hd}) float32 causal",
         "plain_ms_note": f"{h} one-head calls", "library": "scaled_dot_product_attention "
-        "(EFFICIENT_ATTENTION backend)", "wide_head": wide_rec}
+        "(EFFICIENT_ATTENTION backend)", "wide_head": records.pop("stablelm-12b"),
+        "other_widths": records}
     emit({"phase": 4, "kernel": "flash_attention", "config": "musicgen-medium, prefill_32k",
           "shape": [1, s, h, hd], "dtype": "float32", "causal": True, "launches": launches,
           "on_a_system_path": False, "ms": ms, "plain_ms": plain_ms, "sdpa_ms": lib_ms,
+          "slower_than_library": ms > lib_ms,
           "sdpa_max_abs_diff": lib_err, "bound_ms": b_ms, "bound_by": b_by,
           "bound": "three-pass TF32 on the tensor cores", "fp32_fma_bound_ms": fma_ms,
           "causal_pairs": pairs, "smem_bytes": fa.shared_bytes(hd), "max_abs_err": errs,
-          "peak_mem_gb": peak_gb, "wide_head": wide_rec})
+          "peak_mem_gb": peak_gb, "wide_head": timings["flash_attention"]["wide_head"],
+          "other_widths": records})
     return launches
 
 
@@ -1650,9 +1679,10 @@ def kernels_line(max_err: dict, timings: dict, launches: dict) -> dict:
     """One entry per kernel: launches on the paths (phase 4's for a kernel
     on no path), largest error against the plain version over every check,
     and the timed call's numbers; brute_knn adds its phase-2 (d=2) shape,
-    candidate_topk its gather shape."""
-    extra = {"candidate_topk": "gather_shape", "brute_knn": "d2_shape",
-             "flash_attention": "wide_head", "radius_search_loop": "chunk_shape"}
+    candidate_topk its gather shape, flash_attention its S = 4096 widths."""
+    extra = {"candidate_topk": ("gather_shape",), "brute_knn": ("d2_shape",),
+             "flash_attention": ("wide_head", "other_widths"),
+             "radius_search_loop": ("chunk_shape",)}
     timings = {**timings, "brute_knn": {**timings["brute_knn"],
                                         "d2_shape": timings["brute_knn_d2"]}}
     return {"kernels": [
@@ -1666,7 +1696,7 @@ def kernels_line(max_err: dict, timings: dict, launches: dict) -> dict:
          "shape": timings[name]["shape"],
          **({"two_call_ms": timings[name]["two_call_ms"]} if "two_call_ms" in timings[name] else {}),
          **({"library": timings[name]["library"]} if "library" in timings[name] else {}),
-         **({extra[name]: timings[name][extra[name]]} if name in extra else {})}
+         **{key: timings[name][key] for key in extra.get(name, ())}}
         for name, (src, replaces) in KERNELS.items()
     ]}
 

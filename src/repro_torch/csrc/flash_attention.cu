@@ -38,13 +38,14 @@
 //
 // Design.  A block of 4 warps owns 64 query rows of one (batch, head),
 // 16 rows per warp, and streams that head's keys and values in tiles of 64
-// rows through a two-stage ring in dynamic shared memory, filled by
-// cp.async (16-byte copies, 4-byte ones where hd % 4 != 0 or a row is not
-// 16-byte aligned), so the next tile's copy overlaps this tile's products.
-// The TPU kernel's sequential key-block grid axis with its VMEM scratch
-// becomes this key loop.  The head dim is padded with zeros to the
-// variant's HDP (16, 32, 64 or 128; zero columns add exact zeros to both
-// products).  Each warp splits its query fragments once and keeps them in
+// rows (the wide heads' sizes are below) through a two-stage ring in
+// dynamic shared memory, filled by cp.async (16-byte copies, 4-byte ones
+// where hd % 4 != 0 or a row is not 16-byte aligned), so the next tile's
+// copy overlaps this tile's products.  The TPU kernel's sequential
+// key-block grid axis with its VMEM scratch becomes this key loop.  The
+// head dim is padded with zeros to the variant's HDP (16, 32, 64, 128, 160
+// or 256; zero columns add exact zeros to both products).  Each warp
+// splits its query fragments once and keeps them in
 // registers (HDP <= 64) or, for HDP = 128, keeps the split query tile in
 // shared memory and loads its fragments per k-step, so that variant does
 // not spill.  Query tiles run last to first, so the causal rows with the
@@ -80,28 +81,50 @@
 // distinct banks.  Row reductions (max, sum) of a score row are two
 // xor-shuffles over its 4 lanes t.
 //
-// Wide heads (hd > 128, up to 1024; stablelm-12b's head_dim is 160) take a
-// second, simple kernel, flash_attention_wide_kernel: online softmax in
-// float32 FMAs with the same log2-unit scores, masks and guards.  A block
-// of 8 warps owns 8·RW query rows of one (batch, head), RW rows per warp
-// (2 at hd <= 256, else 1, so that no variant spills), and
-// stages 16 key rows of K and V at a time in shared memory (rows of
-// HDP = 160, 256, 512 or 1024 floats, zero-padded).  Lane l owns head dims
-// l, l + 32, ...: a score is the lane's FMA chain over its dims, summed
-// over the warp by xor-shuffles (every lane gets the same float), and the
-// output accumulates the same dims.
+// Wide heads (hd 129-256; stablelm-12b's head_dim is 160) run on the same
+// kernel, HDP = 160 and 256, where the layout above would not fit: at
+// HDP = 128 a thread already holds 255 registers (the output's 64 floats,
+// the tile's P·V products for all 16 n-tiles, 64 more, and the scores,
+// 32), and two stages of 64-key tiles with the split query tile would
+// pass a block's 227 KB.  So the wide variants differ in four ways, each
+// chosen by ptxas's registers and spills and by timing (PERF.md), and
+// none spills.
+// - P·V runs with groups of NV n-tiles outer and the tile's keys inner, so
+//   only one group's NV products are live, beside P's TF32 splits for the
+//   tile's keys.  Each n-tile still sums its keys in the same order from
+//   zero, so a tile's products are those of the other loop order.
+// - A block has 8 warps (128 query rows), and the key tiles are 32 rows
+//   (HDP = 160) or 16 (256): each K and V tile then feeds 8 warps, and the
+//   ring and the query tile fit (171 KB and 202 KB).  The query tile stays
+//   float32 in shared memory and a warp splits its fragments at each
+//   k-step (split, it would not fit).
+// - At HDP = 256 a P·V group is one n-tile (NV = 1, scalar reads of V),
+//   the Q·Kᵀ k-steps are unrolled 16 at a time and, at HDP = 160, the copy
+//   loops are kept rolled: each of these took the registers that spilled.
+// - A warp skips the key tiles that start past its last row (causal): the
+//   block-wide skip leaves them in, because the block is taller than a
+//   key tile.  This is exact, as below.
+// Head dims 257-1024 take a second, simple kernel, flash_attention_wide_kernel:
+// online softmax in float32 FMAs with the same log2-unit scores, masks and
+// guards.  A block of 8 warps owns 8 query rows of one (batch, head), one
+// row per warp, and stages 16 key rows of K and V at a time in shared
+// memory (rows of HDP = 512 or 1024 floats, zero-padded).  Lane l owns
+// head dims l, l + 32, ...: a score is the lane's FMA chain over its dims,
+// summed over the warp by xor-shuffles (every lane gets the same float),
+// and the output accumulates the same dims.
 //
 // Grid: (batch, head) sits on grid.x, which holds 2^31 - 1 blocks, so B·H
 // is not held to grid.y's 65,535.  The tensor-core kernel puts the query
 // tile on grid.y (grid.x runs fastest, so the heaviest causal tile of every
 // head starts first); past grid.y's 65,535 tiles of 64 rows (S > 4,194,240)
 // it launches again for the next 65,535 tiles, each launch taking the index
-// of its first tile, so the heaviest tiles still go first.  The wide kernel
+// of its first tile, so the heaviest tiles still go first.  The FMA kernel
 // puts (batch, head) × query tile on grid.x, query tiles last to first
 // within each (batch, head).
 //
 // Causal skipping: key tiles that start past the block's last query row
-// are not visited.  This is exact, not an approximation: every score there
+// are not visited (nor, in the wide variants, those past a warp's last row
+// by that warp).  This is exact, not an approximation: every score there
 // is -1e30, so the max is unchanged (alpha = 1), every p = exp(-1e30 - m)
 // is 0 (or 0 by the guard when m is -1e30 too), and l and the accumulator
 // keep their values.  Masks are computed only in tiles that hold a masked
@@ -111,34 +134,56 @@
 
 #include "kernel_common.cuh"
 
-#define FA_THREADS 128  // 4 warps, 16 query rows each
-#define FA_BQ 64        // query rows per block
-#define FA_BK 64        // key rows per tile
 #define FA_NEG_INF -1e30f
 #define FULL_MASK 0xffffffffu
 #define FA_LOG2E 1.4426950408889634f
 #define FA_MAX_TILES 65535  // query tiles on grid.y
 
+// Where a warp finds the A fragments of its query rows at each Q·Kᵀ k-step.
+#define FA_Q_REGISTERS 0  // split once, kept in registers
+#define FA_Q_SPLIT 1      // split once, hi and lo kept in shared memory
+#define FA_Q_RAW 2        // float32 in shared memory, split at each k-step
+
 // Padded head dim of the variant that takes head dim hd (0: none does).
 __host__ __device__ constexpr int fa_padded_hd(int hd) {
-  return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 0;
+  return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128
+       : hd <= 160 ? 160 : hd <= 256 ? 256 : 0;
 }
-// Whether the variant keeps the split query fragments in registers.
-__host__ __device__ constexpr bool fa_q_in_registers(int hdp) { return hdp <= 64; }
-// Shared row strides in floats: K (and the split query tile) HDP + 8, so
-// the 8-byte fragment reads of a half-warp fall in distinct banks; V
-// HDP + 4, so the 16-byte (8-byte at HDP = 16) reads of a quarter-warp do.
+
+// What each variant keeps where (see "Wide heads"; chosen by ptxas's
+// registers and spills and by timing, PERF.md).
+struct FaVariant {
+  int warps;           // warps of a block, 16 query rows each
+  int key_tile;        // key rows per K and V tile
+  int q_mode;          // FA_Q_*
+  int pv_group;        // NV: P·V n-tiles per vector read of V
+  int kk_unroll;       // Q·Kᵀ k-steps unrolled
+  bool rolled_copies;  // copy loops kept rolled (their addresses then hold no registers)
+};
+__host__ __device__ constexpr FaVariant fa_variant(int hdp) {
+  return hdp == 160 ? FaVariant{8, 32, FA_Q_RAW, 4, 16, true}
+       : hdp == 256 ? FaVariant{8, 16, FA_Q_RAW, 1, 16, false}
+       : FaVariant{4, 64, hdp <= 64 ? FA_Q_REGISTERS : FA_Q_SPLIT, hdp == 16 ? 2 : 4, hdp / 8,
+                   false};
+}
+__host__ __device__ constexpr int fa_warps(int hdp) { return fa_variant(hdp).warps; }
+__host__ __device__ constexpr int fa_key_tile(int hdp) { return fa_variant(hdp).key_tile; }
+__host__ __device__ constexpr int fa_q_mode(int hdp) { return fa_variant(hdp).q_mode; }
+// Shared row strides in floats: K (and the query tile) HDP + 8, so the
+// 8-byte fragment reads of a half-warp fall in distinct banks; V HDP + 4,
+// so the 16-byte (8-byte at HDP = 16) reads of a quarter-warp do.
 __host__ __device__ constexpr int fa_k_stride(int hdp) { return hdp + 8; }
 __host__ __device__ constexpr int fa_v_stride(int hdp) { return hdp + 4; }
 
 // Dynamic shared memory of one block for head dim hd (the wrapper's
-// shared_bytes computes the same): two stages of a K and a V tile of 64
-// rows, and for HDP = 128 the query tile's hi and lo.
+// shared_bytes computes the same): two stages of a K and a V tile, and
+// the query tile where it is not in registers (hi and lo, or float32).
 __host__ __device__ inline size_t fa_shared_bytes(int hd) {
-  const int hdp = fa_padded_hd(hd);
-  const size_t ring = (size_t)2 * FA_BK * (fa_k_stride(hdp) + fa_v_stride(hdp));
-  const size_t qsplit = fa_q_in_registers(hdp) ? 0 : (size_t)2 * FA_BQ * fa_k_stride(hdp);
-  return sizeof(float) * (ring + qsplit);
+  const int hdp = fa_padded_hd(hd), qm = fa_q_mode(hdp);
+  const size_t ring = (size_t)2 * fa_key_tile(hdp) * (fa_k_stride(hdp) + fa_v_stride(hdp));
+  const size_t qtile = qm == FA_Q_REGISTERS ? 0
+      : (size_t)(qm == FA_Q_SPLIT ? 2 : 1) * 16 * fa_warps(hdp) * fa_k_stride(hdp);
+  return sizeof(float) * (ring + qtile);
 }
 
 // tf32(x): x rounded to 10 mantissa bits, ties away from zero, as
@@ -197,56 +242,108 @@ __device__ __forceinline__ void cp_async_wait_but_newest() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// Issue the copies of key rows kj0 .. kj0 + 63 of K and V (one head, rows
-// rs floats apart) into the shared tiles ks and vs; columns past hd are
-// left alone, rows past T are zero-filled.
+// Issue the copies of key rows kj0 .. kj0 + BK - 1 of K and V (one head,
+// rows rs floats apart) into the shared tiles ks and vs; columns past hd
+// are left alone, rows past T are zero-filled.
 template <int HDP>
 __device__ __forceinline__ void load_kv(float* ks, float* vs, const float* kb, const float* vb,
                                         int kj0, int T, long long rs, int hd, bool vec) {
   constexpr int LDK = fa_k_stride(HDP), LDV = fa_v_stride(HDP);
+  constexpr int BK = fa_key_tile(HDP), THREADS = 32 * fa_warps(HDP);
   constexpr int W = 4;  // floats per 16-byte copy
   if (vec) {
-    for (int i = threadIdx.x; i < FA_BK * (HDP / W); i += FA_THREADS) {
-      const int r = i / (HDP / W), c = (i % (HDP / W)) * W;
-      if (c >= hd) continue;
-      const bool ok = kj0 + r < T;
-      const long long off = ok ? (kj0 + r) * rs + c : 0;
-      cp_async16(ks + r * LDK + c, kb + off, ok);
-      cp_async16(vs + r * LDV + c, vb + off, ok);
+    if constexpr (fa_variant(HDP).rolled_copies) {
+#pragma unroll 1
+      for (int i = threadIdx.x; i < BK * (HDP / W); i += THREADS) {
+        const int r = i / (HDP / W), c = (i % (HDP / W)) * W;
+        if (c >= hd) continue;
+        const bool ok = kj0 + r < T;
+        const long long off = ok ? (kj0 + r) * rs + c : 0;
+        cp_async16(ks + r * LDK + c, kb + off, ok);
+        cp_async16(vs + r * LDV + c, vb + off, ok);
+      }
+    } else {
+      for (int i = threadIdx.x; i < BK * (HDP / W); i += THREADS) {
+        const int r = i / (HDP / W), c = (i % (HDP / W)) * W;
+        if (c >= hd) continue;
+        const bool ok = kj0 + r < T;
+        const long long off = ok ? (kj0 + r) * rs + c : 0;
+        cp_async16(ks + r * LDK + c, kb + off, ok);
+        cp_async16(vs + r * LDV + c, vb + off, ok);
+      }
     }
   } else {
-    for (int i = threadIdx.x; i < FA_BK * HDP; i += FA_THREADS) {
-      const int r = i / HDP, c = i % HDP;
-      if (c >= hd) continue;
-      const bool ok = kj0 + r < T;
-      const long long off = ok ? (kj0 + r) * rs + c : 0;
-      cp_async4(ks + r * LDK + c, kb + off, ok);
-      cp_async4(vs + r * LDV + c, vb + off, ok);
+    if constexpr (fa_variant(HDP).rolled_copies) {
+#pragma unroll 1
+      for (int i = threadIdx.x; i < BK * HDP; i += THREADS) {
+        const int r = i / HDP, c = i % HDP;
+        if (c >= hd) continue;
+        const bool ok = kj0 + r < T;
+        const long long off = ok ? (kj0 + r) * rs + c : 0;
+        cp_async4(ks + r * LDK + c, kb + off, ok);
+        cp_async4(vs + r * LDV + c, vb + off, ok);
+      }
+    } else {
+      for (int i = threadIdx.x; i < BK * HDP; i += THREADS) {
+        const int r = i / HDP, c = i % HDP;
+        if (c >= hd) continue;
+        const bool ok = kj0 + r < T;
+        const long long off = ok ? (kj0 + r) * rs + c : 0;
+        cp_async4(ks + r * LDK + c, kb + off, ok);
+        cp_async4(vs + r * LDV + c, vb + off, ok);
+      }
     }
   }
 }
 
+// V's B fragments of NV consecutive P·V n-tiles: b0 from the row at v0,
+// b1 from the next one (one vector read each).
+template <int NV>
+__device__ __forceinline__ void load_v_fragments(const float* v0, int ldv, float (&b0)[NV],
+                                                 float (&b1)[NV]) {
+  if constexpr (NV == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(v0);
+    const float4 y = *reinterpret_cast<const float4*>(v0 + ldv);
+    b0[0] = x.x; b0[1] = x.y; b0[2] = x.z; b0[3] = x.w;
+    b1[0] = y.x; b1[1] = y.y; b1[2] = y.z; b1[3] = y.w;
+  } else if constexpr (NV == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(v0);
+    const float2 y = *reinterpret_cast<const float2*>(v0 + ldv);
+    b0[0] = x.x; b0[1] = x.y;
+    b1[0] = y.x; b1[1] = y.y;
+  } else {
+    b0[0] = v0[0];
+    b1[0] = v0[ldv];
+  }
+}
+
 template <int HDP>
-__global__ void __launch_bounds__(FA_THREADS) flash_attention_kernel(
+__global__ void __launch_bounds__(32 * fa_warps(HDP)) flash_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
     int S, int T, int H, int hd, int causal, float scale, int vec, int tile_base) {
   constexpr int LDK = fa_k_stride(HDP), LDV = fa_v_stride(HDP);
-  constexpr int NT = HDP / 8;            // k-steps of Q·Kᵀ, n-tiles of P·V
-  constexpr int NV = NT < 4 ? NT : 4;    // P·V n-tiles per vector read of V
-  constexpr bool QREG = fa_q_in_registers(HDP);
+  constexpr int THREADS = 32 * fa_warps(HDP);
+  constexpr int BQ = 16 * fa_warps(HDP);  // query rows per block
+  constexpr int BK = fa_key_tile(HDP);    // key rows per tile
+  constexpr int NJ = BK / 8;              // n-tiles of S, k-steps of P·V
+  constexpr int NT = HDP / 8;             // k-steps of Q·Kᵀ, n-tiles of P·V
+  constexpr int NV = fa_variant(HDP).pv_group;  // P·V n-tiles per vector read of V
+  constexpr int QM = fa_q_mode(HDP);
+  constexpr bool WIDE = HDP > 128;        // see "Wide heads"
   extern __shared__ float smem[];
-  float* kst = smem;                    // 2 stages x FA_BK x LDK
-  float* vst = kst + 2 * FA_BK * LDK;   // 2 stages x FA_BK x LDV
-  uint32_t* qhs = reinterpret_cast<uint32_t*>(vst + 2 * FA_BK * LDV);  // HDP = 128: FA_BQ x LDK
-  uint32_t* qls = qhs + FA_BQ * LDK;
+  float* kst = smem;                    // 2 stages x BK x LDK
+  float* vst = kst + 2 * BK * LDK;      // 2 stages x BK x LDV
+  float* qs = vst + 2 * BK * LDV;       // FA_Q_RAW: BQ x LDK
+  uint32_t* qhs = reinterpret_cast<uint32_t*>(qs);  // FA_Q_SPLIT: BQ x LDK, hi then lo
+  uint32_t* qls = qhs + BQ * LDK;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int nq = (S + FA_BQ - 1) / FA_BQ;
-  const int qi0 = (nq - 1 - (tile_base + (int)blockIdx.y)) * FA_BQ;
+  const int nq = (S + BQ - 1) / BQ;
+  const int qi0 = (nq - 1 - (tile_base + (int)blockIdx.y)) * BQ;
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const long long rs = (long long)H * hd;  // stride between sequence rows
   const float* qb = q + ((long long)b * S * H + h) * hd;
@@ -258,24 +355,34 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attention_kernel(
   // scores in log2 units: exp2(s·scale·log2 e - m) = exp(s·scale - m / log2 e)
   const float scale2 = __fmul_rn(scale, FA_LOG2E);
 
-  int nk = (T + FA_BK - 1) / FA_BK;
-  if (causal) nk = min(nk, (qi0 + FA_BQ - 1) / FA_BK + 1);  // see "Causal skipping"
+  int nk = (T + BK - 1) / BK;
+  if (causal) nk = min(nk, (qi0 + BQ - 1) / BK + 1);  // see "Causal skipping"
   if (nk > 0) load_kv<HDP>(kst, vst, kb, vb, 0, T, rs, hd, vec);
   cp_async_commit();
 
   // zero the padding columns hd .. HDP-1 of the four tiles (cp.async never
   // writes them)
-  for (int i = tid; i < 4 * FA_BK * HDP; i += FA_THREADS) {
-    const int r = i / HDP, c = i % HDP;
-    if (c < hd) continue;
-    if (r < 2 * FA_BK) kst[r * LDK + c] = 0.0f;
-    else vst[(r - 2 * FA_BK) * LDV + c] = 0.0f;
+  if constexpr (fa_variant(HDP).rolled_copies) {
+#pragma unroll 1
+    for (int i = tid; i < 4 * BK * HDP; i += THREADS) {
+      const int r = i / HDP, c = i % HDP;
+      if (c < hd) continue;
+      if (r < 2 * BK) kst[r * LDK + c] = 0.0f;
+      else vst[(r - 2 * BK) * LDV + c] = 0.0f;
+    }
+  } else {
+    for (int i = tid; i < 4 * BK * HDP; i += THREADS) {
+      const int r = i / HDP, c = i % HDP;
+      if (c < hd) continue;
+      if (r < 2 * BK) kst[r * LDK + c] = 0.0f;
+      else vst[(r - 2 * BK) * LDV + c] = 0.0f;
+    }
   }
 
   // Q·Kᵀ k-step ks reads A-column t as dim 8ks+2t and A-column t+4 as dim
   // 8ks+2t+1, in the query fragments and in K's alike (one 8-byte read)
-  uint32_t qh[QREG ? NT : 1][4], ql[QREG ? NT : 1][4];
-  if constexpr (QREG) {
+  uint32_t qh[QM == FA_Q_REGISTERS ? NT : 1][4], ql[QM == FA_Q_REGISTERS ? NT : 1][4];
+  if constexpr (QM == FA_Q_REGISTERS) {
 #pragma unroll
     for (int ks = 0; ks < NT; ++ks)
 #pragma unroll
@@ -284,11 +391,22 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attention_kernel(
         const float x = row < S && col < hd ? qb[row * rs + col] : 0.0f;
         split_tf32(x, qh[ks][e], ql[ks][e]);
       }
-  } else {
-    for (int i = tid; i < FA_BQ * HDP; i += FA_THREADS) {
+  } else if constexpr (QM == FA_Q_SPLIT) {
+    for (int i = tid; i < BQ * HDP; i += THREADS) {
       const int r = i / HDP, c = i % HDP;
       const float x = qi0 + r < S && c < hd ? qb[(qi0 + r) * rs + c] : 0.0f;
       split_tf32(x, qhs[r * LDK + c], qls[r * LDK + c]);
+    }
+  } else if constexpr (fa_variant(HDP).rolled_copies) {
+#pragma unroll 1
+    for (int i = tid; i < BQ * HDP; i += THREADS) {
+      const int r = i / HDP, c = i % HDP;
+      qs[r * LDK + c] = qi0 + r < S && c < hd ? qb[(qi0 + r) * rs + c] : 0.0f;
+    }
+  } else {
+    for (int i = tid; i < BQ * HDP; i += THREADS) {
+      const int r = i / HDP, c = i % HDP;
+      qs[r * LDK + c] = qi0 + r < S && c < hd ? qb[(qi0 + r) * rs + c] : 0.0f;
     }
   }
 
@@ -302,38 +420,52 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attention_kernel(
   for (int kt = 0; kt < nk; ++kt) {
     const int stage = kt & 1;
     if (kt + 1 < nk)
-      load_kv<HDP>(kst + (stage ^ 1) * FA_BK * LDK, vst + (stage ^ 1) * FA_BK * LDV, kb, vb,
-                   (kt + 1) * FA_BK, T, rs, hd, vec);
+      load_kv<HDP>(kst + (stage ^ 1) * BK * LDK, vst + (stage ^ 1) * BK * LDV, kb, vb,
+                   (kt + 1) * BK, T, rs, hd, vec);
     cp_async_commit();  // possibly empty: the wait below then still finds this tile's group
     cp_async_wait_but_newest();
     __syncthreads();  // every thread's copies of this tile have landed
-    const float* ks = kst + stage * FA_BK * LDK;
-    const float* vs = vst + stage * FA_BK * LDV;
-    const int kj0 = kt * FA_BK;
+    const float* ks = kst + stage * BK * LDK;
+    const float* vs = vst + stage * BK * LDV;
+    const int kj0 = kt * BK;
+    // a key tile past the warp's last row changes nothing (see "Causal
+    // skipping"); the wide variants' tiles are shorter than the block
+    if (WIDE && causal && kj0 > wq0 + 15) {
+      __syncthreads();
+      continue;
+    }
 
-    // S = Q·Kᵀ for the warp's 16 rows and the tile's 64 keys (8 n-tiles)
-    float s[8][4];
+    // S = Q·Kᵀ for the warp's 16 rows and the tile's BK keys (NJ n-tiles)
+    float s[NJ][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
-#pragma unroll
+    constexpr int KK_UNROLL = fa_variant(HDP).kk_unroll;
+#pragma unroll KK_UNROLL
     for (int kk = 0; kk < NT; ++kk) {
       uint32_t ah[4], al[4];
-      if constexpr (QREG) {
+      const int o0 = (warp * 16 + g) * LDK + 8 * kk + 2 * t;
+      if constexpr (QM == FA_Q_REGISTERS) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) { ah[e] = qh[kk][e]; al[e] = ql[kk][e]; }
-      } else {
-        const int o0 = (warp * 16 + g) * LDK + 8 * kk + 2 * t;
+      } else if constexpr (QM == FA_Q_SPLIT) {
         const uint2 h0 = *reinterpret_cast<const uint2*>(qhs + o0);
         const uint2 h1 = *reinterpret_cast<const uint2*>(qhs + o0 + 8 * LDK);
         const uint2 l0 = *reinterpret_cast<const uint2*>(qls + o0);
         const uint2 l1 = *reinterpret_cast<const uint2*>(qls + o0 + 8 * LDK);
         ah[0] = h0.x; ah[1] = h1.x; ah[2] = h0.y; ah[3] = h1.y;
         al[0] = l0.x; al[1] = l1.x; al[2] = l0.y; al[3] = l1.y;
+      } else {
+        const float2 x0 = *reinterpret_cast<const float2*>(qs + o0);
+        const float2 x1 = *reinterpret_cast<const float2*>(qs + o0 + 8 * LDK);
+        split_tf32(x0.x, ah[0], al[0]);
+        split_tf32(x1.x, ah[1], al[1]);
+        split_tf32(x0.y, ah[2], al[2]);
+        split_tf32(x1.y, ah[3], al[3]);
       }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const float2 kv = *reinterpret_cast<const float2*>(ks + (8 * j + g) * LDK + 8 * kk + 2 * t);
         mma_3xtf32(s[j], ah, al, kv.x, kv.y);
       }
@@ -341,10 +473,10 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attention_kernel(
 
     // online softmax on the accumulators: lane holds keys 8j+2t, 8j+2t+1
     // of rows qp[0] (e = 0, 1) and qp[1] (e = 2, 3)
-    const bool masked = kj0 + FA_BK > T || (causal && kj0 + FA_BK - 1 > wq0);
+    const bool masked = kj0 + BK > T || (causal && kj0 + BK - 1 > wq0);
     float mt[2] = {FA_NEG_INF, FA_NEG_INF};
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float val = __fmul_rn(s[j][e], scale2);
@@ -367,7 +499,7 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attention_kernel(
       m[r] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float mr = m[e >> 1];
@@ -382,46 +514,69 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attention_kernel(
       l[r] = __fmaf_rn(l[r], alpha[r], rsum[r]);
     }
 
-    // pv = P·V of this tile, P from the registers above with keys
-    // relabelled (header); n-tile n, column c is dim dv(n, c)
-    float pv[NT][4];
+    // P·V of this tile, P from the registers above with keys relabelled
+    // (header); n-tile n, column c is dim dv(n, c).  Each n-tile's product
+    // is summed over the tile's keys from zero, then added to the running
+    // output once, rounded to nearest: the tensor core's own sums round
+    // toward zero, which over thousands of tiles would drift
+    if constexpr (WIDE) {
+      // n-tile groups outer, keys inner: P's splits for the tile and one
+      // group's products are live, not every n-tile's (see "Wide heads")
+      uint32_t ph[NJ][4], pl[NJ][4];
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) pv[n][e] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t ph[4], pl[4];
-      split_tf32(s[j][0], ph[0], pl[0]);  // row g,   A-column t   = key 8j+2t
-      split_tf32(s[j][2], ph[1], pl[1]);  // row g+8, A-column t   = key 8j+2t
-      split_tf32(s[j][1], ph[2], pl[2]);  // row g,   A-column t+4 = key 8j+2t+1
-      split_tf32(s[j][3], ph[3], pl[3]);  // row g+8, A-column t+4 = key 8j+2t+1
-      const float* v0 = vs + (8 * j + 2 * t) * LDV + NV * g;  // b0: key 8j+2t
+      for (int j = 0; j < NJ; ++j) {
+        split_tf32(s[j][0], ph[j][0], pl[j][0]);  // row g,   A-column t   = key 8j+2t
+        split_tf32(s[j][2], ph[j][1], pl[j][1]);  // row g+8, A-column t   = key 8j+2t
+        split_tf32(s[j][1], ph[j][2], pl[j][2]);  // row g,   A-column t+4 = key 8j+2t+1
+        split_tf32(s[j][3], ph[j][3], pl[j][3]);  // row g+8, A-column t+4 = key 8j+2t+1
+      }
 #pragma unroll
       for (int n0 = 0; n0 < NT; n0 += NV) {
-        float b0[NV], b1[NV];  // column g of n-tiles n0 .. n0+NV-1
-        if constexpr (NV == 4) {
-          const float4 x = *reinterpret_cast<const float4*>(v0 + 8 * n0);
-          const float4 y = *reinterpret_cast<const float4*>(v0 + LDV + 8 * n0);
-          b0[0] = x.x; b0[1] = x.y; b0[2] = x.z; b0[3] = x.w;
-          b1[0] = y.x; b1[1] = y.y; b1[2] = y.z; b1[3] = y.w;
-        } else {
-          const float2 x = *reinterpret_cast<const float2*>(v0 + 8 * n0);
-          const float2 y = *reinterpret_cast<const float2*>(v0 + LDV + 8 * n0);
-          b0[0] = x.x; b0[1] = x.y;
-          b1[0] = y.x; b1[1] = y.y;
+        float pv[NV][4];
+#pragma unroll
+        for (int i = 0; i < NV; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pv[i][e] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          float b0[NV], b1[NV];  // column g of n-tiles n0 .. n0+NV-1, keys 8j+2t, 8j+2t+1
+          load_v_fragments<NV>(vs + (8 * j + 2 * t) * LDV + NV * g + 8 * n0, LDV, b0, b1);
+#pragma unroll
+          for (int i = 0; i < NV; ++i) mma_3xtf32(pv[i], ph[j], pl[j], b0[i], b1[i]);
         }
 #pragma unroll
-        for (int i = 0; i < NV; ++i) mma_3xtf32(pv[n0 + i], ph, pl, b0[i], b1[i]);
+        for (int i = 0; i < NV; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[n0 + i][e] = __fmaf_rn(acc[n0 + i][e], alpha[e >> 1], pv[i][e]);
       }
+    } else {
+      float pv[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[n][e] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t ph[4], pl[4];
+        split_tf32(s[j][0], ph[0], pl[0]);
+        split_tf32(s[j][2], ph[1], pl[1]);
+        split_tf32(s[j][1], ph[2], pl[2]);
+        split_tf32(s[j][3], ph[3], pl[3]);
+        const float* v0 = vs + (8 * j + 2 * t) * LDV + NV * g;  // b0: key 8j+2t
+#pragma unroll
+        for (int n0 = 0; n0 < NT; n0 += NV) {
+          float b0[NV], b1[NV];  // column g of n-tiles n0 .. n0+NV-1
+          load_v_fragments<NV>(v0 + 8 * n0, LDV, b0, b1);
+#pragma unroll
+          for (int i = 0; i < NV; ++i) mma_3xtf32(pv[n0 + i], ph, pl, b0[i], b1[i]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = __fmaf_rn(acc[n][e], alpha[e >> 1], pv[n][e]);
     }
-    // the running sum adds each tile's product once, rounded to nearest:
-    // the tensor core's own sums round toward zero, which over thousands of
-    // tiles would drift
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] = __fmaf_rn(acc[n][e], alpha[e >> 1], pv[n][e]);
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
@@ -450,13 +605,14 @@ static int launch_hdp(const float* q, const float* k, const float* v, float* o,
   const size_t smem = fa_shared_bytes(hd);
   int e = allow_shared_bytes(flash_attention_kernel<HDP>, smem);
   if (e != 0) return e;
-  const int nq = (S + FA_BQ - 1) / FA_BQ;
+  constexpr int BQ = 16 * fa_warps(HDP);
+  const int nq = (S + BQ - 1) / BQ;
   if ((long long)B * H > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int per = max_tiles > 0 && max_tiles < FA_MAX_TILES ? max_tiles : FA_MAX_TILES;
   for (int base = 0; base < nq; base += per) {
     const dim3 grid(B * H, min(per, nq - base));
-    flash_attention_kernel<HDP><<<grid, FA_THREADS, smem, stream>>>(q, k, v, o, S, T, H, hd,
-                                                                   causal, scale, vec, base);
+    flash_attention_kernel<HDP><<<grid, 32 * fa_warps(HDP), smem, stream>>>(
+        q, k, v, o, S, T, H, hd, causal, scale, vec, base);
     e = (int)cudaGetLastError();
     if (e != 0) return e;
     ++*grids;
@@ -466,27 +622,28 @@ static int launch_hdp(const float* q, const float* k, const float* v, float* o,
 
 #define FW_WARPS 8
 #define FW_THREADS (32 * FW_WARPS)
-#define FW_BK 16  // key rows per shared tile of the wide route
+#define FW_BK 16  // key rows per shared tile of the FMA route
 
-// Padded head dim of the wide route (0: none takes hd).
+// Padded head dim of the FMA route (0: none takes hd).
 __host__ __device__ constexpr int fw_padded_hd(int hd) {
-  return hd <= 160 ? 160 : hd <= 256 ? 256 : hd <= 512 ? 512 : hd <= 1024 ? 1024 : 0;
+  return hd <= 512 ? 512 : hd <= 1024 ? 1024 : 0;
 }
 
-// Dynamic shared memory of one wide-route block: a K and a V tile of FW_BK
+// Dynamic shared memory of one FMA-route block: a K and a V tile of FW_BK
 // rows of HDP floats (the wrapper's shared_bytes computes the same).
 __host__ __device__ inline size_t fw_shared_bytes(int hd) {
   return sizeof(float) * 2 * FW_BK * (size_t)fw_padded_hd(hd);
 }
 
-// Wide heads: NPL head dims per lane (HDP = 32·NPL), RW query rows per warp.
-template <int NPL, int RW>
+// Head dims 257-1024: NPL head dims per lane (HDP = 32·NPL), one query row
+// per warp.
+template <int NPL>
 __global__ void __launch_bounds__(FW_THREADS) flash_attention_wide_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
     int S, int T, int H, int hd, int causal, float scale, int nq) {
   constexpr int HDP = 32 * NPL;
-  constexpr int BQ = FW_WARPS * RW;  // query rows per block
+  constexpr int BQ = FW_WARPS;  // query rows per block
   extern __shared__ float smem[];
   float* ks = smem;                // FW_BK x HDP
   float* vs = smem + FW_BK * HDP;  // FW_BK x HDP
@@ -497,6 +654,7 @@ __global__ void __launch_bounds__(FW_THREADS) flash_attention_wide_kernel(
   // query tiles last to first within each (batch, head)
   const int bh = (int)(blockIdx.x / nq);
   const int qi0 = (nq - 1 - (int)(blockIdx.x % nq)) * BQ;
+  const int row = qi0 + warp;  // the warp's query row
   const int b = bh / H, h = bh % H;
   const long long rs = (long long)H * hd;
   const float* qb = q + ((long long)b * S * H + h) * hd;
@@ -509,18 +667,12 @@ __global__ void __launch_bounds__(FW_THREADS) flash_attention_wide_kernel(
   for (int i = tid; i < 2 * FW_BK * HDP; i += FW_THREADS)
     if (i % HDP >= hd) smem[i] = 0.0f;
 
-  float qv[RW][NPL], acc[RW][NPL], m[RW], l[RW];
+  float qv[NPL], acc[NPL], m = FA_NEG_INF, l = 0.0f;
 #pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    const int row = qi0 + warp * RW + r;
-#pragma unroll
-    for (int i = 0; i < NPL; ++i) {
-      const int col = lane + 32 * i;
-      qv[r][i] = row < S && col < hd ? qb[row * rs + col] : 0.0f;
-      acc[r][i] = 0.0f;
-    }
-    m[r] = FA_NEG_INF;
-    l[r] = 0.0f;
+  for (int i = 0; i < NPL; ++i) {
+    const int col = lane + 32 * i;
+    qv[i] = row < S && col < hd ? qb[row * rs + col] : 0.0f;
+    acc[i] = 0.0f;
   }
 
   int nk = (T + FW_BK - 1) / FW_BK;
@@ -535,71 +687,63 @@ __global__ void __launch_bounds__(FW_THREADS) flash_attention_wide_kernel(
       vs[rr * HDP + c] = ok ? vb[(kj0 + rr) * rs + c] : 0.0f;
     }
     __syncthreads();
+    float s[FW_BK];
+    float mt = FA_NEG_INF;
 #pragma unroll
-    for (int r = 0; r < RW; ++r) {
-      const int row = qi0 + warp * RW + r;
-      float s[FW_BK];
-      float mt = FA_NEG_INF;
+    for (int j = 0; j < FW_BK; ++j) {
+      float part = 0.0f;
 #pragma unroll
-      for (int j = 0; j < FW_BK; ++j) {
-        float part = 0.0f;
+      for (int i = 0; i < NPL; ++i) part = __fmaf_rn(qv[i], ks[j * HDP + lane + 32 * i], part);
 #pragma unroll
-        for (int i = 0; i < NPL; ++i) part = __fmaf_rn(qv[r][i], ks[j * HDP + lane + 32 * i], part);
+      for (int off = 16; off > 0; off >>= 1)
+        part = __fadd_rn(part, __shfl_xor_sync(FULL_MASK, part, off));
+      float val = __fmul_rn(part, scale2);
+      const int kp = kj0 + j;
+      if (kp >= T || (causal && row < kp)) val = FA_NEG_INF;
+      s[j] = val;
+      mt = fmaxf(mt, val);
+    }
+    const float m_new = fmaxf(m, mt);
+    // guards: a row with every score masked so far keeps m = -1e30, and
+    // its alpha and p must be 0, not exp(0)
+    const float alpha = m == FA_NEG_INF ? 0.0f : exp2f(fminf(__fsub_rn(m, m_new), 0.0f));
+    m = m_new;
+    float rsum = 0.0f;
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          part = __fadd_rn(part, __shfl_xor_sync(FULL_MASK, part, off));
-        float val = __fmul_rn(part, scale2);
-        const int kp = kj0 + j;
-        if (kp >= T || (causal && row < kp)) val = FA_NEG_INF;
-        s[j] = val;
-        mt = fmaxf(mt, val);
-      }
-      const float m_new = fmaxf(m[r], mt);
-      // guards: a row with every score masked so far keeps m = -1e30, and
-      // its alpha and p must be 0, not exp(0)
-      const float alpha = m[r] == FA_NEG_INF ? 0.0f : exp2f(fminf(__fsub_rn(m[r], m_new), 0.0f));
-      m[r] = m_new;
-      float rsum = 0.0f;
+    for (int j = 0; j < FW_BK; ++j) {
+      s[j] = m_new == FA_NEG_INF ? 0.0f : exp2f(__fsub_rn(s[j], m_new));
+      rsum = __fadd_rn(rsum, s[j]);
+    }
+    l = __fmaf_rn(l, alpha, rsum);
 #pragma unroll
-      for (int j = 0; j < FW_BK; ++j) {
-        s[j] = m_new == FA_NEG_INF ? 0.0f : exp2f(__fsub_rn(s[j], m_new));
-        rsum = __fadd_rn(rsum, s[j]);
-      }
-      l[r] = __fmaf_rn(l[r], alpha, rsum);
+    for (int i = 0; i < NPL; ++i) {
+      float a = __fmul_rn(acc[i], alpha);
 #pragma unroll
-      for (int i = 0; i < NPL; ++i) {
-        float a = __fmul_rn(acc[r][i], alpha);
-#pragma unroll
-        for (int j = 0; j < FW_BK; ++j) a = __fmaf_rn(s[j], vs[j * HDP + lane + 32 * i], a);
-        acc[r][i] = a;
-      }
+      for (int j = 0; j < FW_BK; ++j) a = __fmaf_rn(s[j], vs[j * HDP + lane + 32 * i], a);
+      acc[i] = a;
     }
   }
 
+  if (row >= S) return;
+  const float denom = fmaxf(l, 1e-20f);
 #pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    const int row = qi0 + warp * RW + r;
-    if (row >= S) continue;
-    const float denom = fmaxf(l[r], 1e-20f);
-#pragma unroll
-    for (int i = 0; i < NPL; ++i) {
-      const int col = lane + 32 * i;
-      if (col < hd) ob[row * rs + col] = acc[r][i] / denom;
-    }
+  for (int i = 0; i < NPL; ++i) {
+    const int col = lane + 32 * i;
+    if (col < hd) ob[row * rs + col] = acc[i] / denom;
   }
 }
 
-template <int NPL, int RW>
+template <int NPL>
 static int launch_wide(const float* q, const float* k, const float* v, float* o, int B, int S,
                        int T, int H, int hd, int causal, float scale, int* grids,
                        cudaStream_t stream) {
   const size_t smem = fw_shared_bytes(hd);
-  const int e = allow_shared_bytes(flash_attention_wide_kernel<NPL, RW>, smem);
+  const int e = allow_shared_bytes(flash_attention_wide_kernel<NPL>, smem);
   if (e != 0) return e;
-  const int nq = (S + FW_WARPS * RW - 1) / (FW_WARPS * RW);
+  const int nq = (S + FW_WARPS - 1) / FW_WARPS;
   const long long blocks = (long long)B * H * nq;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_attention_wide_kernel<NPL, RW><<<(unsigned)blocks, FW_THREADS, smem, stream>>>(
+  flash_attention_wide_kernel<NPL><<<(unsigned)blocks, FW_THREADS, smem, stream>>>(
       q, k, v, o, S, T, H, hd, causal, scale, nq);
   const int err = (int)cudaGetLastError();
   if (err == 0) *grids = 1;
@@ -615,12 +759,10 @@ extern "C" int flash_attention_launch(
   float* of = (float*)o;
   const cudaStream_t s = (cudaStream_t)stream;
   *grids = 0;
-  if (hd > 128) {
+  if (hd > 256) {
     switch (fw_padded_hd(hd)) {
-      case 160: return launch_wide<5, 2>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, grids, s);
-      case 256: return launch_wide<8, 2>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, grids, s);
-      case 512: return launch_wide<16, 1>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, grids, s);
-      case 1024: return launch_wide<32, 1>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, grids, s);
+      case 512: return launch_wide<16>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, grids, s);
+      case 1024: return launch_wide<32>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, grids, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -638,6 +780,12 @@ extern "C" int flash_attention_launch(
                             grids, s);
     case 128:
       return launch_hdp<128>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, max_tiles,
+                             grids, s);
+    case 160:
+      return launch_hdp<160>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, max_tiles,
+                             grids, s);
+    case 256:
+      return launch_hdp<256>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, max_tiles,
                              grids, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -1,19 +1,21 @@
 """Hopper kernel: flash attention (online softmax), causal or full.
 
 Wrapper of `csrc/flash_attention.cu`, the port of the TPU kernel
-`repro/kernels/flash_attention.py::flash_attention`.  Both products run on
-the tensor cores (mma.sync, three-pass TF32: float32 accuracy); a block of
-4 warps owns 64 query rows of one head and streams 64-key tiles of K and V
-through a two-stage cp.async ring in shared memory, and the probabilities
-stay in registers.  Head dims above 128 take a simple wide-head kernel in
-float32 FMAs, each warp owning 1 or 2 query rows.  Both kernels put
-(batch, head) on grid.x, so B·H is not held to grid.y's 65,535; the
-tensor-core kernel puts its query tiles on grid.y and launches once per
-65,535 of them (MAX_TILES_PER_LAUNCH), so S is not held to it either.
+`repro/kernels/flash_attention.py::flash_attention`.  Up to hd = 256 both
+products run on the tensor cores (mma.sync, three-pass TF32: float32
+accuracy): a block of 4 warps owns 64 query rows of one head and streams
+64-key tiles of K and V through a two-stage cp.async ring in shared
+memory, and the probabilities stay in registers; head dims 129-256
+(stablelm-12b's 160) run on 8-warp blocks of 128 rows with shorter key
+tiles (TC_VARIANTS).  Head dims 257-1024 take a simple kernel in float32
+FMAs, one warp per query row.  Both kernels put (batch, head) on grid.x,
+so B·H is not held to grid.y's 65,535; the tensor-core kernel puts its
+query tiles on grid.y and launches once per 65,535 of them
+(MAX_TILES_PER_LAUNCH), so S is not held to it either.
 No path of the system calls it (the reference's models compute attention
-in plain jnp); `chip_smoke.py` times it at musicgen-medium's attention
-width.  The plain version is `ref.flash_attention`; `ops.flash_attention`
-picks between them by device.
+in plain jnp); `chip_smoke.py` times it at musicgen-medium's,
+stablelm-12b's and minitron-8b's attention widths.  The plain version is
+`ref.flash_attention`; `ops.flash_attention` picks between them by device.
 """
 
 from __future__ import annotations
@@ -26,12 +28,17 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = "flash_attention"
-TC_HEAD_DIM = 128   # the widest tensor-core variant's padded head dim
-MAX_HEAD_DIM = 1024  # the wide route's widest variant (fw_padded_hd)
-QUERY_TILE = 64     # FA_BQ in the source: 4 warps of 16 rows
+TC_HEAD_DIM = 256   # the widest tensor-core variant's padded head dim
+MAX_HEAD_DIM = 1024  # the FMA route's widest variant (fw_padded_hd)
 MAX_TILES_PER_LAUNCH = 65_535  # tensor-core route: query tiles on grid.y (FA_MAX_TILES)
-KEY_TILE = 64       # FA_BK in the source: rows of one K or V stage
-WIDE_KEY_TILE = 16  # FW_BK in the source: K and V rows staged by the wide route
+# Tensor-core variants by padded head dim: (warps of 16 query rows, key rows
+# per K and V tile, where the query tile lives), as fa_warps, fa_key_tile and
+# fa_q_mode in the source.  "registers": split once into registers; "split":
+# split once, hi and lo in shared memory; "raw": float32 in shared memory,
+# split at each k-step.
+TC_VARIANTS = {16: (4, 64, "registers"), 32: (4, 64, "registers"), 64: (4, 64, "registers"),
+               128: (4, 64, "split"), 160: (8, 32, "raw"), 256: (8, 16, "raw")}
+WIDE_KEY_TILE = 16  # FW_BK in the source: K and V rows staged by the FMA route
 launches = 0        # kernel launches so far (chip_smoke resets and reads it)
 last_grids = 0      # grids the last launch started: one per MAX_TILES_PER_LAUNCH query tiles
 
@@ -47,28 +54,34 @@ def _launcher():
 
 def padded_head_dim(hd: int) -> int:
     """The head dim of the kernel variant that takes hd, padded with zero
-    columns: 16, 32, 64 or 128 on the tensor cores (fa_padded_hd in the
-    source), 160, 256, 512 or 1024 on the wide route (fw_padded_hd)."""
-    return next(p for p in (16, 32, 64, TC_HEAD_DIM, 160, 256, 512, MAX_HEAD_DIM) if hd <= p)
+    columns: 16, 32, 64, 128, 160 or 256 on the tensor cores (fa_padded_hd
+    in the source), 512 or 1024 on the FMA route (fw_padded_hd)."""
+    return next(p for p in (*TC_VARIANTS, 512, MAX_HEAD_DIM) if hd <= p)
 
 
 def wide_route(hd: int) -> bool:
-    """Whether the launch takes the wide-head kernel: hd > 128."""
+    """Whether the launch takes the float32-FMA kernel: hd > 256."""
     return hd > TC_HEAD_DIM
+
+
+def query_tile(hd: int) -> int:
+    """Query rows per block of the tensor-core variant that takes hd."""
+    return 16 * TC_VARIANTS[padded_head_dim(hd)][0]
 
 
 def shared_bytes(hd: int) -> int:
     """Dynamic shared memory of one block.  Tensor-core route: two stages
-    of a K tile (64 rows of padded_head_dim + 8 floats) and a V tile (rows
-    of + 4), and for the 128 variant the query tile's TF32 hi and lo halves
-    in rows of + 8 (its fragments are read per k-step there; narrower
-    variants keep them in registers).  Wide route: a K and a V tile of 16
-    rows of padded_head_dim floats (160 at least)."""
+    of a K tile (key-tile rows of padded_head_dim + 8 floats) and a V tile
+    (rows of + 4), and the query tile (query-tile rows of + 8) where it is
+    not in registers: its TF32 hi and lo halves ("split") or its float32
+    values ("raw").  FMA route: a K and a V tile of 16 rows of
+    padded_head_dim floats."""
     hdp = padded_head_dim(hd)
     if wide_route(hd):
-        return 4 * 2 * WIDE_KEY_TILE * max(hdp, 160)  # the wide route pads to 160 at least
-    qsplit = 2 * QUERY_TILE * (hdp + 8) if hdp > 64 else 0
-    return 4 * (2 * KEY_TILE * ((hdp + 8) + (hdp + 4)) + qsplit)
+        return 4 * 2 * WIDE_KEY_TILE * hdp
+    warps, bk, qmode = TC_VARIANTS[hdp]
+    qtile = {"registers": 0, "split": 2, "raw": 1}[qmode] * 16 * warps * (hdp + 8)
+    return 4 * (2 * bk * ((hdp + 8) + (hdp + 4)) + qtile)
 
 
 def check_blocks(s: int, t: int, block_q: int, block_k: int) -> None:

@@ -73,11 +73,13 @@ def test_flash_attention_random_shapes(seed):
 
 
 @pytest.mark.parametrize("s,hd,causal", [(128, 160, True), (128, 160, False),
-                                          (256, 256, True), (64, 256, False)])
+                                          (256, 256, True), (64, 256, False),
+                                          (128, 129, True), (64, 131, False), (128, 200, True)])
 def test_flash_attention_wide_heads_match_reference(s, hd, causal):
-    """Head dims past 128 (stablelm-12b's 160, and 256), which the card
-    runs on its wide-head route, against the reference's kernel in
-    interpret mode and its oracle."""
+    """Head dims past 128 (stablelm-12b's 160; 129 and 131, which the card
+    copies 4 bytes at a time; 200 and 256), which the card runs on its
+    HDP = 160 and 256 tensor-core variants, against the reference's kernel
+    in interpret mode and its oracle."""
     got, kern, oracle = _both(_qkv(s + hd, 1, s, s, 2, hd), causal, 64)
     assert tuple(got.shape) == (1, s, 2, hd)
     np.testing.assert_allclose(np_(got), np.asarray(kern), rtol=2e-5, atol=2e-5)
@@ -107,16 +109,16 @@ def test_flash_attention_causal_first_row_is_its_value():
 def test_flash_attention_kernel_wrapper_checks():
     """The kernel's wrapper checks shapes and the head dim before the
     device, and refuses CPU tensors without counting a launch.  The
-    sequence is not capped: past grid.y's 65,535 query tiles of 64 the
+    sequence is not capped: past grid.y's 65,535 query tiles the
     tensor-core route launches again."""
     x = torch.zeros((1, 8, 2, 16))
     with pytest.raises(ValueError, match="hd <= 1024"):
         fa.flash_attention(*(torch.zeros((1, 8, 1, 1025)),) * 3)
     assert fa.MAX_TILES_PER_LAUNCH == 65_535
-    # hd = 160, B*H past grid.y's 65,535, S past 65,535 query tiles on the
-    # tensor cores and on the wide route pass the checks and reach the
-    # device check
-    for shape in ((1, 8, 1, 160), (1100, 1, 64, 16), (1, 4, 70_000, 16),
+    # hd = 160 and 257 (the FMA route), B*H past grid.y's 65,535, and S
+    # past 65,535 query tiles at hd = 16 and 129 (both on the tensor cores)
+    # pass the checks and reach the device check
+    for shape in ((1, 8, 1, 160), (1, 8, 1, 257), (1100, 1, 64, 16), (1, 4, 70_000, 16),
                   (1, 64 * 65_535 + 64, 1, 16), (1, 64 * 65_535 + 64, 1, 129)):
         with pytest.raises(ValueError, match="CUDA"):
             fa.flash_attention(*(torch.zeros(1).expand(shape),) * 3)
@@ -128,28 +130,35 @@ def test_flash_attention_kernel_wrapper_checks():
 
 
 def test_flash_attention_shared_bytes():
-    """Two stages of a 64-row K tile (rows of HDP + 8 floats) and V tile
-    (HDP + 4); at HDP = 128 also the split query tile's hi and lo (64 rows
-    of HDP + 8 each).  The widest variant fits a block's 232,448 bytes."""
+    """Two stages of a K tile (rows of HDP + 8 floats) and a V tile
+    (HDP + 4): 64 rows each up to HDP = 128, 32 at HDP = 160, 16 at 256.
+    At HDP = 128 also the split query tile's hi and lo (64 rows of HDP + 8
+    each); at HDP = 160 and 256 the query tile of 128 rows in float32.
+    Every tensor-core variant fits a block's 232,448 bytes."""
     assert [fa.padded_head_dim(hd) for hd in (1, 16, 20, 36, 64, 65, 128)] == [
         16, 16, 32, 64, 64, 128, 128]
     assert fa.shared_bytes(64) == 4 * 2 * 64 * (72 + 68)
     assert fa.shared_bytes(36) == fa.shared_bytes(64)
     assert fa.shared_bytes(16) == 4 * 2 * 64 * (24 + 20)
     assert fa.shared_bytes(128) == 4 * (2 * 64 * (136 + 132) + 2 * 64 * 136)
-    assert fa.shared_bytes(fa.TC_HEAD_DIM) <= 232_448
+    assert fa.shared_bytes(160) == fa.shared_bytes(129) == 4 * (2 * 32 * (168 + 164) + 128 * 168)
+    assert fa.shared_bytes(256) == fa.shared_bytes(200) == 4 * (2 * 16 * (264 + 260) + 128 * 264)
+    assert [fa.query_tile(hd) for hd in (16, 128, 129, 256)] == [64, 64, 128, 128]
+    for hdp in fa.TC_VARIANTS:
+        assert fa.shared_bytes(hdp) <= 232_448
     assert fa.shared_bytes(fa.MAX_HEAD_DIM) <= 232_448
 
 
 def test_flash_attention_wide_route():
-    """Head dims past 128, and only they, take the wide-head kernel: K and V
-    tiles of 16 rows of the head dim padded to 160, 256, 512 or 1024."""
-    assert [fa.wide_route(hd) for hd in (16, 128, 129, 160, 1024)] == [
-        False, False, True, True, True]
+    """Head dims past 256, and only they, take the float32-FMA kernel: K and
+    V tiles of 16 rows of the head dim padded to 512 or 1024.  Up to 256
+    the tensor cores run them, padded to 160 or 256 past 128."""
+    assert [fa.wide_route(hd) for hd in (16, 128, 129, 160, 256, 257, 1024)] == [
+        False, False, False, False, False, True, True]
     assert [fa.padded_head_dim(hd) for hd in (129, 160, 161, 256, 257, 1000)] == [
         160, 160, 256, 256, 512, 1024]
-    assert fa.shared_bytes(160) == 4 * 2 * 16 * 160
-    assert fa.shared_bytes(256) == 4 * 2 * 16 * 256
+    assert fa.shared_bytes(257) == fa.shared_bytes(512) == 4 * 2 * 16 * 512
+    assert fa.shared_bytes(1024) == 4 * 2 * 16 * 1024
 
 
 # ------------------------------------------- three-pass TF32, emulated ----
@@ -192,12 +201,14 @@ def _attention_tf32(q, k, v, causal: bool, passes: int) -> np.ndarray:
     (1, 128, 128, 2, 64, True),
     (2, 32, 96, 3, 16, False),
     (1, 256, 256, 1, 128, True),
+    (1, 128, 128, 2, 160, True),
+    (1, 64, 64, 1, 256, False),
 ])
 def test_three_pass_tf32_meets_the_float32_tolerance(b, s, t, h, hd, causal):
-    """The kernel's numerics on the CPU, over the reference tests' shapes:
-    three-pass TF32 products (lo·hi + hi·lo + hi·hi) stay within the
-    float32 tolerance 2e-5 of the reference's oracle; one pass (hi·hi)
-    does not."""
+    """The kernel's numerics on the CPU, over the reference tests' shapes
+    and the wide heads' 160- and 256-term contractions: three-pass TF32
+    products (lo·hi + hi·lo + hi·hi) stay within the float32 tolerance
+    2e-5 of the reference's oracle; one pass (hi·hi) does not."""
     q, k, v = _qkv(s + t + hd, b, s, t, h, hd)
     want = np.asarray(jref.flash_attention(*(jnp.asarray(a) for a in (q, k, v)), causal=causal))
     three = _attention_tf32(q, k, v, causal, passes=3)
@@ -208,13 +219,15 @@ def test_three_pass_tf32_meets_the_float32_tolerance(b, s, t, h, hd, causal):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [True, False])
-def test_gpu_flash_attention_over_several_launches(causal):
-    """Query tiles split over several launches (2 tiles each: S = 300 is 5
-    tiles, 3 launches), heaviest tiles first: within 2e-5 of the plain
-    version, one counted call of 3 grids."""
+@pytest.mark.parametrize("hd", [64, 160])
+def test_gpu_flash_attention_over_several_launches(causal, hd):
+    """Query tiles split over several launches (2 tiles each: S of 5 tiles
+    is 3 launches), heaviest tiles first: within 2e-5 of the plain version,
+    one counted call of 3 grids."""
     dev = require_cuda()
     rng = np.random.default_rng(300)
-    q, k, v = (torch.from_numpy(rng.normal(size=(2, 300, 3, 64)).astype(np.float32)).to(dev)
+    s = 4 * fa.query_tile(hd) + 44
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, s, 3, hd)).astype(np.float32)).to(dev)
                for _ in range(3))
     before = fa.launches
     got = fa.flash_attention(q, k, v, causal=causal, _tiles_per_launch=2)

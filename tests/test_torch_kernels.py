@@ -566,13 +566,20 @@ def test_gpu_brute_knn_kernel_matches_plain(b, n, d, k):
 @pytest.mark.parametrize("s,t,h,hd,causal", [(256, 256, 3, 64, True), (100, 70, 2, 20, False),
                                              (130, 130, 1, 128, True), (70, 100, 2, 20, True),
                                              (128, 128, 2, 36, True), (100, 100, 2, 160, True),
-                                             (100, 70, 2, 160, False), (64, 96, 1, 256, True)])
+                                             (100, 70, 2, 160, False), (64, 96, 1, 256, True),
+                                             (100, 100, 2, 129, True), (100, 70, 2, 131, False),
+                                             (70, 100, 2, 160, True), (130, 130, 1, 200, False),
+                                             (100, 70, 2, 256, False), (70, 100, 1, 200, True),
+                                             (8, 8, 35_200, 160, True), (96, 96, 1, 512, True),
+                                             (40, 70, 1, 1000, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_flash_attention_kernel_matches_plain(s, t, h, hd, causal, dtype):
     """Against the plain version on the card: rtol/atol 2e-5 in float32,
     2e-2 in bf16 (ragged tiles included: 100, 70 and 130 rows; causal with
     fewer queries than keys; hd = 36, a multiple of 4 but not of 8; the
-    wide-head route at hd = 160 and 256)."""
+    wide heads on the tensor cores at hd = 129 and 131 (4-byte copies),
+    160, 200 and 256, B·H = 70,400 at hd = 160; the float32-FMA route at
+    hd = 512 and 1000)."""
     dev = require_cuda()
     from repro_torch.kernels import flash_attention as fa
 
