@@ -31,12 +31,13 @@ per phase:
      at d = 2 / 128 / 40, k = 32, 33, 64, 257 at d = 9 and 128, k = 1000 at
      a small N, k > N, no points (all pads), non-finite rows, and integer
      lattices (k up to 64; exact, ties to the lower index); flash_attention
-     over head dims 16-256 on the tensor cores (hd = 36: a multiple of 4,
-     not of 8; 129 and 131: 4-byte copies; 160, 200, 256), ragged tiles
-     (causal with S < T too), causal and full, bf16, query tiles split
-     over three launches at hd = 64 and 160, the float32-FMA route (hd =
-     512, 1000), 70,000 heads, and B·H = 70,400 at hd = 16 and 160; ptxas's
-     registers and spills of each of its variants (none may spill);
+     over head dims 16-1024 on the tensor cores (hd = 36: a multiple of 4,
+     not of 8; 129, 131, 257 and 301: 4-byte copies; 160, 200, 256; 384,
+     512, 1000 and 1024 with the head dim split across warps), ragged
+     tiles (causal with S < T too), causal and full, bf16, query tiles
+     split over three launches at hd = 64, 128, 160 and 512, 70,000 heads,
+     and B·H = 70,400 at hd = 16, 160 and 512; ptxas's registers and
+     spills of each of its variants (none may spill);
   2  the paper's setup at full scale (PAPER_GRID, 1M 2-D points, 4096
      queries): build, search, classify in both modes on `hopper`, recall
      and class agreement against `exact`, launch counts (a search: one
@@ -78,7 +79,8 @@ per phase:
      musicgen-medium's attention width (24 heads, head_dim 64) and a 32,768
      sequence, float32, causal, and at S = 4096 at stablelm-12b's width
      (32 heads, head_dim 160), minitron-8b's (32 heads, head_dim 128) and
-     4 heads of head_dim 512 (the float32-FMA route): four counted calls,
+     4 heads of head_dim 512 (the head dim split across warps): four
+     counted calls,
      their times, every head held against the plain version (causal, and
      full at S = 4096), and scaled_dot_product_attention timed on the same
      tensors as a yardstick (`slower_than_library` says which way each
@@ -583,6 +585,15 @@ def phase1_loop(seed, cfgs, mods, rows: list, b=4096, n=1_000_000, chunk=2048) -
     held("half_even_ties", sparse, q_grid, r_odd, 1, 1, paper, first_pass_ties=ties)
 
 
+def fa_route(fa, hd: int) -> str:
+    """Which flash_attention variant takes head dim hd, in words."""
+    hdp = fa.padded_head_dim(hd)
+    warps, slices, bk, qmode = fa.TC_VARIANTS[hdp]
+    split = f", the head dim split across {slices} warps" if slices > 1 else ""
+    return (f"tensor cores, HDP = {hdp}: {warps} warps, {fa.query_tile(hd)} rows, "
+            f"{bk}-key tiles, query tile {qmode}{split}")
+
+
 def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
     from repro_torch.core import pyramid
     from repro_torch.kernels import ref
@@ -936,7 +947,7 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
                                  "rows_differ": differ, "bit_equal": bit})
 
     # flash_attention: the reference tests' shapes, ragged tiles (100 / 70
-    # rows), head dims 16-256 on the tensor cores, causal and full, bf16;
+    # rows), head dims 16-1024 on the tensor cores, causal and full, bf16;
     # float32 within 2e-5
     fa = mods["flash_attention"]
     fcases = [(2, 64, 64, 4, 32, True, torch.float32), (2, 32, 96, 3, 16, False, torch.float32),
@@ -952,11 +963,19 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
               (1, 130, 130, 1, 200, False, torch.float32), (1, 100, 70, 2, 256, False, torch.float32),
               (1, 70, 100, 1, 200, True, torch.float32), (1, 64, 64, 2, 160, True, torch.bfloat16),
               (1, 100, 70, 2, 256, False, torch.bfloat16),
-              # the float32-FMA route (hd 257-1024); 70,000 heads on the tensor cores
+              # hd 257-1024, the head dim split across warps: 257 and 301
+              # (4-byte copies), 384, 512, 1000, 1024, ragged, causal with
+              # S < T, bf16
               (1, 96, 96, 1, 512, True, torch.float32), (1, 40, 70, 1, 1000, False, torch.float32),
+              (1, 100, 70, 2, 257, False, torch.float32), (1, 70, 100, 2, 301, True, torch.float32),
+              (1, 130, 130, 2, 384, True, torch.float32), (1, 64, 64, 2, 384, True, torch.bfloat16),
+              (1, 100, 70, 2, 512, False, torch.bfloat16), (1, 50, 90, 1, 1024, True, torch.float32),
+              (1, 90, 50, 1, 1024, False, torch.float32), (1, 40, 40, 1, 1024, True, torch.bfloat16),
+              # 70,000 heads
               (1, 4, 4, 70_000, 16, False, torch.float32),
-              # B·H = 70,400 (> grid.y's 65,535) on the tensor cores
-              (1100, 8, 8, 64, 16, True, torch.float32), (1100, 8, 8, 64, 160, True, torch.float32)]
+              # B·H = 70,400 (> grid.y's 65,535)
+              (1100, 8, 8, 64, 16, True, torch.float32), (1100, 8, 8, 64, 160, True, torch.float32),
+              (1100, 8, 8, 64, 512, True, torch.float32)]
     for fb, fs, ft, fh, fhd, causal, dtype in fcases:
         fq, fk, fv = (torch.randn((fb, n_, fh, fhd), generator=gen, device=dev).to(dtype)
                       for n_ in (fs, ft, ft))
@@ -969,11 +988,10 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
         max_err["flash_attention"] = max(max_err["flash_attention"], err)
         out["flash_attention"].append({"shape": [fb, fs, ft, fh, fhd], "causal": causal,
                                        "dtype": str(dtype), "tol": tol, "max_abs_err": err,
-                                       "route": "float32 FMAs" if fa.wide_route(fhd)
-                                       else "tensor cores"})
+                                       "route": fa_route(fa, fhd)})
     # query tiles over several launches: 2 tiles per launch, S of 5 tiles,
-    # so 3 launches (heaviest first), one counted call; at hd = 64 and 160
-    for causal, fhd in ((True, 64), (False, 64), (True, 160), (False, 160)):
+    # so 3 launches (heaviest first), one counted call; at hd = 64, 128, 160, 512
+    for causal, fhd in ((c, d) for d in (64, 128, 160, 512) for c in (True, False)):
         fs = 4 * fa.query_tile(fhd) + 44
         fq, fk, fv = (torch.randn((2, fs, 3, fhd), generator=gen, device=dev) for _ in range(3))
         got = fa.flash_attention(fq, fk, fv, causal=causal, _tiles_per_launch=2)
@@ -986,10 +1004,9 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
         max_err["flash_attention"] = max(max_err["flash_attention"], err)
         out["flash_attention"].append({"shape": [2, fs, fs, 3, fhd], "causal": causal,
                                        "dtype": "torch.float32", "tol": 2e-5, "max_abs_err": err,
-                                       "route": "tensor cores", "tiles_per_launch": 2,
+                                       "route": fa_route(fa, fhd), "tiles_per_launch": 2,
                                        "grids": grids})
-    # registers and spills of each head-dim variant (flash_attention_kernel<HDP>,
-    # and the FMA route's flash_attention_wide_kernel<NPL>: HDP = 32·NPL);
+    # registers and spills of each head-dim variant (flash_attention_kernel<HDP>);
     # none may spill (a rerun that reuses the built library has no report)
     from repro_torch.kernels import _build
     variants = {}
@@ -997,8 +1014,6 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
                                       .get("ptxas", "")).items():
         if m := re.search(r"flash_attention_kernelILi(\d+)E", entry):
             variants[f"HDP={m[1]}"] = info
-        elif m := re.search(r"flash_attention_wide_kernelILi(\d+)E", entry):
-            variants[f"FMA route HDP={32 * int(m[1])}"] = info
         check(info.get("spill_store_bytes", 0) == 0 and info.get("spill_load_bytes", 0) == 0,
               f"flash_attention variant {entry} spills: {info}")
     out["flash_attention_variants"] = variants
@@ -1536,14 +1551,14 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
 
 def phase4(seed, mods, timings, s=32_768, h=24, hd=64, s_check=4096,
            widths=(("stablelm-12b", 4096, 32, 160), ("minitron-8b", 4096, 32, 128),
-                   ("fma-route", 4096, 4, 512))):
+                   ("hd512", 4096, 4, 512))):
     """flash_attention at musicgen-medium's attention width (24 heads, kv
     24, head_dim 64; src/repro/configs/musicgen_medium.py) and prefill_32k's
     sequence (src/repro/configs/shapes.py), batch 1, float32, causal; and
     at S = 4096 at stablelm-12b's width (32 heads, head_dim 160;
     src/repro/configs/stablelm_12b.py), minitron-8b's (32 heads, head_dim
     128; src/repro/configs/minitron_8b.py) and a head_dim of 512 with 4
-    heads (the float32-FMA route), each beside SDPA.  No path of the system
+    heads (each row group's head dim split across 2 warps), each beside SDPA.  No path of the system
     calls it, so the phase's four calls at full width are its run, counted
     as the paths are."""
     import torch.nn.functional as F
@@ -1642,7 +1657,7 @@ def phase4(seed, mods, timings, s=32_768, h=24, hd=64, s_check=4096,
         w_bound, w_by, w_fma_ms, _ = tf32_bound(wq)
         records[name] = {
             "shape": f"{name} (1, {n}, {heads}, {dim}) float32 causal",
-            "route": "float32 FMAs" if fa.wide_route(dim) else "tensor cores",
+            "route": fa_route(fa, dim),
             "padded_head_dim": fa.padded_head_dim(dim), "ms": w_ms, "plain_ms": w_plain_ms,
             "bound_ms": w_bound, "bound_by": w_by, "bound": "three-pass TF32 on the tensor cores",
             "fp32_fma_bound_ms": w_fma_ms, "library_ms": w_lib_ms,

@@ -38,17 +38,15 @@
 //
 // Design.  A block of 4 warps owns 64 query rows of one (batch, head),
 // 16 rows per warp, and streams that head's keys and values in tiles of 64
-// rows (the wide heads' sizes are below) through a two-stage ring in
+// rows (the wider variants' sizes are below) through a two-stage ring in
 // dynamic shared memory, filled by cp.async (16-byte copies, 4-byte ones
 // where hd % 4 != 0 or a row is not 16-byte aligned), so the next tile's
 // copy overlaps this tile's products.  The TPU kernel's sequential
 // key-block grid axis with its VMEM scratch becomes this key loop.  The
-// head dim is padded with zeros to the variant's HDP (16, 32, 64, 128, 160
-// or 256; zero columns add exact zeros to both products).  Each warp
-// splits its query fragments once and keeps them in
-// registers (HDP <= 64) or, for HDP = 128, keeps the split query tile in
-// shared memory and loads its fragments per k-step, so that variant does
-// not spill.  Query tiles run last to first, so the causal rows with the
+// head dim is padded with zeros to the variant's HDP (16, 32, 64, 128, 160,
+// 256, 512 or 1024; zero columns add exact zeros to both products).  At
+// HDP <= 64 each warp splits its query fragments once and keeps them in
+// registers.  Query tiles run last to first, so the causal rows with the
 // most keys start first (see "Grid").  What limits it: not the bytes, and
 // not the tensor cores alone.  Each warp alternates between tensor-core
 // products and scalar work (the splits: 4 integer operations and a
@@ -81,46 +79,57 @@
 // distinct banks.  Row reductions (max, sum) of a score row are two
 // xor-shuffles over its 4 lanes t.
 //
-// Wide heads (hd 129-256; stablelm-12b's head_dim is 160) run on the same
-// kernel, HDP = 160 and 256, where the layout above would not fit: at
-// HDP = 128 a thread already holds 255 registers (the output's 64 floats,
-// the tile's P·V products for all 16 n-tiles, 64 more, and the scores,
-// 32), and two stages of 64-key tiles with the split query tile would
-// pass a block's 227 KB.  So the wide variants differ in four ways, each
-// chosen by ptxas's registers and spills and by timing (PERF.md), and
-// none spills.
+// Wide heads (hd 65-256: minitron-8b's 128, stablelm-12b's 160) run on
+// the same kernel, HDP = 128, 160 and 256, in a layout of their own: with
+// the layout above a thread at HDP = 128 holds 255 registers (the output's
+// 64 floats, the tile's P·V products for all 16 n-tiles, 64 more, and the
+// scores, 32), its query tile, split in shared memory, kept a block of 4
+// warps alone on an SM, and at HDP = 160 two stages of 64-key tiles would
+// pass a block's 227 KB.  So the wide variants (fa_variant's `wide`)
+// differ in four ways, each chosen by ptxas's registers and spills and by
+// timing (PERF.md), and none spills.
 // - P·V runs with groups of NV n-tiles outer and the tile's keys inner, so
 //   only one group's NV products are live, beside P's TF32 splits for the
 //   tile's keys.  Each n-tile still sums its keys in the same order from
 //   zero, so a tile's products are those of the other loop order.
 // - A block has 8 warps (128 query rows), and the key tiles are 32 rows
-//   (HDP = 160) or 16 (256): each K and V tile then feeds 8 warps, and the
-//   ring and the query tile fit (171 KB and 202 KB).  The query tile stays
-//   float32 in shared memory and a warp splits its fragments at each
-//   k-step (split, it would not fit).
+//   (HDP = 128 and 160) or 16 (256): each K and V tile then feeds 8 warps,
+//   and the ring and the query tile fit (138, 171 and 202 KB).  The query
+//   tile stays float32 in shared memory and a warp splits its fragments at
+//   each k-step (split once, it would not fit at HDP = 160 and 256, and at
+//   128 it ran slower).
 // - At HDP = 256 a P·V group is one n-tile (NV = 1, scalar reads of V),
 //   the Q·Kᵀ k-steps are unrolled 16 at a time and, at HDP = 160, the copy
-//   loops are kept rolled: each of these took the registers that spilled.
+//   loops are kept rolled: each of these took the registers that spilled
+//   (at HDP = 128, 48- and 64-key tiles spilled).
 // - A warp skips the key tiles that start past its last row (causal): the
 //   block-wide skip leaves them in, because the block is taller than a
 //   key tile.  This is exact, as below.
-// Head dims 257-1024 take a second, simple kernel, flash_attention_wide_kernel:
-// online softmax in float32 FMAs with the same log2-unit scores, masks and
-// guards.  A block of 8 warps owns 8 query rows of one (batch, head), one
-// row per warp, and stages 16 key rows of K and V at a time in shared
-// memory (rows of HDP = 512 or 1024 floats, zero-padded).  Lane l owns
-// head dims l, l + 32, ...: a score is the lane's FMA chain over its dims,
-// summed over the warp by xor-shuffles (every lane gets the same float),
-// and the output accumulates the same dims.
+// Head dims 257-1024 (HDP = 512, 1024) add a column split: a warp's output
+// is 16 rows x HDP / 32 lanes floats, 256 at HDP = 512, which does not fit
+// in 255 registers.  So the `slices` warps of a row group share 16 query
+// rows and each owns 128 of the head dims: HDP = 512 runs 4 slices (2 row
+// groups, 32 rows) with 16-key tiles, HDP = 1024 8 slices (one row group,
+// 16 rows) with 8-key tiles.  A warp's output is then HDP = 128's 64
+// floats, and its 128 query columns split once, kept in registers (128
+// more), so no query tile sits in shared memory beside the ring (141 and
+// 136 KB); P·V reads V two n-tiles at a time (NV = 2) and the copy loops
+// stay rolled, the first layout that did not spill.  Each warp computes
+// the partial S = Q·Kᵀ over its own head dims (three-pass TF32, as above)
+// and writes it to shared memory; after a named barrier of its row group
+// (bar.sync 1 + group) every warp of the group sums the partials in slice
+// order 0, 1, ..., n - 1, so all of them hold the same S bit for bit, and
+// from it the same m, l and P.  Each then runs P·V over its own head dims
+// only and writes them.  A row group's warps skip the same causal tiles
+// (they share their rows), so none waits at the barrier for a warp that
+// skipped.
 //
 // Grid: (batch, head) sits on grid.x, which holds 2^31 - 1 blocks, so B·H
-// is not held to grid.y's 65,535.  The tensor-core kernel puts the query
-// tile on grid.y (grid.x runs fastest, so the heaviest causal tile of every
-// head starts first); past grid.y's 65,535 tiles of 64 rows (S > 4,194,240)
-// it launches again for the next 65,535 tiles, each launch taking the index
-// of its first tile, so the heaviest tiles still go first.  The FMA kernel
-// puts (batch, head) × query tile on grid.x, query tiles last to first
-// within each (batch, head).
+// is not held to grid.y's 65,535.  The query tile sits on grid.y (grid.x
+// runs fastest, so the heaviest causal tile of every head starts first);
+// past grid.y's 65,535 tiles (S > 65,535 x the variant's rows) the kernel
+// launches again for the next 65,535 tiles, each launch taking the index
+// of its first tile, so the heaviest tiles still go first.
 //
 // Causal skipping: key tiles that start past the block's last query row
 // are not visited (nor, in the wide variants, those past a warp's last row
@@ -141,34 +150,44 @@
 
 // Where a warp finds the A fragments of its query rows at each Q·Kᵀ k-step.
 #define FA_Q_REGISTERS 0  // split once, kept in registers
-#define FA_Q_SPLIT 1      // split once, hi and lo kept in shared memory
-#define FA_Q_RAW 2        // float32 in shared memory, split at each k-step
+#define FA_Q_RAW 1        // float32 in shared memory, split at each k-step
 
 // Padded head dim of the variant that takes head dim hd (0: none does).
 __host__ __device__ constexpr int fa_padded_hd(int hd) {
   return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128
-       : hd <= 160 ? 160 : hd <= 256 ? 256 : 0;
+       : hd <= 160 ? 160 : hd <= 256 ? 256 : hd <= 512 ? 512 : hd <= 1024 ? 1024 : 0;
 }
 
-// What each variant keeps where (see "Wide heads"; chosen by ptxas's
-// registers and spills and by timing, PERF.md).
+// What each variant keeps where (see "Wide heads" and "Head dims
+// 257-1024"; chosen by ptxas's registers and spills and by timing, PERF.md).
 struct FaVariant {
-  int warps;           // warps of a block, 16 query rows each
+  int warps;           // warps of a block
+  int slices;          // warps that share 16 query rows, each taking HDP / slices of the head dim
   int key_tile;        // key rows per K and V tile
   int q_mode;          // FA_Q_*
   int pv_group;        // NV: P·V n-tiles per vector read of V
   int kk_unroll;       // Q·Kᵀ k-steps unrolled
   bool rolled_copies;  // copy loops kept rolled (their addresses then hold no registers)
+  bool wide;           // P·V with n-tile groups outer; each row group skips causal tiles itself
 };
 __host__ __device__ constexpr FaVariant fa_variant(int hdp) {
-  return hdp == 160 ? FaVariant{8, 32, FA_Q_RAW, 4, 16, true}
-       : hdp == 256 ? FaVariant{8, 16, FA_Q_RAW, 1, 16, false}
-       : FaVariant{4, 64, hdp <= 64 ? FA_Q_REGISTERS : FA_Q_SPLIT, hdp == 16 ? 2 : 4, hdp / 8,
-                   false};
+#ifdef FA_TRY_HDP  // scripts/flash_attention_variants.py: try another entry for one HDP
+  if (hdp == FA_TRY_HDP) return FaVariant{FA_TRY_VARIANT};
+#endif
+  return hdp == 128 ? FaVariant{8, 1, 32, FA_Q_RAW, 4, 16, false, true}
+       : hdp == 160 ? FaVariant{8, 1, 32, FA_Q_RAW, 4, 16, true, true}
+       : hdp == 256 ? FaVariant{8, 1, 16, FA_Q_RAW, 1, 16, false, true}
+       : hdp == 512 ? FaVariant{8, 4, 16, FA_Q_REGISTERS, 2, 16, true, true}
+       : hdp == 1024 ? FaVariant{8, 8, 8, FA_Q_REGISTERS, 2, 16, true, true}
+       : FaVariant{4, 1, 64, FA_Q_REGISTERS, hdp == 16 ? 2 : 4, hdp / 8, false, false};
 }
 __host__ __device__ constexpr int fa_warps(int hdp) { return fa_variant(hdp).warps; }
 __host__ __device__ constexpr int fa_key_tile(int hdp) { return fa_variant(hdp).key_tile; }
 __host__ __device__ constexpr int fa_q_mode(int hdp) { return fa_variant(hdp).q_mode; }
+// Query rows of a block: 16 per row group of `slices` warps.
+__host__ __device__ constexpr int fa_query_rows(int hdp) {
+  return 16 * fa_variant(hdp).warps / fa_variant(hdp).slices;
+}
 // Shared row strides in floats: K (and the query tile) HDP + 8, so the
 // 8-byte fragment reads of a half-warp fall in distinct banks; V HDP + 4,
 // so the 16-byte (8-byte at HDP = 16) reads of a quarter-warp do.
@@ -176,14 +195,21 @@ __host__ __device__ constexpr int fa_k_stride(int hdp) { return hdp + 8; }
 __host__ __device__ constexpr int fa_v_stride(int hdp) { return hdp + 4; }
 
 // Dynamic shared memory of one block for head dim hd (the wrapper's
-// shared_bytes computes the same): two stages of a K and a V tile, and
-// the query tile where it is not in registers (hi and lo, or float32).
+// shared_bytes computes the same): two stages of a K and a V tile, the
+// float32 query tile where it is not in registers, and,
+// where warps split the head dim, each warp's partial scores (16 x key tile).
 __host__ __device__ inline size_t fa_shared_bytes(int hd) {
-  const int hdp = fa_padded_hd(hd), qm = fa_q_mode(hdp);
-  const size_t ring = (size_t)2 * fa_key_tile(hdp) * (fa_k_stride(hdp) + fa_v_stride(hdp));
-  const size_t qtile = qm == FA_Q_REGISTERS ? 0
-      : (size_t)(qm == FA_Q_SPLIT ? 2 : 1) * 16 * fa_warps(hdp) * fa_k_stride(hdp);
-  return sizeof(float) * (ring + qtile);
+  const int hdp = fa_padded_hd(hd), qm = fa_q_mode(hdp), bk = fa_key_tile(hdp);
+  const size_t ring = (size_t)2 * bk * (fa_k_stride(hdp) + fa_v_stride(hdp));
+  const size_t qtile = qm == FA_Q_RAW ? (size_t)fa_query_rows(hdp) * fa_k_stride(hdp) : 0;
+  const size_t partial = fa_variant(hdp).slices > 1 ? (size_t)fa_warps(hdp) * 16 * bk : 0;
+  return sizeof(float) * (ring + qtile + partial);
+}
+
+// Wait for the n threads of one row group at named barrier id (barrier 0
+// is __syncthreads').
+__device__ __forceinline__ void group_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // tf32(x): x rounded to 10 mantissa bits, ties away from zero, as
@@ -324,23 +350,27 @@ __global__ void __launch_bounds__(32 * fa_warps(HDP)) flash_attention_kernel(
     int S, int T, int H, int hd, int causal, float scale, int vec, int tile_base) {
   constexpr int LDK = fa_k_stride(HDP), LDV = fa_v_stride(HDP);
   constexpr int THREADS = 32 * fa_warps(HDP);
-  constexpr int BQ = 16 * fa_warps(HDP);  // query rows per block
+  constexpr int SLICES = fa_variant(HDP).slices;  // warps of a row group
+  constexpr int BQ = fa_query_rows(HDP);  // query rows per block
   constexpr int BK = fa_key_tile(HDP);    // key rows per tile
   constexpr int NJ = BK / 8;              // n-tiles of S, k-steps of P·V
-  constexpr int NT = HDP / 8;             // k-steps of Q·Kᵀ, n-tiles of P·V
+  constexpr int NT = HDP / SLICES / 8;    // the warp's k-steps of Q·Kᵀ and n-tiles of P·V
   constexpr int NV = fa_variant(HDP).pv_group;  // P·V n-tiles per vector read of V
   constexpr int QM = fa_q_mode(HDP);
-  constexpr bool WIDE = HDP > 128;        // see "Wide heads"
+  constexpr bool WIDE = fa_variant(HDP).wide;  // see "Wide heads"
+  static_assert(fa_warps(HDP) % SLICES == 0 && NT % NV == 0 && (SLICES == 1 || WIDE),
+                "a row group is whole warps, a P·V group whole n-tiles, and a split is wide");
   extern __shared__ float smem[];
   float* kst = smem;                    // 2 stages x BK x LDK
   float* vst = kst + 2 * BK * LDK;      // 2 stages x BK x LDV
   float* qs = vst + 2 * BK * LDV;       // FA_Q_RAW: BQ x LDK
-  uint32_t* qhs = reinterpret_cast<uint32_t*>(qs);  // FA_Q_SPLIT: BQ x LDK, hi then lo
-  uint32_t* qls = qhs + BQ * LDK;
+  float* sps = qs + (QM == FA_Q_RAW ? BQ * LDK : 0);  // SLICES > 1: each warp's partial S, 16 x BK
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int rg = warp / SLICES;         // the warp's row group
+  const int c0 = warp % SLICES * (HDP / SLICES);  // first head dim of its slice
   const int g = lane >> 2, t = lane & 3;
   const int nq = (S + BQ - 1) / BQ;
   const int qi0 = (nq - 1 - (tile_base + (int)blockIdx.y)) * BQ;
@@ -350,7 +380,7 @@ __global__ void __launch_bounds__(32 * fa_warps(HDP)) flash_attention_kernel(
   const float* kb = k + ((long long)b * T * H + h) * hd;
   const float* vb = v + ((long long)b * T * H + h) * hd;
   float* ob = o + ((long long)b * S * H + h) * hd;
-  const int wq0 = qi0 + warp * 16;  // the warp's first query row
+  const int wq0 = qi0 + rg * 16;  // the warp's first query row
   const int qp[2] = {wq0 + g, wq0 + g + 8};  // this lane's rows
   // scores in log2 units: exp2(s·scale·log2 e - m) = exp(s·scale - m / log2 e)
   const float scale2 = __fmul_rn(scale, FA_LOG2E);
@@ -387,16 +417,10 @@ __global__ void __launch_bounds__(32 * fa_warps(HDP)) flash_attention_kernel(
     for (int ks = 0; ks < NT; ++ks)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int row = qp[e & 1], col = 8 * ks + 2 * t + (e >> 1);
+        const int row = qp[e & 1], col = c0 + 8 * ks + 2 * t + (e >> 1);
         const float x = row < S && col < hd ? qb[row * rs + col] : 0.0f;
         split_tf32(x, qh[ks][e], ql[ks][e]);
       }
-  } else if constexpr (QM == FA_Q_SPLIT) {
-    for (int i = tid; i < BQ * HDP; i += THREADS) {
-      const int r = i / HDP, c = i % HDP;
-      const float x = qi0 + r < S && c < hd ? qb[(qi0 + r) * rs + c] : 0.0f;
-      split_tf32(x, qhs[r * LDK + c], qls[r * LDK + c]);
-    }
   } else if constexpr (fa_variant(HDP).rolled_copies) {
 #pragma unroll 1
     for (int i = tid; i < BQ * HDP; i += THREADS) {
@@ -429,13 +453,15 @@ __global__ void __launch_bounds__(32 * fa_warps(HDP)) flash_attention_kernel(
     const float* vs = vst + stage * BK * LDV;
     const int kj0 = kt * BK;
     // a key tile past the warp's last row changes nothing (see "Causal
-    // skipping"); the wide variants' tiles are shorter than the block
+    // skipping"); the wide variants' tiles are shorter than the block.  The
+    // warps of a row group share their rows, so they skip together
     if (WIDE && causal && kj0 > wq0 + 15) {
       __syncthreads();
       continue;
     }
 
-    // S = Q·Kᵀ for the warp's 16 rows and the tile's BK keys (NJ n-tiles)
+    // S = Q·Kᵀ for the warp's 16 rows and the tile's BK keys (NJ n-tiles),
+    // over the warp's slice of the head dim
     float s[NJ][4];
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
@@ -445,17 +471,10 @@ __global__ void __launch_bounds__(32 * fa_warps(HDP)) flash_attention_kernel(
 #pragma unroll KK_UNROLL
     for (int kk = 0; kk < NT; ++kk) {
       uint32_t ah[4], al[4];
-      const int o0 = (warp * 16 + g) * LDK + 8 * kk + 2 * t;
+      const int o0 = (rg * 16 + g) * LDK + c0 + 8 * kk + 2 * t;
       if constexpr (QM == FA_Q_REGISTERS) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) { ah[e] = qh[kk][e]; al[e] = ql[kk][e]; }
-      } else if constexpr (QM == FA_Q_SPLIT) {
-        const uint2 h0 = *reinterpret_cast<const uint2*>(qhs + o0);
-        const uint2 h1 = *reinterpret_cast<const uint2*>(qhs + o0 + 8 * LDK);
-        const uint2 l0 = *reinterpret_cast<const uint2*>(qls + o0);
-        const uint2 l1 = *reinterpret_cast<const uint2*>(qls + o0 + 8 * LDK);
-        ah[0] = h0.x; ah[1] = h1.x; ah[2] = h0.y; ah[3] = h1.y;
-        al[0] = l0.x; al[1] = l1.x; al[2] = l0.y; al[3] = l1.y;
       } else {
         const float2 x0 = *reinterpret_cast<const float2*>(qs + o0);
         const float2 x1 = *reinterpret_cast<const float2*>(qs + o0 + 8 * LDK);
@@ -466,9 +485,31 @@ __global__ void __launch_bounds__(32 * fa_warps(HDP)) flash_attention_kernel(
       }
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const float2 kv = *reinterpret_cast<const float2*>(ks + (8 * j + g) * LDK + 8 * kk + 2 * t);
+        const float2 kv =
+            *reinterpret_cast<const float2*>(ks + (8 * j + g) * LDK + c0 + 8 * kk + 2 * t);
         mma_3xtf32(s[j], ah, al, kv.x, kv.y);
       }
+    }
+    if constexpr (SLICES > 1) {
+      // the row group's partial scores, summed in slice order 0, 1, ..., so
+      // every warp of the group holds the same S (see "Head dims 257-1024");
+      // the stage's closing __syncthreads keeps the buffer until all have read
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sps[(warp * NJ * 4 + 4 * j + e) * 32 + lane] = s[j][e];
+      group_sync(1 + rg, 32 * SLICES);
+      const float* gp = sps + rg * SLICES * NJ * 4 * 32;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float sum = gp[(4 * j + e) * 32 + lane];
+#pragma unroll
+          for (int i = 1; i < SLICES; ++i)
+            sum = __fadd_rn(sum, gp[(i * NJ * 4 + 4 * j + e) * 32 + lane]);
+          s[j][e] = sum;
+        }
     }
 
     // online softmax on the accumulators: lane holds keys 8j+2t, 8j+2t+1
@@ -540,7 +581,8 @@ __global__ void __launch_bounds__(32 * fa_warps(HDP)) flash_attention_kernel(
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           float b0[NV], b1[NV];  // column g of n-tiles n0 .. n0+NV-1, keys 8j+2t, 8j+2t+1
-          load_v_fragments<NV>(vs + (8 * j + 2 * t) * LDV + NV * g + 8 * n0, LDV, b0, b1);
+          load_v_fragments<NV>(vs + (8 * j + 2 * t) * LDV + c0 + NV * g + 8 * n0, LDV, b0,
+                               b1);
 #pragma unroll
           for (int i = 0; i < NV; ++i) mma_3xtf32(pv[i], ph[j], pl[j], b0[i], b1[i]);
         }
@@ -580,8 +622,9 @@ __global__ void __launch_bounds__(32 * fa_warps(HDP)) flash_attention_kernel(
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  // dv(n, c) = 8·NV·(n / NV) + NV·c + n % NV: the dim that P·V n-tile n,
-  // column c stands for (V's reads of NV n-tiles are one vector)
+  // c0 + dv(n, c), dv(n, c) = 8·NV·(n / NV) + NV·c + n % NV: the dim that
+  // P·V n-tile n, column c stands for (V's reads of NV n-tiles are one
+  // vector; c0 is the first dim of the warp's slice)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (qp[r] >= S) continue;
@@ -590,7 +633,7 @@ __global__ void __launch_bounds__(32 * fa_warps(HDP)) flash_attention_kernel(
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int col = 8 * NV * (n / NV) + NV * (2 * t + e) + n % NV;
+        const int col = c0 + 8 * NV * (n / NV) + NV * (2 * t + e) + n % NV;
         if (col < hd) ob[qp[r] * rs + col] = acc[n][2 * r + e] / denom;
       }
   }
@@ -605,7 +648,7 @@ static int launch_hdp(const float* q, const float* k, const float* v, float* o,
   const size_t smem = fa_shared_bytes(hd);
   int e = allow_shared_bytes(flash_attention_kernel<HDP>, smem);
   if (e != 0) return e;
-  constexpr int BQ = 16 * fa_warps(HDP);
+  constexpr int BQ = fa_query_rows(HDP);
   const int nq = (S + BQ - 1) / BQ;
   if ((long long)B * H > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int per = max_tiles > 0 && max_tiles < FA_MAX_TILES ? max_tiles : FA_MAX_TILES;
@@ -620,136 +663,6 @@ static int launch_hdp(const float* q, const float* k, const float* v, float* o,
   return 0;
 }
 
-#define FW_WARPS 8
-#define FW_THREADS (32 * FW_WARPS)
-#define FW_BK 16  // key rows per shared tile of the FMA route
-
-// Padded head dim of the FMA route (0: none takes hd).
-__host__ __device__ constexpr int fw_padded_hd(int hd) {
-  return hd <= 512 ? 512 : hd <= 1024 ? 1024 : 0;
-}
-
-// Dynamic shared memory of one FMA-route block: a K and a V tile of FW_BK
-// rows of HDP floats (the wrapper's shared_bytes computes the same).
-__host__ __device__ inline size_t fw_shared_bytes(int hd) {
-  return sizeof(float) * 2 * FW_BK * (size_t)fw_padded_hd(hd);
-}
-
-// Head dims 257-1024: NPL head dims per lane (HDP = 32·NPL), one query row
-// per warp.
-template <int NPL>
-__global__ void __launch_bounds__(FW_THREADS) flash_attention_wide_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o,
-    int S, int T, int H, int hd, int causal, float scale, int nq) {
-  constexpr int HDP = 32 * NPL;
-  constexpr int BQ = FW_WARPS;  // query rows per block
-  extern __shared__ float smem[];
-  float* ks = smem;                // FW_BK x HDP
-  float* vs = smem + FW_BK * HDP;  // FW_BK x HDP
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  // query tiles last to first within each (batch, head)
-  const int bh = (int)(blockIdx.x / nq);
-  const int qi0 = (nq - 1 - (int)(blockIdx.x % nq)) * BQ;
-  const int row = qi0 + warp;  // the warp's query row
-  const int b = bh / H, h = bh % H;
-  const long long rs = (long long)H * hd;
-  const float* qb = q + ((long long)b * S * H + h) * hd;
-  const float* kb = k + ((long long)b * T * H + h) * hd;
-  const float* vb = v + ((long long)b * T * H + h) * hd;
-  float* ob = o + ((long long)b * S * H + h) * hd;
-  const float scale2 = __fmul_rn(scale, FA_LOG2E);
-
-  // zero the padding columns hd .. HDP-1 of both tiles (never loaded)
-  for (int i = tid; i < 2 * FW_BK * HDP; i += FW_THREADS)
-    if (i % HDP >= hd) smem[i] = 0.0f;
-
-  float qv[NPL], acc[NPL], m = FA_NEG_INF, l = 0.0f;
-#pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    const int col = lane + 32 * i;
-    qv[i] = row < S && col < hd ? qb[row * rs + col] : 0.0f;
-    acc[i] = 0.0f;
-  }
-
-  int nk = (T + FW_BK - 1) / FW_BK;
-  if (causal) nk = min(nk, (qi0 + BQ - 1) / FW_BK + 1);  // see "Causal skipping"
-  for (int kt = 0; kt < nk; ++kt) {
-    const int kj0 = kt * FW_BK;
-    __syncthreads();  // the previous tile is consumed, the padding zeroed
-    for (int e = tid; e < FW_BK * hd; e += FW_THREADS) {
-      const int rr = e / hd, c = e - rr * hd;
-      const bool ok = kj0 + rr < T;
-      ks[rr * HDP + c] = ok ? kb[(kj0 + rr) * rs + c] : 0.0f;
-      vs[rr * HDP + c] = ok ? vb[(kj0 + rr) * rs + c] : 0.0f;
-    }
-    __syncthreads();
-    float s[FW_BK];
-    float mt = FA_NEG_INF;
-#pragma unroll
-    for (int j = 0; j < FW_BK; ++j) {
-      float part = 0.0f;
-#pragma unroll
-      for (int i = 0; i < NPL; ++i) part = __fmaf_rn(qv[i], ks[j * HDP + lane + 32 * i], part);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        part = __fadd_rn(part, __shfl_xor_sync(FULL_MASK, part, off));
-      float val = __fmul_rn(part, scale2);
-      const int kp = kj0 + j;
-      if (kp >= T || (causal && row < kp)) val = FA_NEG_INF;
-      s[j] = val;
-      mt = fmaxf(mt, val);
-    }
-    const float m_new = fmaxf(m, mt);
-    // guards: a row with every score masked so far keeps m = -1e30, and
-    // its alpha and p must be 0, not exp(0)
-    const float alpha = m == FA_NEG_INF ? 0.0f : exp2f(fminf(__fsub_rn(m, m_new), 0.0f));
-    m = m_new;
-    float rsum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < FW_BK; ++j) {
-      s[j] = m_new == FA_NEG_INF ? 0.0f : exp2f(__fsub_rn(s[j], m_new));
-      rsum = __fadd_rn(rsum, s[j]);
-    }
-    l = __fmaf_rn(l, alpha, rsum);
-#pragma unroll
-    for (int i = 0; i < NPL; ++i) {
-      float a = __fmul_rn(acc[i], alpha);
-#pragma unroll
-      for (int j = 0; j < FW_BK; ++j) a = __fmaf_rn(s[j], vs[j * HDP + lane + 32 * i], a);
-      acc[i] = a;
-    }
-  }
-
-  if (row >= S) return;
-  const float denom = fmaxf(l, 1e-20f);
-#pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    const int col = lane + 32 * i;
-    if (col < hd) ob[row * rs + col] = acc[i] / denom;
-  }
-}
-
-template <int NPL>
-static int launch_wide(const float* q, const float* k, const float* v, float* o, int B, int S,
-                       int T, int H, int hd, int causal, float scale, int* grids,
-                       cudaStream_t stream) {
-  const size_t smem = fw_shared_bytes(hd);
-  const int e = allow_shared_bytes(flash_attention_wide_kernel<NPL>, smem);
-  if (e != 0) return e;
-  const int nq = (S + FW_WARPS - 1) / FW_WARPS;
-  const long long blocks = (long long)B * H * nq;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_attention_wide_kernel<NPL><<<(unsigned)blocks, FW_THREADS, smem, stream>>>(
-      q, k, v, o, S, T, H, hd, causal, scale, nq);
-  const int err = (int)cudaGetLastError();
-  if (err == 0) *grids = 1;
-  return err;
-}
-
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S, int T,
     int H, int hd, int causal, float scale, int max_tiles, int* grids, void* stream) {
@@ -759,13 +672,6 @@ extern "C" int flash_attention_launch(
   float* of = (float*)o;
   const cudaStream_t s = (cudaStream_t)stream;
   *grids = 0;
-  if (hd > 256) {
-    switch (fw_padded_hd(hd)) {
-      case 512: return launch_wide<16>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, grids, s);
-      case 1024: return launch_wide<32>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, grids, s);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
   // 16-byte copies need every row of k and v on a 16-byte boundary
   const int vec = hd % 4 == 0 && (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0;
   switch (fa_padded_hd(hd)) {
@@ -787,6 +693,12 @@ extern "C" int flash_attention_launch(
     case 256:
       return launch_hdp<256>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, max_tiles,
                              grids, s);
+    case 512:
+      return launch_hdp<512>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, max_tiles,
+                             grids, s);
+    case 1024:
+      return launch_hdp<1024>(qf, kf, vf, of, B, S, T, H, hd, causal, scale, vec, max_tiles,
+                              grids, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,21 +1,25 @@
 """Hopper kernel: flash attention (online softmax), causal or full.
 
 Wrapper of `csrc/flash_attention.cu`, the port of the TPU kernel
-`repro/kernels/flash_attention.py::flash_attention`.  Up to hd = 256 both
-products run on the tensor cores (mma.sync, three-pass TF32: float32
-accuracy): a block of 4 warps owns 64 query rows of one head and streams
-64-key tiles of K and V through a two-stage cp.async ring in shared
-memory, and the probabilities stay in registers; head dims 129-256
-(stablelm-12b's 160) run on 8-warp blocks of 128 rows with shorter key
-tiles (TC_VARIANTS).  Head dims 257-1024 take a simple kernel in float32
-FMAs, one warp per query row.  Both kernels put (batch, head) on grid.x,
-so B·H is not held to grid.y's 65,535; the tensor-core kernel puts its
-query tiles on grid.y and launches once per 65,535 of them
+`repro/kernels/flash_attention.py::flash_attention`.  Every head dim
+1-1024 runs on the tensor cores (mma.sync, three-pass TF32: float32
+accuracy), padded to one of the variants in TC_VARIANTS.  Up to hd = 64 a
+block of 4 warps owns 64 query rows of one head and streams 64-key tiles
+of K and V through a two-stage cp.async ring in shared memory, and the
+probabilities stay in registers.  hd 65-256 (minitron-8b's 128,
+stablelm-12b's 160) run on 8-warp blocks of 128 rows with P·V's loops
+interchanged and, past 128, shorter key tiles.  hd 257-1024 split each
+row group's head dim across warps: the warps that share 16 query rows
+each compute a partial Q·Kᵀ over their own columns and sum the partials
+in slice order, so all of them hold the same scores, then each runs P·V
+for its columns.  (batch, head) sits on grid.x, so B·H is not held to
+grid.y's 65,535; query tiles sit on grid.y, one launch per 65,535 of them
 (MAX_TILES_PER_LAUNCH), so S is not held to it either.
 No path of the system calls it (the reference's models compute attention
 in plain jnp); `chip_smoke.py` times it at musicgen-medium's,
-stablelm-12b's and minitron-8b's attention widths.  The plain version is
-`ref.flash_attention`; `ops.flash_attention` picks between them by device.
+stablelm-12b's and minitron-8b's attention widths and at hd = 512.  The
+plain version is `ref.flash_attention`; `ops.flash_attention` picks
+between them by device.
 """
 
 from __future__ import annotations
@@ -28,17 +32,17 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = "flash_attention"
-TC_HEAD_DIM = 256   # the widest tensor-core variant's padded head dim
-MAX_HEAD_DIM = 1024  # the FMA route's widest variant (fw_padded_hd)
-MAX_TILES_PER_LAUNCH = 65_535  # tensor-core route: query tiles on grid.y (FA_MAX_TILES)
-# Tensor-core variants by padded head dim: (warps of 16 query rows, key rows
-# per K and V tile, where the query tile lives), as fa_warps, fa_key_tile and
-# fa_q_mode in the source.  "registers": split once into registers; "split":
-# split once, hi and lo in shared memory; "raw": float32 in shared memory,
-# split at each k-step.
-TC_VARIANTS = {16: (4, 64, "registers"), 32: (4, 64, "registers"), 64: (4, 64, "registers"),
-               128: (4, 64, "split"), 160: (8, 32, "raw"), 256: (8, 16, "raw")}
-WIDE_KEY_TILE = 16  # FW_BK in the source: K and V rows staged by the FMA route
+MAX_HEAD_DIM = 1024  # the widest variant's padded head dim (fa_padded_hd)
+MAX_TILES_PER_LAUNCH = 65_535  # query tiles on grid.y (FA_MAX_TILES)
+# Variants by padded head dim: (warps of a block, warps of a row group that
+# split its head dim, key rows per K and V tile, where the query tile
+# lives), as fa_variant in the source.  A block holds 16 query rows per
+# row group.  "registers": split once into registers; "raw": float32 in
+# shared memory, split at each k-step.
+TC_VARIANTS = {16: (4, 1, 64, "registers"), 32: (4, 1, 64, "registers"),
+               64: (4, 1, 64, "registers"), 128: (8, 1, 32, "raw"), 160: (8, 1, 32, "raw"),
+               256: (8, 1, 16, "raw"), 512: (8, 4, 16, "registers"),
+               1024: (8, 8, 8, "registers")}
 launches = 0        # kernel launches so far (chip_smoke resets and reads it)
 last_grids = 0      # grids the last launch started: one per MAX_TILES_PER_LAUNCH query tiles
 
@@ -54,34 +58,28 @@ def _launcher():
 
 def padded_head_dim(hd: int) -> int:
     """The head dim of the kernel variant that takes hd, padded with zero
-    columns: 16, 32, 64, 128, 160 or 256 on the tensor cores (fa_padded_hd
-    in the source), 512 or 1024 on the FMA route (fw_padded_hd)."""
-    return next(p for p in (*TC_VARIANTS, 512, MAX_HEAD_DIM) if hd <= p)
-
-
-def wide_route(hd: int) -> bool:
-    """Whether the launch takes the float32-FMA kernel: hd > 256."""
-    return hd > TC_HEAD_DIM
+    columns: 16, 32, 64, 128, 160, 256, 512 or 1024 (fa_padded_hd in the
+    source)."""
+    return next(p for p in TC_VARIANTS if hd <= p)
 
 
 def query_tile(hd: int) -> int:
-    """Query rows per block of the tensor-core variant that takes hd."""
-    return 16 * TC_VARIANTS[padded_head_dim(hd)][0]
+    """Query rows per block of the variant that takes hd."""
+    warps, slices, _, _ = TC_VARIANTS[padded_head_dim(hd)]
+    return 16 * warps // slices
 
 
 def shared_bytes(hd: int) -> int:
-    """Dynamic shared memory of one block.  Tensor-core route: two stages
-    of a K tile (key-tile rows of padded_head_dim + 8 floats) and a V tile
-    (rows of + 4), and the query tile (query-tile rows of + 8) where it is
-    not in registers: its TF32 hi and lo halves ("split") or its float32
-    values ("raw").  FMA route: a K and a V tile of 16 rows of
-    padded_head_dim floats."""
+    """Dynamic shared memory of one block: two stages of a K tile (key-tile
+    rows of padded_head_dim + 8 floats) and a V tile (rows of + 4), the
+    float32 query tile (query-tile rows of + 8) where it is not in
+    registers and, where warps split the head dim, each warp's partial
+    scores (16 rows x the key tile)."""
     hdp = padded_head_dim(hd)
-    if wide_route(hd):
-        return 4 * 2 * WIDE_KEY_TILE * hdp
-    warps, bk, qmode = TC_VARIANTS[hdp]
-    qtile = {"registers": 0, "split": 2, "raw": 1}[qmode] * 16 * warps * (hdp + 8)
-    return 4 * (2 * bk * ((hdp + 8) + (hdp + 4)) + qtile)
+    warps, slices, bk, qmode = TC_VARIANTS[hdp]
+    qtile = {"registers": 0, "raw": 1}[qmode] * query_tile(hd) * (hdp + 8)
+    partial = warps * 16 * bk if slices > 1 else 0
+    return 4 * (2 * bk * ((hdp + 8) + (hdp + 4)) + qtile + partial)
 
 
 def check_blocks(s: int, t: int, block_q: int, block_k: int) -> None:

@@ -44,6 +44,8 @@ def _both(arrays, causal, block, jdtype=jnp.float32, tdtype=torch.float32):
     (1, 128, 128, 2, 64, True),
     (2, 32, 96, 3, 16, False),
     (1, 256, 256, 1, 128, True),
+    (1, 64, 64, 2, 512, True),
+    (1, 32, 64, 1, 1000, False),
 ])
 def test_flash_attention_matches_reference(b, s, t, h, hd, causal):
     got, kern, oracle = _both(_qkv(s + t + hd, b, s, t, h, hd), causal, 32)
@@ -115,9 +117,9 @@ def test_flash_attention_kernel_wrapper_checks():
     with pytest.raises(ValueError, match="hd <= 1024"):
         fa.flash_attention(*(torch.zeros((1, 8, 1, 1025)),) * 3)
     assert fa.MAX_TILES_PER_LAUNCH == 65_535
-    # hd = 160 and 257 (the FMA route), B*H past grid.y's 65,535, and S
-    # past 65,535 query tiles at hd = 16 and 129 (both on the tensor cores)
-    # pass the checks and reach the device check
+    # hd = 160 and 257 (a column-split variant), B*H past grid.y's 65,535,
+    # and S past 65,535 query tiles at hd = 16 and 129 pass the checks and
+    # reach the device check
     for shape in ((1, 8, 1, 160), (1, 8, 1, 257), (1100, 1, 64, 16), (1, 4, 70_000, 16),
                   (1, 64 * 65_535 + 64, 1, 16), (1, 64 * 65_535 + 64, 1, 129)):
         with pytest.raises(ValueError, match="CUDA"):
@@ -130,35 +132,47 @@ def test_flash_attention_kernel_wrapper_checks():
 
 
 def test_flash_attention_shared_bytes():
-    """Two stages of a K tile (rows of HDP + 8 floats) and a V tile
-    (HDP + 4): 64 rows each up to HDP = 128, 32 at HDP = 160, 16 at 256.
-    At HDP = 128 also the split query tile's hi and lo (64 rows of HDP + 8
-    each); at HDP = 160 and 256 the query tile of 128 rows in float32.
-    Every tensor-core variant fits a block's 232,448 bytes."""
-    assert [fa.padded_head_dim(hd) for hd in (1, 16, 20, 36, 64, 65, 128)] == [
-        16, 16, 32, 64, 64, 128, 128]
-    assert fa.shared_bytes(64) == 4 * 2 * 64 * (72 + 68)
-    assert fa.shared_bytes(36) == fa.shared_bytes(64)
-    assert fa.shared_bytes(16) == 4 * 2 * 64 * (24 + 20)
-    assert fa.shared_bytes(128) == 4 * (2 * 64 * (136 + 132) + 2 * 64 * 136)
+    """Per variant: two stages of a K tile (rows of HDP + 8 floats) and a V
+    tile (HDP + 4) of the variant's key rows; the float32 query tile (rows
+    of HDP + 8) where it is not in registers; and, where warps split the
+    head dim, each warp's partial scores (16 rows x the key tile).  Every
+    variant fits a block's 232,448 bytes, and the wrapper's table gives
+    what the source's fa_shared_bytes does."""
+    ring = {hdp: 2 * bk * ((hdp + 8) + (hdp + 4))
+            for hdp, (_, _, bk, _) in fa.TC_VARIANTS.items()}
+    assert fa.shared_bytes(16) == 4 * ring[16] == 4 * 2 * 64 * (24 + 20)
+    assert fa.shared_bytes(64) == fa.shared_bytes(36) == 4 * 2 * 64 * (72 + 68)
+    assert fa.shared_bytes(128) == fa.shared_bytes(65) == 4 * (2 * 32 * (136 + 132) + 128 * 136)
     assert fa.shared_bytes(160) == fa.shared_bytes(129) == 4 * (2 * 32 * (168 + 164) + 128 * 168)
     assert fa.shared_bytes(256) == fa.shared_bytes(200) == 4 * (2 * 16 * (264 + 260) + 128 * 264)
-    assert [fa.query_tile(hd) for hd in (16, 128, 129, 256)] == [64, 64, 128, 128]
+    # the split variants keep their query fragments in registers
+    assert fa.shared_bytes(512) == fa.shared_bytes(257) == 4 * (
+        ring[512] + 8 * 16 * 16) == 4 * (2 * 16 * (520 + 516) + 8 * 16 * 16)
+    assert fa.shared_bytes(1024) == fa.shared_bytes(1000) == 4 * (
+        2 * 8 * (1032 + 1028) + 8 * 16 * 8)
     for hdp in fa.TC_VARIANTS:
         assert fa.shared_bytes(hdp) <= 232_448
-    assert fa.shared_bytes(fa.MAX_HEAD_DIM) <= 232_448
 
 
 def test_flash_attention_wide_route():
-    """Head dims past 256, and only they, take the float32-FMA kernel: K and
-    V tiles of 16 rows of the head dim padded to 512 or 1024.  Up to 256
-    the tensor cores run them, padded to 160 or 256 past 128."""
-    assert [fa.wide_route(hd) for hd in (16, 128, 129, 160, 256, 257, 1024)] == [
-        False, False, False, False, False, True, True]
-    assert [fa.padded_head_dim(hd) for hd in (129, 160, 161, 256, 257, 1000)] == [
-        160, 160, 256, 256, 512, 1024]
-    assert fa.shared_bytes(257) == fa.shared_bytes(512) == 4 * 2 * 16 * 512
-    assert fa.shared_bytes(1024) == 4 * 2 * 16 * 1024
+    """Every head dim 1-1024 has a tensor-core variant, padded to the first
+    of 16, 32, 64, 128, 160, 256, 512 and 1024 that holds it.  Up to 64 a
+    block is 4 warps of 64 rows with the query fragments in registers;
+    65-256 take 8 warps of 128 rows; past 256 each row group's head dim is
+    split across its warps, 128 columns each, with the query fragments in
+    registers (4 slices at HDP = 512, 32 rows; 8 at 1024, 16 rows)."""
+    pads = [fa.padded_head_dim(hd) for hd in range(1, fa.MAX_HEAD_DIM + 1)]
+    assert pads == sorted(pads) and set(pads) == set(fa.TC_VARIANTS)
+    assert [fa.padded_head_dim(hd) for hd in (1, 16, 17, 33, 65, 128, 129, 160, 161, 256,
+                                              257, 512, 513, 1000, 1024)] == [
+        16, 16, 32, 64, 128, 128, 160, 160, 256, 256, 512, 512, 1024, 1024, 1024]
+    assert [fa.query_tile(hd) for hd in (16, 64, 128, 129, 256, 257, 1024)] == [
+        64, 64, 128, 128, 128, 32, 16]
+    for hdp, (warps, slices, bk, qmode) in fa.TC_VARIANTS.items():
+        assert warps % slices == 0 and (hdp // slices) % 8 == 0 and bk % 8 == 0
+        assert (slices > 1) == (hdp > 256) and (warps == 8) == (hdp > 64)
+        assert (qmode == "registers") == (hdp <= 64 or slices > 1)
+        assert slices == 1 or hdp // slices == 128
 
 
 # ------------------------------------------- three-pass TF32, emulated ----
@@ -171,23 +185,36 @@ def _tf32(x: np.ndarray) -> np.ndarray:
     return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def _matmul_tf32(a: np.ndarray, b: np.ndarray, passes: int) -> np.ndarray:
+def _matmul_tf32(a: np.ndarray, b: np.ndarray, passes: int, slices: int = 1) -> np.ndarray:
     """a @ b as the tensor cores compute it from TF32 operands: hi·hi alone
     (one pass) or lo·hi + hi·lo + hi·hi (three), each product exact and the
-    sums in float32."""
+    sums in float32.  With `slices`, the contraction is cut into that many
+    equal column slices, each slice's product taken alone and the partials
+    summed in slice order 0, 1, ..., as the column-split variants do."""
     ah, bh = _tf32(a), _tf32(b)
-    if passes == 1:
-        return ah @ bh
     al, bl = _tf32(a - ah), _tf32(b - bh)
-    return al @ bh + ah @ bl + ah @ bh
+    width = a.shape[-1] // slices
+    out = None
+    for i in range(slices):
+        cols = slice(i * width, (i + 1) * width)
+        part = ah[..., cols] @ bh[..., cols, :]
+        if passes == 3:
+            part = al[..., cols] @ bh[..., cols, :] + ah[..., cols] @ bl[..., cols, :] + part
+        out = part if out is None else out + part
+    return out
 
 
 def _attention_tf32(q, k, v, causal: bool, passes: int) -> np.ndarray:
     """The kernel's arithmetic over one key tile spanning every key: scores
-    from TF32 products, p = exp(s - max) unnormalised, P·V from TF32
+    from TF32 products (the head dim zero-padded to the variant's and cut
+    into its slices), p = exp(s - max) unnormalised, P·V from TF32
     products, divided by the row sum at the end."""
+    hd = q.shape[-1]
+    hdp = fa.padded_head_dim(hd)
+    slices = fa.TC_VARIANTS[hdp][1]
     qh, kh, vh = (np.moveaxis(x, 2, 1) for x in (q, k, v))  # (B, H, ., hd)
-    s = _matmul_tf32(qh, np.swapaxes(kh, -1, -2), passes) * np.float32(1 / np.sqrt(q.shape[-1]))
+    qp, kp = (np.pad(x, [(0, 0)] * 3 + [(0, hdp - hd)]) for x in (qh, kh))
+    s = _matmul_tf32(qp, np.swapaxes(kp, -1, -2), passes, slices) * np.float32(1 / np.sqrt(hd))
     if causal:
         keep = np.arange(q.shape[1])[:, None] >= np.arange(k.shape[1])[None, :]
         s = np.where(keep, s, np.float32(-1e30))
@@ -203,12 +230,16 @@ def _attention_tf32(q, k, v, causal: bool, passes: int) -> np.ndarray:
     (1, 256, 256, 1, 128, True),
     (1, 128, 128, 2, 160, True),
     (1, 64, 64, 1, 256, False),
+    (1, 64, 64, 2, 512, True),
+    (1, 32, 48, 1, 1024, False),
 ])
 def test_three_pass_tf32_meets_the_float32_tolerance(b, s, t, h, hd, causal):
-    """The kernel's numerics on the CPU, over the reference tests' shapes
-    and the wide heads' 160- and 256-term contractions: three-pass TF32
-    products (lo·hi + hi·lo + hi·hi) stay within the float32 tolerance
-    2e-5 of the reference's oracle; one pass (hi·hi) does not."""
+    """The kernel's numerics on the CPU, over the reference tests' shapes,
+    the wide heads' 160- and 256-term contractions and the column-split
+    variants' 512 and 1024 (partial scores per slice, summed in slice
+    order): three-pass TF32 products (lo·hi + hi·lo + hi·hi) stay within
+    the float32 tolerance 2e-5 of the reference's oracle; one pass (hi·hi)
+    does not."""
     q, k, v = _qkv(s + t + hd, b, s, t, h, hd)
     want = np.asarray(jref.flash_attention(*(jnp.asarray(a) for a in (q, k, v)), causal=causal))
     three = _attention_tf32(q, k, v, causal, passes=3)
@@ -219,7 +250,7 @@ def test_three_pass_tf32_meets_the_float32_tolerance(b, s, t, h, hd, causal):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hd", [64, 160])
+@pytest.mark.parametrize("hd", [64, 128, 160, 512])
 def test_gpu_flash_attention_over_several_launches(causal, hd):
     """Query tiles split over several launches (2 tiles each: S of 5 tiles
     is 3 launches), heaviest tiles first: within 2e-5 of the plain version,
@@ -235,4 +266,18 @@ def test_gpu_flash_attention_over_several_launches(causal, hd):
     want = tref.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
+    np.testing.assert_allclose(np_(got), np_(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_gpu_flash_attention_many_heads_split_head_dim():
+    """B·H = 70,400 (past grid.y's 65,535) at hd = 512, whose row groups
+    split the head dim across warps: (batch, head) on grid.x, one launch,
+    within 2e-5 of the plain version."""
+    dev = require_cuda()
+    gen = torch.Generator(device=dev).manual_seed(301)
+    q, k, v = (torch.randn((1100, 8, 64, 512), generator=gen, device=dev) for _ in range(3))
+    got = fa.flash_attention(q, k, v, causal=True)
+    assert fa.last_grids == 1
+    want = tref.flash_attention(q, k, v, causal=True)
     np.testing.assert_allclose(np_(got), np_(want), rtol=2e-5, atol=2e-5)

@@ -578,8 +578,8 @@ def test_gpu_flash_attention_kernel_matches_plain(s, t, h, hd, causal, dtype):
     2e-2 in bf16 (ragged tiles included: 100, 70 and 130 rows; causal with
     fewer queries than keys; hd = 36, a multiple of 4 but not of 8; the
     wide heads on the tensor cores at hd = 129 and 131 (4-byte copies),
-    160, 200 and 256, B·H = 70,400 at hd = 160; the float32-FMA route at
-    hd = 512 and 1000)."""
+    160, 200 and 256, B·H = 70,400 at hd = 160; the head dim split
+    across warps at hd = 512 and 1000)."""
     dev = require_cuda()
     from repro_torch.kernels import flash_attention as fa
 
