@@ -15,19 +15,24 @@ per phase:
      counts, int8 shortlists,
      paper-mode and d=2 results exact; d=128 float distances within rtol
      1e-5, ids equal up to near-ties, which are counted), and
-     candidate_topk bit-equal to csr_candidate_topk on the same rows;
+     candidate_topk bit-equal to csr_candidate_topk on the same rows (d =
+     128 at d_chunk None, 48 and 5; d = 37 at d_chunk 5);
      the three candidate kernels past their old shared-memory caps
      (windows of 32,768 and 65,536 slots, C = 65,536), on unaligned rows
      (d = 2, 9, 13, 37 in float32, 130 in int8), at d_chunk = 5, with k and
      rerank_k = 1, 257 and past (or all of) the window, spans clamped at
      the store's ends, queries with no valid slot and a live count below
-     the store;
+     the store; candidate_topk also over three tiles with a partial last
+     one and on windows 4 bytes past a 16-byte boundary (4-byte copies at
+     d = 128), at the re-rank shape too;
      radius_search_loop on indexes of 1M points at phase 2's and a phase-3
      chunk's shapes (l2, l1, adaptive_r0, early_exit off, 40 channels,
      T = 8) and on edge cases (n = 0 on every pass, radii at 1 and at
      r_max, counts of exactly k and k_hi, lanes out of iterations, Eq.-1
      products on a half);
-     both count kernels at 40 channels (PROD_GRID's pyramid shape); brute_knn
+     both count kernels at 40 channels (PROD_GRID's pyramid shape);
+     tile_count's two instances (T = 8 and 16) at 40 channels with one
+     query and with 4097; brute_knn
      at d = 2 / 128 / 40, k = 32, 33, 64, 257 at d = 9 and 128, k = 1000 at
      a small N, k > N, no points (all pads), non-finite rows, and integer
      lattices (k up to 64; exact, ties to the lower index); flash_attention
@@ -58,7 +63,7 @@ per phase:
      time and idle share); the loop kernel timed at this path's shape, its
      bound over the distinct in-circle cells of all passes together; the count
      kernels timed at the loop's first pass, exact against their plain
-     versions;
+     versions, each also by device_ms (below);
   3  a SIFT1M-shaped datastore (1M points, d=128, 10,000 queries; planted
      data, nothing downloaded): PROD_GRID, PCA projection, k=10, chunks of
      2048; recall against `exact` (on brute_knn, checked and timed as in
@@ -74,7 +79,10 @@ per phase:
      against its plain version's as in phase 1, with `gathered_ms` (every
      valid (query, row) pair's row read once: the floor when queries share
      nothing in L2) beside the distinct-row bound, and each kernel's
-     registers and shared memory;
+     registers and shared memory; candidate_topk at the q8 re-rank's shape
+     and at hopper_gather's, each with device_ms and `two_call_ms`
+     (torch.cdist, the invalid slots masked, torch.topk: no single call
+     computes the function);
   4  flash_attention, which no path of the system calls, at
      musicgen-medium's attention width (24 heads, head_dim 64) and a 32,768
      sequence, float32, causal, and at S = 4096 at stablelm-12b's width
@@ -87,10 +95,18 @@ per phase:
      shape falls); bound_ms is the three-pass TF32 tensor-core bound of
      each call, fp32_fma_bound_ms the float32 FMA units' beside it.
 
+Kernel times: `ms` is the median of 10 timed wrapper calls (CUDA events
+around the call, the L2 flushed before each), so a launch-bound kernel's
+`ms` holds the host's time in its wrapper; `device_ms` (the loop kernel,
+both count kernels, csr_candidate_topk and candidate_topk) is the median of
+the kernel's own durations over 50 back-to-back flushed calls traced by
+torch.profiler, the device alone.
+
 Each path runs with every launch counter set to 0 just before it and read
 just after; a kernel of the path that was never launched fails the run.
 Then one {"kernels": [...]} line (per kernel: launches on the paths,
-largest error against the plain version, kernel and plain time, the bound
+largest error against the plain version, kernel time (and device_ms where
+taken) and plain time, the bound
 over the distinct bytes and the operations the timed call needs, and the
 library call's time where one PyTorch call computes the same function),
 the card's name and
@@ -103,6 +119,7 @@ without the repo's src/.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib
 import json
 import math
@@ -200,7 +217,8 @@ def check_candidate_static_smem() -> None:
     kernel_common.cuh's top-k and of the staged score chunk by constants
     (candidate_topk.TOPK_SHARED_BYTES, TOPK_CHUNK): hold them against
     ptxas's static shared memory of every candidate entry function.  The
-    staged csr_candidate_topk_kernel<true> stages rows, not scores.  A
+    staged instances (csr_candidate_topk_kernel<true>,
+    candidate_topk_kernel<true>) stage rows, not scores.  A
     source built by an earlier run in this checkout has no ptxas report
     (phase 0 marks it cached); a fresh checkout builds and checks all three."""
     from repro_torch.kernels import _build
@@ -218,19 +236,37 @@ def check_candidate_static_smem() -> None:
                                f"the wrappers count {want}")
 
 
-def device_profile(fn) -> dict:
-    """Device time of one call from a torch.profiler trace: the kernels'
-    summed time and the five largest kernels by name."""
+def kernel_records(prof) -> list[tuple[str, float]]:
+    """(name, ms) of each device record (kernels, copies, fills) in a
+    finished torch.profiler trace, from its raw kineto records."""
     from torch.autograd import DeviceType
+
+    return [(evt.name(), evt.duration_ns() / 1e6) for evt in prof.profiler.kineto_results.events()
+            if evt.device_type() == DeviceType.CUDA]
+
+
+def device_profile(fn, runs: int = 3) -> dict:
+    """Device time of one call from torch.profiler traces: the kernels'
+    summed time and the five largest kernels by name, from `runs` traced
+    calls.  The tracer can drop records (one search's sum once read 6.17 ms
+    where its neighbours read 7.5-7.7), and a call launches the same
+    kernels every time, so only the traces with the most records count;
+    of those, the one with the median sum."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    by_name: dict[str, float] = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
+    samples = []
+    for _ in range(runs):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        records = kernel_records(prof)
+        by_name: dict[str, float] = {}
+        for name, ms in records:
+            by_name[name] = by_name.get(name, 0.0) + ms
+        samples.append((len(records), sum(by_name.values()), by_name))
+    most = max(n for n, _, _ in samples)
+    whole = sorted((s for s in samples if s[0] == most), key=lambda s: s[1])
+    by_name = whole[len(whole) // 2][2]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     busy = sum(by_name.values())
     return {"device_busy_ms": busy if busy > 0 else None,
@@ -254,6 +290,36 @@ def time_ms(fn, reps: int = 10):
         events.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in events])), out
+
+
+def device_ms(fn, kernel: str, reps: int = 50, tries: int = 3) -> float:
+    """Median device time of one launch of `kernel` (its entry function's
+    name): `fn`, a wrapper's call, runs `reps` times back to back under
+    torch.profiler, with the L2 flushed before each call as in time_ms, and
+    only the kernel's own CUDA durations count, so neither the flush nor
+    the host's time in the wrapper does (a launch-bound kernel's timed call
+    is mostly the host's).  The durations come from the trace's raw kineto
+    records.  The tracer has been seen to drop records (18 of 50 once); a
+    run that keeps fewer than a fifth is taken again, at most `tries`
+    times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+    fn()
+    torch.cuda.synchronize()
+    name = re.compile(rf"\b{kernel}\b")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        times = [ms for kname, ms in kernel_records(prof) if name.search(kname)]
+        if len(times) >= reps // 5:
+            return float(np.median(times))
+    raise AssertionError(f"device_ms: {len(times)} launches of {kernel} traced of {reps}, "
+                         f"{tries} times")
 
 
 def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
@@ -351,9 +417,8 @@ def time_loop(mods, index, cfg, q_grid, k, shape: str) -> dict:
     ms, _ = time_ms(lambda: kernel(*args, metric=cfg.metric))
     plain_ms, _ = time_ms(lambda: ref.radius_search_loop(*args, metric=cfg.metric), reps=3)
     # the launch alone, without the wrapper's tile_dmas_skipped reduction
-    # and its host time: the profiler's device time of one warm call
-    kernel_ms = sum(v for name, v in device_profile(lambda: kernel(*args, metric=cfg.metric))
-                    ["top_kernels_ms"].items() if "radius_search_loop_kernel" in name)
+    # and its host time
+    kernel_ms = device_ms(lambda: kernel(*args, metric=cfg.metric), "radius_search_loop_kernel")
     cells = [circle_cells(q_grid[act], r[act], ref.level_for_radius(r, t, cfg.levels)[act],
                           t, cfg.level_nblks, cfg.metric) for r, act in passes]
     distinct = int(torch.unique(torch.cat(cells)).numel())
@@ -362,7 +427,7 @@ def time_loop(mods, index, cfg, q_grid, k, shape: str) -> dict:
     b_ms, b_by = bound(distinct * c * 4 + b * (8 + 4) + b * (3 * 4 + 1),
                        lane_passes * t * t * 10 + read * c)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "kernel_only_warm_ms": kernel_ms, "max_abs_err": 0.0, "shape": shape,
+            "device_ms": kernel_ms, "max_abs_err": 0.0, "shape": shape,
             "passes": len(passes),
             "lane_passes": lane_passes, "cells_read_all_passes": read,
             "distinct_cells_all_passes": distinct,
@@ -389,6 +454,15 @@ def count_at_run(label, searcher, queries, res, mods, chunks: int) -> dict:
     check(torch.equal(cnt.sum(dim=-1, dtype=torch.int32), res.count),
           f"{label}: count_at's totals differ from the loop kernel's counts")
     return launches
+
+
+def sha256_of(*tensors) -> str:
+    """A digest of the tensors' values: equal digests in two runs (a parent
+    and a change) show equal outputs."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def to_np(t: torch.Tensor) -> np.ndarray:
@@ -463,6 +537,14 @@ def compare_dense(got, want, cand, queries, metric, rtol):
 
     return compare_topk((got[0], flat(got[1])), (want[0], flat(want[1])),
                         cand.reshape(b * c, d), queries, metric, rtol)
+
+
+def two_call_topk(cand, valid, queries, k):
+    """candidate_topk's function in PyTorch calls, the yardstick timed
+    beside the kernel (no single call computes it): torch.cdist's
+    distances, the invalid slots set to +inf, then torch.topk."""
+    dist = torch.cdist(queries[:, None, :], cand).squeeze(1)
+    return torch.topk(dist.masked_fill(~valid, float("inf")), k, dim=1, largest=False)
 
 
 def check_equal_pair(got, want, what: str) -> None:
@@ -721,6 +803,24 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
                   f"tile_count level {lv} {metric} differs")
     out["tile_count"].append({"grid": "PAPER_GRID", "B": b, "C": c, "levels": paper.levels,
                               "metrics": ["l2", "l1"], "exact": True})
+    # both instances (T = 16 with shifts, the generic one at T = 8) at 40
+    # channels (lanes 0-31, then 0-7, write them), one query and a batch
+    # that is not a multiple of the queries per block, scales 1 and 4
+    side = 512
+    level = torch.randint(0, 4, (side, side, wide_c), generator=gen, device=dev, dtype=torch.int32)
+    for tt in (8, 16):
+        for scale in (1, 4):
+            for bq in (1, 4097):
+                qq = torch.rand((bq, 2), generator=gen, device=dev) * (side * scale)
+                rq = torch.rand((bq,), generator=gen, device=dev) * (tt * scale / 2)
+                for metric in ("l2", "l1"):
+                    args = (level, qq, rq, scale, tt)
+                    check(torch.equal(tc.tile_count(*args, metric=metric),
+                                      ref.tile_count(*args, metric=metric)),
+                          f"tile_count T={tt} scale={scale} B={bq} {metric} differs")
+    out["tile_count"].append({"level": [side, side, wide_c], "T": [8, 16], "scale": [1, 4],
+                              "B": [1, 4097], "metrics": ["l2", "l1"], "exact": True})
+    del level
 
     # csr_shortlist_q8: a random int8 store with per-row scales; queries
     # large enough that some codes clip at QCLIP.  Bit-equal.
@@ -793,7 +893,7 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
     st, en = spans(b128, prod.window, prod.row_cap, n)
     flat, valid = ref.window_slots(st, en, n, n, prod.row_cap)
     cand = pts[flat]
-    for dc in (None, 48):
+    for dc in (None, 48, 5):
         fused = csr.csr_candidate_topk(pts, st, en, q128, 10, n, prod.row_cap, d_chunk=dc)
         dense = ctk.candidate_topk(cand, valid, q128, 10, d_chunk=dc or 128)
         check(torch.equal(dense[0], fused[0])
@@ -801,7 +901,7 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
               f"candidate_topk and csr_candidate_topk differ on the same rows (d_chunk={dc})")
     out["candidate_topk"].append({"case": "same_rows_as_csr_candidate_topk", "B": b128,
                                   "C": prod.window * prod.row_cap, "d": 128,
-                                  "d_chunks": [None, 48], "bit_equal": True})
+                                  "d_chunks": [None, 48, 5], "bit_equal": True})
     # past the old kernels' shared-memory caps (4*d + 8*w*row_cap and
     # 4*d + 4*C <= 232,448 bytes): windows of 32,768 and 65,536 slots; spans
     # clamped at the store's start (< 0) and end (> n_pad - row_cap), a
@@ -862,6 +962,17 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
                                                                          args[1].shape[1], args[6]),
                                           "max_abs_err": err, "tie_swaps": swaps})
         del got, want
+    # the same rows once more at d = 37: both kernels stage them by 4-byte
+    # copies, with chunk boundaries inside stages
+    flat37, valid37 = ref.window_slots(sts, ens, 50_000, 49_993, 64)
+    q37 = q128[:, :37].contiguous()
+    fused = csr.csr_candidate_topk(x37, sts, ens, q37, 10, 49_993, 64, d_chunk=5)
+    dense = ctk.candidate_topk(x37[flat37], valid37, q37, 10, d_chunk=5)
+    check(torch.equal(dense[0], fused[0]) and torch.equal(ref.take_slots(flat37, dense[1]), fused[1]),
+          "candidate_topk and csr_candidate_topk differ on the same rows (d = 37, d_chunk = 5)")
+    out["candidate_topk"].append({"case": "same_rows_as_csr_candidate_topk", "B": 256,
+                                  "C": 64 * 64, "d": 37, "d_chunks": [5], "bit_equal": True})
+    del flat37, valid37, fused, dense
 
     c16 = torch.randint(-127, 128, (200_000, 16), generator=gen, device=dev).to(torch.int8)
     c130 = torch.randint(-127, 128, (50_000, 130), generator=gen, device=dev).to(torch.int8)
@@ -889,13 +1000,24 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
                                         "exact": True})
     del x16, x9, x13, x37, c16, c130, s16, s130, s128
 
-    # candidate_topk past the old cap (C = 65,536) and on unaligned rows
-    for label, shape, kk, dc in (("C65536_d4_k1", (16, 65_536, 4), 1, 512),
-                                 ("C65536_d4_k257", (16, 65_536, 4), 257, 512),
-                                 ("C65536_d4_k_past_C", (16, 65_536, 4), 65_539, 512),
-                                 ("C4096_d9_dchunk5", (64, 4096, 9), 10, 5),
-                                 ("C4096_d13_k257", (64, 4096, 13), 257, 512)):
-        cand_w = torch.randn(shape, generator=gen, device=dev)
+    # candidate_topk past the old cap (C = 65,536), on unaligned rows (d = 9
+    # and 13 read directly, 37 staged by 4-byte copies), three tiles with a
+    # partial last one, and on windows that start 4 bytes past a 16-byte
+    # boundary (a slice of a larger tensor: 4-byte copies at d = 128), at
+    # the re-rank shape and with d_chunk = 5
+    for label, shape, kk, dc, offset in (
+            ("C65536_d4_k1", (16, 65_536, 4), 1, 512, 0),
+            ("C65536_d4_k257", (16, 65_536, 4), 257, 512, 0),
+            ("C65536_d4_k_past_C", (16, 65_536, 4), 65_539, 512, 0),
+            ("C65536_d128_k257", (8, 65_536, 128), 257, 512, 0),
+            ("C4096_d9_dchunk5", (64, 4096, 9), 10, 5, 0),
+            ("C4096_d13_k257", (64, 4096, 13), 257, 512, 0),
+            ("C4096_d37_dchunk5", (64, 4096, 37), 10, 5, 0),
+            ("C600_d128_k_past_C", (256, 600, 128), 603, 512, 0),
+            ("misaligned_rerank_d128", (2048, 40, 128), 10, 128, 1),
+            ("misaligned_C600_d128_dchunk5", (256, 600, 128), 10, 5, 1)):
+        numel = shape[0] * shape[1] * shape[2]
+        cand_w = torch.randn((numel + offset,), generator=gen, device=dev)[offset:].view(shape)
         valid_w = torch.rand(shape[:2], generator=gen, device=dev) < 0.8
         valid_w[0] = False  # a query with no valid candidate
         qd = torch.randn((shape[0], shape[2]), generator=gen, device=dev)
@@ -904,7 +1026,8 @@ def phase1(seed, cfgs, mods, b=4096, n=1_000_000, b128=256):
         err, swaps = compare_dense(got, want, cand_w, qd, "l2", 1e-5)
         max_err["candidate_topk"] = max(max_err["candidate_topk"], err)
         out["candidate_topk"].append({"case": label, "B": shape[0], "C": shape[1], "d": shape[2],
-                                      "k": kk, "metric": "l2",
+                                      "k": kk, "d_chunk": dc, "metric": "l2",
+                                      "base_offset_bytes": 4 * offset,
                                       "smem_bytes": ctk.shared_bytes(shape[2], shape[1]),
                                       "max_abs_err": err, "tie_swaps": swaps})
         del cand_w, valid_w, got, want
@@ -1242,6 +1365,8 @@ def phase2(seed, api, cfg, k, mods, timings, n=1_000_000, b=4096):
     levels = pyramid.level_for_radius(radii.int(), cfg)
     args = (s.index.pyr_tiles, q_grid.contiguous(), radii, levels, cfg.tile, cfg.level_nblks)
     ms, got = time_ms(lambda: mods["tile_count_multilevel"].tile_count_multilevel(*args))
+    dev_ms = device_ms(lambda: mods["tile_count_multilevel"].tile_count_multilevel(*args),
+                       "tile_count_multilevel_kernel")
     plain_ms, want = time_ms(lambda: ref.tile_count_multilevel(*args))
     check(torch.equal(got, want), "tile_count_multilevel differs at phase 2's first pass")
     cells = cfg.tile * cfg.tile
@@ -1250,7 +1375,8 @@ def phase2(seed, api, cfg, k, mods, timings, n=1_000_000, b=4096):
     distinct = int(torch.unique(read).numel())
     b_ms, b_by = bound(distinct * c * 4 + b * (2 * 4 + 4 + 4) + b * c * 4,
                        b * cells * 10 + read.numel() * c)
-    timings["tile_count_multilevel"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+    timings["tile_count_multilevel"] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                                        "bound_ms": b_ms,
                                         "bound_by": b_by, "max_abs_err": 0.0,
                                         "shape": f"PAPER_GRID B={b}",
                                         "distinct_cells": distinct}
@@ -1271,9 +1397,11 @@ def phase2(seed, api, cfg, k, mods, timings, n=1_000_000, b=4096):
     check(bool((levels == lv0).all()), "the first pass spans several levels")
     targs = (s.index.pyramid[lv0], q_grid.contiguous(), radii, 1 << lv0, cfg.tile)
     tc_ms, got = time_ms(lambda: mods["tile_count"].tile_count(*targs))
+    tc_dev_ms = device_ms(lambda: mods["tile_count"].tile_count(*targs), "tile_count_kernel")
     tc_plain_ms, want = time_ms(lambda: ref.tile_count(*targs))
     check(torch.equal(got, want), "tile_count differs at phase 2's first pass")
-    timings["tile_count"] = {"ms": tc_ms, "plain_ms": tc_plain_ms, "bound_ms": b_ms,
+    timings["tile_count"] = {"ms": tc_ms, "device_ms": tc_dev_ms, "plain_ms": tc_plain_ms,
+                             "bound_ms": b_ms,
                              "bound_by": b_by, "max_abs_err": 0.0,
                              "shape": f"PAPER_GRID B={b} level {lv0}", "distinct_cells": distinct}
 
@@ -1309,6 +1437,7 @@ def phase2(seed, api, cfg, k, mods, timings, n=1_000_000, b=4096):
     emit({
         "phase": 2, "config": "PAPER_GRID", "n": n, "d": 2, "B": b, "k": k,
         "build_s": build_s, "search_ms": run["search_wall_ms"],
+        "search_sha256": sha256_of(*res), "q8_search_sha256": sha256_of(*run_q["search"]),
         "queries_per_s": 1e3 * b / run["search_wall_ms"]["median"],
         "launches_per_search": run["per_search"], "launches_phase": run["launches"],
         **idle(prof, run["search_wall_ms"]["median"]),
@@ -1399,8 +1528,11 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
     st, en = window_spans(s.index, cfg, q_grid)
     args = (pts_pad, st, en, qc, k, n_live, cfg.row_cap)
     ms, got = time_ms(lambda: mods["csr_candidate_topk"].csr_candidate_topk(*args))
+    csr_dev_ms = device_ms(lambda: mods["csr_candidate_topk"].csr_candidate_topk(*args),
+                           "csr_candidate_topk_kernel")
     plain_ms, want = time_ms(lambda: ref.csr_candidate_topk(*args), reps=3)
     err, swaps = compare_topk(got, want, pts_pad, qc, "l2", 1e-5)
+    csr_sha = sha256_of(*got)
     # the distance work is per (query, row) pair; the bytes are the distinct
     # store rows the chunk's windows hold, since overlapping windows share rows
     s_cl = st.long().clamp(0, max(n_pad - cfg.row_cap, 0))
@@ -1413,9 +1545,9 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
     # gathered_ms: every (query, row) pair's row read from device memory,
     # the floor when the chunk's queries share no row in L2
     timings["csr_candidate_topk"] = {
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "gathered_ms": 1e3 * pairs * d * 4 / HBM_BYTES_PER_S,
-        "max_abs_err": err, "shape": f"PROD_GRID d={d} B={chunk}",
+        "ms": ms, "device_ms": csr_dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "gathered_ms": 1e3 * pairs * d * 4 / HBM_BYTES_PER_S,
+        "max_abs_err": err, "shape": f"PROD_GRID d={d} B={chunk}", "output_sha256": csr_sha,
         "valid_pairs": pairs, "distinct_rows": distinct, "tie_swaps": swaps,
         "smem_bytes": mods["csr_candidate_topk"].shared_bytes(d, cfg.window, cfg.row_cap),
         "ptxas": ptxas_of("csr_candidate_topk"),
@@ -1466,29 +1598,41 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
     key = torch.where(sl_c >= 0, sl_c, torch.full_like(sl_c, n_pad))
     sl_c = torch.gather(sl_c, 1, torch.sort(key, dim=1, stable=True).indices)
     rr = (pts_pad[sl_c.clamp_min(0).long()], sl_c >= 0, qc, k)
-    rr_ms, got = time_ms(lambda: mods["candidate_topk"].candidate_topk(*rr, d_chunk=d))
+    ctk = mods["candidate_topk"]
+    rr_ms, got = time_ms(lambda: ctk.candidate_topk(*rr, d_chunk=d))
+    rr_dev_ms = device_ms(lambda: ctk.candidate_topk(*rr, d_chunk=d), "candidate_topk_kernel")
     rr_plain_ms, want = time_ms(lambda: ref.candidate_topk(*rr, d_chunk=d))
+    rr_two_ms, _ = time_ms(lambda: two_call_topk(*rr))
     rr_err, rr_swaps = compare_dense(got, want, rr[0], qc, "l2", 1e-5)
+    rr_sha = sha256_of(*got)
     rows = int(rr[1].sum())
     rr_bound = bound(rows * d * 4 + chunk * (rk + d * 4 + k * 8), 3 * rows * d)
     # and at the gather shape: the chunk's whole materialised window
     cand = batched.gather_candidates_batched(s.index, cfg, q_grid, spans=(st, en))
     ga = (cand.points, cand.valid, qc, k)
     del cand
-    ga_ms, got = time_ms(lambda: mods["candidate_topk"].candidate_topk(*ga, d_chunk=d))
+    ga_ms, got = time_ms(lambda: ctk.candidate_topk(*ga, d_chunk=d))
+    ga_dev_ms = device_ms(lambda: ctk.candidate_topk(*ga, d_chunk=d), "candidate_topk_kernel")
     ga_plain_ms, want = time_ms(lambda: ref.candidate_topk(*ga, d_chunk=d), reps=3)
+    ga_two_ms, _ = time_ms(lambda: two_call_topk(*ga), reps=3)
     ga_err, ga_swaps = compare_dense(got, want, ga[0], qc, "l2", 1e-5)
+    ga_sha = sha256_of(*got)
     ga_bound = bound(pairs * d * 4 + chunk * (cfg.window * cfg.row_cap + d * 4 + k * 8),
                      3 * pairs * d)
     del ga, got, want
     timings["candidate_topk"] = {
-        "ms": rr_ms, "plain_ms": rr_plain_ms, "bound_ms": rr_bound[0], "bound_by": rr_bound[1],
-        "max_abs_err": max(rr_err, ga_err),
+        "ms": rr_ms, "device_ms": rr_dev_ms, "plain_ms": rr_plain_ms, "bound_ms": rr_bound[0],
+        "bound_by": rr_bound[1], "two_call_ms": rr_two_ms, "max_abs_err": max(rr_err, ga_err),
         "shape": f"PROD_GRID d={d} B={chunk} C={rk} (hopper_q8 re-rank)",
         "tie_swaps": rr_swaps + ga_swaps,
+        "smem_bytes": ctk.shared_bytes(d, rk), "ptxas": ptxas_of("candidate_topk"),
+        "output_sha256": rr_sha,
         "gather_shape": {"shape": f"B={chunk} C={cfg.window * cfg.row_cap}", "ms": ga_ms,
-                         "plain_ms": ga_plain_ms, "bound_ms": ga_bound[0],
-                         "bound_by": ga_bound[1], "max_abs_err": ga_err},
+                         "device_ms": ga_dev_ms, "plain_ms": ga_plain_ms,
+                         "bound_ms": ga_bound[0], "bound_by": ga_bound[1],
+                         "two_call_ms": ga_two_ms, "max_abs_err": ga_err,
+                         "output_sha256": ga_sha,
+                         "smem_bytes": ctk.shared_bytes(d, cfg.window * cfg.row_cap)},
     }
 
     # ---- hopper_gather on one chunk, equal to hopper in every field
@@ -1501,6 +1645,7 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
         "phase": 3, "config": "PROD_GRID, SIFT1M-shaped planted data", "n": n, "d": d,
         "B": b, "k": k, "chunk_size": chunk, "build_s": build_s,
         "search_ms": run["search_wall_ms"],
+        "search_sha256": sha256_of(*res), "q8_search_sha256": sha256_of(*res_q),
         "queries_per_s": 1e3 * b / run["search_wall_ms"]["median"],
         "launches_per_search": run["per_search"],
         **idle(prof, run["search_wall_ms"]["median"]),
@@ -1709,8 +1854,8 @@ def kernels_line(max_err: dict, timings: dict, launches: dict) -> dict:
          "plain_ms": timings[name]["plain_ms"], "bound_ms": timings[name]["bound_ms"],
          "bound_by": timings[name]["bound_by"], "library_ms": timings[name].get("library_ms"),
          "shape": timings[name]["shape"],
-         **({"two_call_ms": timings[name]["two_call_ms"]} if "two_call_ms" in timings[name] else {}),
-         **({"library": timings[name]["library"]} if "library" in timings[name] else {}),
+         **{key: timings[name][key] for key in ("device_ms", "two_call_ms", "library",
+                                                 "output_sha256") if key in timings[name]},
          **{key: timings[name][key] for key in extra.get(name, ())}}
         for name, (src, replaces) in KERNELS.items()
     ]}

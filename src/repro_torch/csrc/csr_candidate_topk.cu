@@ -19,68 +19,37 @@
 // bound assumes queries share rows in L2; counted per (query, row) pair
 // ("gathered" bytes) it is the floor when they share nothing.
 //
-// Design: one block of 256 threads per query; a tile is 256 consecutive window
-// slots, one per thread, and a stage is TD = 32 feature dims (one 128-byte line
-// of each row) of a tile.  Tiles go from the window's middle out (nearest
-// first).  The row_cap slots of one window row are contiguous store rows, so a
-// tile's valid rows are a few contiguous blocks of the store, as the TPU
-// kernel's DMA of each window row into VMEM reads them.  Stages reach shared
-// memory by cp.async (16-byte copies when d is a multiple of 4 and the store
-// 16-byte aligned, else 4-byte copies) through a ring of CSR_STAGES = 2 slots,
-// so the copies of the next stage overlap this stage's distances; each warp
-// copies its own 32 rows, neighbouring lanes on neighbouring bytes (a row's
-// slot and validity come from its owner by a shuffle), and invalid slots copy
-// nothing.  Staged rows are TD + 4 floats apart, so the 16-byte reads of a
-// quarter-warp fall in distinct banks.  Each thread then adds its own row's
-// terms from shared memory in exactly chunked_distance's order, through
-// kernel_common.cuh's ChunkedSum (per d_chunk block, in feature order, with
-// __fsub_rn / __fmul_rn / __fadd_rn); its partial sums carry across stages.
-// After a tile's last stage each valid slot offers its distance to
-// kernel_common.cuh's filter-then-merge top-k, whose buffer is checked at the
-// next stage's barrier.  Shared memory: the ring (2 x 256 x 36 floats), the
-// rows of the tiles in flight (2 x 256), the query (4*d bytes) and the top-k's
-// buffer and list (5,136 bytes): 80,912 + 4*d bytes whatever w*row_cap, so two
-// blocks share an SM.  Measured on the card at phase 3's chunk, 32 dims and 2
-// stages beat 16 dims and 2-4 stages (a row's 64-byte halves fetched a stage
-// apart) and 64 dims.  Rows of d < 32 floats are read straight from device
-// memory instead (see STAGED).
+// Design: one block of 256 threads per query, over the query's w*row_cap
+// window slots from the middle out (nearest first).  The row_cap slots of
+// one window row are contiguous store rows, so a tile's valid rows are a few
+// contiguous blocks of the store, as the TPU kernel's DMA of each window row
+// into VMEM reads them.  Rows of d >= 32 floats take kernel_common.cuh's
+// staged_rank: tiles of 256 slots, one per thread, staged 32 feature dims
+// (one 128-byte line of each row) at a time by cp.async through a 2-stage
+// ring, each warp copying its own 32 rows with neighbouring lanes on
+// neighbouring bytes, each thread summing its own row from shared memory
+// through ChunkedSum, and a tile's distances offered to the filter-then-merge
+// top-k after its last stage.  Shared memory: the ring (2 x 256 x 36 floats),
+// the rows of the tiles in flight (2 x 256), the query (4*d bytes) and the
+// top-k's buffer and list (5,136 bytes): 80,912 + 4*d bytes whatever
+// w*row_cap, so two blocks share an SM.  Measured on the card at phase 3's
+// chunk, 32 dims and 2 stages beat 16 dims and 2-4 stages (a row's 64-byte
+// halves fetched a stage apart) and 64 dims.  Rows of d < 32 floats take
+// direct_rank instead: each thread reads its own rows from device memory (a
+// warp's 32 rows are a few contiguous runs of the store, read in a few
+// lines).  candidate_topk.cu walks its dense window with the same two
+// walks; only the slot locator differs.
 //
 // Numerics: every row gets the float that chunked_distance gives it, so
-// this kernel and candidate_topk.cu (which reads the same row from device
-// memory) agree bit for bit (built with -fmad=false; no FMA, no fast
-// math).
+// this kernel and candidate_topk.cu agree bit for bit on the same row
+// (built with -fmad=false; no FMA, no fast math).
 
 #include <stdint.h>
 
 #include "kernel_common.cuh"
 
-#define CSR_TD 32                  // feature dims per stage
-#define CSR_LD (CSR_TD + 4)        // staged row stride (floats)
-#define CSR_STAGES 2               // ring slots
-#define CSR_TR TOPK_THREADS        // rows per tile: one per thread
-#define FULL_MASK 0xffffffffu
-
-__device__ __forceinline__ void csr_cp_async(float* dst, const float* src, int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void csr_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most CSR_STAGES - 2 of this thread's copy groups are in flight.
-__device__ __forceinline__ void csr_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(CSR_STAGES - 2) : "memory");
-}
-
-// STAGED: rows reach shared memory through the ring (d >= CSR_TD); else
-// each thread reads its own rows from device memory (d < CSR_TD: a warp's
-// 32 rows are a few contiguous runs of the store, read in a few lines),
-// chunk by chunk as candidate_topk.cu does, with no barrier between rows.
+// STAGED: rows reach shared memory through staged_rank's ring (d >=
+// STAGE_TD); else direct_rank reads them from device memory.
 template <bool STAGED>
 __global__ void csr_candidate_topk_kernel(
     const float* __restrict__ store,    // (n_pad, d)
@@ -93,14 +62,13 @@ __global__ void csr_candidate_topk_kernel(
     int w, int row_cap, int d, int n_pad, int n, int k, int d_chunk,
     int metric_l1, int center_cells, int vec) {
   extern __shared__ __align__(16) float smem[];
-  float* ring = smem;                                    // CSR_STAGES x CSR_TR x CSR_LD
-  int* rows = (int*)(ring + CSR_STAGES * CSR_TR * CSR_LD);  // CSR_STAGES x CSR_TR: row or -1
-  float* qs = STAGED ? (float*)(rows + CSR_STAGES * CSR_TR) : smem;  // d
+  float* ring = smem;                                          // STAGE_RING x STAGE_TR x STAGE_LD
+  int* rows = (int*)(ring + STAGE_RING * STAGE_TR * STAGE_LD);  // STAGE_RING x STAGE_TR
+  float* qs = STAGED ? (float*)(rows + STAGE_RING * STAGE_TR) : smem;  // d
   __shared__ TopkShared top;
 
   const int b = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int c = tid; c < d; c += blockDim.x) qs[c] = queries[(long long)b * d + c];
+  for (int c = threadIdx.x; c < d; c += blockDim.x) qs[c] = queries[(long long)b * d + c];
   float* od = out_d + (long long)b * k;
   int* oi = out_i + (long long)b * k;
   const TopkList list = topk_init(top, od, oi, k);
@@ -118,105 +86,20 @@ __global__ void csr_candidate_topk_kernel(
     return j >= st && j < en && j < n ? j : -1;
   };
   const float r_b = radii != nullptr ? radii[b] : 0.0f;
+  auto keep = [&](float dd) { return radii == nullptr || dd <= r_b; };
 
   if constexpr (!STAGED) {
-    // chunks of TOPK_CHUNK slots, the window's middle first: distances into
-    // shared memory with no barrier between slots, then offered
     __shared__ float sc[TOPK_CHUNK];
-    __syncthreads();
-    for (int ci = 0; ci < chunk_steps(slots); ++ci) {
-      const int2 r = centred_chunk(ci, slots);
-      if (r.x >= r.y) continue;
-      const int c0 = r.x, cn = r.y - r.x;
-      for (int i = tid; i < cn; i += blockDim.x) {
-        const int j = slot_row(c0 + i);
-        float v = INFINITY;
-        if (j >= 0) {
-          const float dd = chunked_distance(store + (long long)j * d, qs, d, d_chunk, metric_l1,
-                                            center_cells);
-          if (radii == nullptr || dd <= r_b) v = dd;
-        }
-        sc[i] = v;
-      }
-      topk_offer_chunk(top, list, sc, c0, cn);
-    }
+    direct_rank(top, list, sc, slots, [&](int s) {
+      const int j = slot_row(s);
+      if (j < 0) return INFINITY;
+      const float dd = chunked_distance(store + (long long)j * d, qs, d, d_chunk, metric_l1,
+                                        center_cells);
+      return keep(dd) ? dd : INFINITY;
+    });
   } else {
-    const int ntiles = (slots + CSR_TR - 1) / CSR_TR;
-    const int nd = (d + CSR_TD - 1) / CSR_TD;              // stages per tile
-    const int total = ntiles * nd;                         // stages in all
-    const int gbytes = vec ? 16 : 4;                       // bytes per copy
-    const int gpr = CSR_TD * 4 / gbytes;                   // copies per row and stage
-
-    // Issue the copies of stage t (the (t / nd)-th tile in middle-out
-    // order, dims (t % nd)·TD ..) into ring slot t % CSR_STAGES; with a
-    // tile's first stage, each thread also finds its own slot's row (-1 if
-    // invalid) and keeps it in `rows` (a ring of CSR_STAGES tiles: copies
-    // run at most CSR_STAGES - 1 stages ahead).
-    auto issue = [&](int t) {
-      const int ti = t / nd, c0 = (t - ti * nd) * CSR_TD, slot = t % CSR_STAGES;
-      int j;
-      if (c0 == 0) {
-        j = slot_row(middle_out(ti, ntiles) * CSR_TR + tid);
-        rows[(ti % CSR_STAGES) * CSR_TR + tid] = j;
-      } else {
-        j = rows[(ti % CSR_STAGES) * CSR_TR + tid];
-      }
-      float* dst = ring + slot * CSR_TR * CSR_LD;
-      for (int m = 0; m < gpr; ++m) {
-        const int r = m * (32 / gpr) + lane / gpr;  // this copy's row within the warp
-        const int rj = __shfl_sync(FULL_MASK, j, r);
-        const int c = c0 + (lane % gpr) * (gbytes / 4);
-        if (rj >= 0 && c < d)
-          csr_cp_async(dst + (warp * 32 + r) * CSR_LD + (c - c0), store + (long long)rj * d + c,
-                       gbytes);
-      }
-      csr_commit();
-    };
-
-    for (int t = 0; t < CSR_STAGES - 1; ++t) {
-      if (t < total) issue(t); else csr_commit();
-    }
-
-    ChunkedSum sum(d_chunk);  // this thread's row, carried across its tile's stages
-    bool full = false;        // this thread's offer asked for a merge
-    for (int t = 0; t < total; ++t) {
-      const int ti = t / nd, c0 = (t - ti * nd) * CSR_TD;
-      const int slot = t % CSR_STAGES;
-      csr_wait_ring();  // this thread's copies of stage t have landed
-      topk_check(top, list, full);  // a barrier: every thread's have, slot t-1 is free
-      full = false;
-      if (t + CSR_STAGES - 1 < total) issue(t + CSR_STAGES - 1); else csr_commit();
-
-      const int j = rows[(ti % CSR_STAGES) * CSR_TR + tid];
-      const int dn = min(CSR_TD, d - c0);
-      if (j >= 0) {
-        const float* x = ring + (slot * CSR_TR + tid) * CSR_LD;
-        sum.boundary(c0, d_chunk);  // a chunk may end where the stage starts
-        if (dn == CSR_TD && c0 + CSR_TD <= sum.next) {  // a whole stage inside one chunk
-  #pragma unroll
-          for (int g = 0; g < CSR_TD / 4; ++g) {
-            const float4 x4 = *reinterpret_cast<const float4*>(x + 4 * g);
-            sum.add(x4.x, qs[c0 + 4 * g], metric_l1, center_cells);
-            sum.add(x4.y, qs[c0 + 4 * g + 1], metric_l1, center_cells);
-            sum.add(x4.z, qs[c0 + 4 * g + 2], metric_l1, center_cells);
-            sum.add(x4.w, qs[c0 + 4 * g + 3], metric_l1, center_cells);
-          }
-        } else {
-          for (int c = c0; c < c0 + dn; ++c) {
-            sum.boundary(c, d_chunk);
-            sum.add(x[c - c0], qs[c], metric_l1, center_cells);
-          }
-        }
-      }
-      if (c0 + dn == d) {  // the tile's last stage: its distances are complete
-        if (j >= 0) {
-          const float dd = sum.finish(metric_l1);
-          if (radii == nullptr || dd <= r_b)
-            full = topk_offer(top, dd, middle_out(ti, ntiles) * CSR_TR + tid);
-        }
-        sum = ChunkedSum(d_chunk);
-      }
-    }
+    staged_rank(top, list, ring, rows, STAGE_TR, store, qs, slots, d, d_chunk, metric_l1,
+                center_cells, vec, slot_row, keep);
   }
   topk_finish(top, list, od, oi, [&](int s) {
     const int wr = s / row_cap;
@@ -229,8 +112,9 @@ extern "C" int csr_candidate_topk_launch(
     const void* queries, const void* radii, void* out_d, void* out_i, int B,
     int w, int row_cap, int d, int n_pad, int n, int k, int d_chunk,
     int metric_l1, int center_cells, void* stream) {
-  const bool staged = d >= CSR_TD;
-  const size_t smem = (staged ? (size_t)CSR_STAGES * CSR_TR * (CSR_LD + 1) * 4 : 0) + (size_t)d * 4;
+  const bool staged = d >= STAGE_TD;
+  const size_t smem =
+      (staged ? (size_t)STAGE_RING * STAGE_TR * (STAGE_LD + 1) * 4 : 0) + (size_t)d * 4;
   const auto kernel = staged ? csr_candidate_topk_kernel<true> : csr_candidate_topk_kernel<false>;
   const int e = allow_shared_bytes(kernel, smem);
   if (e != 0) return e;

@@ -1,15 +1,18 @@
 // Device code shared by the port's kernels (included by the .cu sources).
 //
-// One definition each of the four pieces whose results must agree
-// between kernels: the chunked l1/l2 row distance (chunked_distance in
-// candidate_topk and csr_candidate_topk at d < 32, ChunkedSum in the staged
-// csr_candidate_topk, both built on distance_term and fold_chunk), the
-// circle mask of a pyramid cell (tile_count, tile_count_multilevel,
-// radius_search_loop), the level window of a count (level_window and
-// window_cell: tile_count_multilevel, radius_search_loop) and the exact
-// top-k selection (every candidate kernel).  Two kernels that rank the same row therefore produce the same
-// float, which the reference's "shortlist containment => bit parity"
-// contract and hopper_gather == hopper rest on.
+// One definition each of the pieces whose results must agree between
+// kernels: the chunked l1/l2 row distance (chunked_distance in the direct
+// walk of rows of d < 32, ChunkedSum in the staged walk, both built on
+// distance_term and fold_chunk), the circle mask of a pyramid cell
+// (tile_count, tile_count_multilevel, radius_search_loop), the level window
+// of a count (level_window and window_cell: tile_count_multilevel,
+// radius_search_loop), the exact top-k selection (every candidate kernel)
+// and the two walks of a float32 candidate kernel over its window
+// (direct_rank, staged_rank: csr_candidate_topk and candidate_topk, which
+// differ only in how a slot locates its row).  Two kernels that rank the
+// same row therefore produce the same float, which the reference's
+// "shortlist containment => bit parity" contract and hopper_gather ==
+// hopper rest on.
 //
 // Numerics: the sources are built with -fmad=false, and every product and
 // sum here is written with __fmul_rn / __fadd_rn / __fsub_rn, so no FMA
@@ -57,7 +60,7 @@ __device__ __forceinline__ float chunked_distance(
 }
 
 // chunked_distance's sum for a row that arrives in pieces, feature by
-// feature in order (csr_candidate_topk.cu's stages): call boundary(c)
+// feature in order (staged_rank's stages): call boundary(c)
 // before feature c's term wherever a chunk may end at c, then add().
 struct ChunkedSum {
   float acc, part;
@@ -360,6 +363,157 @@ __device__ __forceinline__ void topk_finish(TopkShared& t, TopkList l, float* ou
     const int s = l.s[i];
     out_d[i] = v;
     out_i[i] = v < INFINITY ? row_of(s) : -1;
+  }
+}
+
+// ---- The two walks of a float32 candidate kernel (csr_candidate_topk.cu,
+// candidate_topk.cu) over its query's window of `slots` slots.  A kernel
+// gives each walk a slot locator; the walks rank what it locates.
+
+// Rows of d < STAGE_TD floats: chunks of TOPK_CHUNK slots, the window's
+// middle first; each thread computes its slots' scores (score(s): the
+// distance, or +inf where slot s is no candidate) straight from device
+// memory into sc (shared, TOPK_CHUNK floats), with no barrier between
+// slots, so a thread's loads of several rows overlap; then the chunk is
+// offered.  Every thread calls it after topk_init and the query's staging.
+template <typename Score>
+__device__ __forceinline__ void direct_rank(TopkShared& top, TopkList list, float* sc, int slots,
+                                            Score score) {
+  __syncthreads();
+  for (int ci = 0; ci < chunk_steps(slots); ++ci) {
+    const int2 r = centred_chunk(ci, slots);
+    if (r.x >= r.y) continue;
+    const int c0 = r.x, cn = r.y - r.x;
+    for (int i = threadIdx.x; i < cn; i += blockDim.x) sc[i] = score(c0 + i);
+    topk_offer_chunk(top, list, sc, c0, cn);
+  }
+}
+
+// Rows of d >= STAGE_TD floats, staged.  A tile is STAGE_TR = 256
+// consecutive slots, one per thread, and a stage is STAGE_TD = 32 feature
+// dims (one 128-byte line of each row) of a tile.  Tiles go from the
+// window's middle out (nearest first).  Stages reach shared memory by
+// cp.async (16-byte copies when vec: d a multiple of 4 and `base` 16-byte
+// aligned; else 4-byte copies) through a ring of STAGE_RING = 2 slots, so
+// the copies of the next stage overlap this stage's distances; each warp
+// copies its own 32 rows, neighbouring lanes on neighbouring bytes (a row's
+// number comes from its owner by a shuffle), and slots that are no
+// candidate copy nothing.  Staged rows are STAGE_LD = STAGE_TD + 4 floats
+// apart, so the 16-byte reads of a quarter-warp fall in distinct banks.
+// Each thread adds its own row's terms from shared memory in exactly
+// chunked_distance's order through ChunkedSum (per d_chunk block, in
+// feature order); its partial sums carry across stages.  After a tile's
+// last stage each located slot whose distance keep() accepts is offered to
+// the top-k, whose buffer is checked at the next stage's barrier.
+//
+// row_of(s): slot s's row, base + row * d (-1: no candidate; slots >= the
+// window's are never located).  ring: STAGE_RING * tile_rows * STAGE_LD
+// floats; tile_rows = STAGE_TR, or fewer (a multiple of 32, at least the
+// slots) for a window of one partial tile.  rows: STAGE_RING * STAGE_TR
+// ints.  Every thread calls it after topk_init and the query's staging
+// into qs; the first stage's barrier publishes both.
+#define STAGE_TD 32                // feature dims per stage
+#define STAGE_LD (STAGE_TD + 4)    // staged row stride (floats)
+#define STAGE_RING 2               // ring slots
+#define STAGE_TR TOPK_THREADS      // slots per tile: one per thread
+
+__device__ __forceinline__ void stage_cp_async(float* dst, const float* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void stage_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most STAGE_RING - 2 of this thread's copy groups are in flight.
+__device__ __forceinline__ void stage_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGE_RING - 2) : "memory");
+}
+
+template <typename RowOf, typename Keep>
+__device__ __forceinline__ void staged_rank(
+    TopkShared& top, TopkList list, float* ring, int* rows, int tile_rows,
+    const float* __restrict__ base, const float* qs, int slots, int d, int d_chunk,
+    int metric_l1, int center_cells, int vec, RowOf row_of, Keep keep) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ntiles = (slots + STAGE_TR - 1) / STAGE_TR;
+  const int nd = (d + STAGE_TD - 1) / STAGE_TD;          // stages per tile
+  const int total = ntiles * nd;                         // stages in all
+  const int gbytes = vec ? 16 : 4;                       // bytes per copy
+  const int gpr = STAGE_TD * 4 / gbytes;                 // copies per row and stage
+
+  // Issue the copies of stage t (the (t / nd)-th tile in middle-out order,
+  // dims (t % nd)·TD ..) into ring slot t % STAGE_RING; with a tile's first
+  // stage, each thread also locates its own slot's row (-1 if none) and
+  // keeps it in `rows` (a ring of STAGE_RING tiles: copies run at most
+  // STAGE_RING - 1 stages ahead).
+  auto issue = [&](int t) {
+    const int ti = t / nd, c0 = (t - ti * nd) * STAGE_TD, slot = t % STAGE_RING;
+    int j;
+    if (c0 == 0) {
+      j = row_of(middle_out(ti, ntiles) * STAGE_TR + tid);
+      rows[(ti % STAGE_RING) * STAGE_TR + tid] = j;
+    } else {
+      j = rows[(ti % STAGE_RING) * STAGE_TR + tid];
+    }
+    float* dst = ring + slot * tile_rows * STAGE_LD;
+    for (int m = 0; m < gpr; ++m) {
+      const int r = m * (32 / gpr) + lane / gpr;  // this copy's row within the warp
+      const int rj = __shfl_sync(0xffffffffu, j, r);
+      const int c = c0 + (lane % gpr) * (gbytes / 4);
+      if (rj >= 0 && c < d)
+        stage_cp_async(dst + (warp * 32 + r) * STAGE_LD + (c - c0), base + (long long)rj * d + c,
+                       gbytes);
+    }
+    stage_commit();
+  };
+
+  for (int t = 0; t < STAGE_RING - 1; ++t) {
+    if (t < total) issue(t); else stage_commit();
+  }
+
+  ChunkedSum sum(d_chunk);  // this thread's row, carried across its tile's stages
+  bool full = false;        // this thread's offer asked for a merge
+  for (int t = 0; t < total; ++t) {
+    const int ti = t / nd, c0 = (t - ti * nd) * STAGE_TD;
+    const int slot = t % STAGE_RING;
+    stage_wait_ring();  // this thread's copies of stage t have landed
+    topk_check(top, list, full);  // a barrier: every thread's have, slot t-1 is free
+    full = false;
+    if (t + STAGE_RING - 1 < total) issue(t + STAGE_RING - 1); else stage_commit();
+
+    const int j = rows[(ti % STAGE_RING) * STAGE_TR + tid];
+    const int dn = min(STAGE_TD, d - c0);
+    if (j >= 0) {
+      const float* x = ring + (slot * tile_rows + tid) * STAGE_LD;
+      sum.boundary(c0, d_chunk);  // a chunk may end where the stage starts
+      if (dn == STAGE_TD && c0 + STAGE_TD <= sum.next) {  // a whole stage inside one chunk
+#pragma unroll
+        for (int g = 0; g < STAGE_TD / 4; ++g) {
+          const float4 x4 = *reinterpret_cast<const float4*>(x + 4 * g);
+          sum.add(x4.x, qs[c0 + 4 * g], metric_l1, center_cells);
+          sum.add(x4.y, qs[c0 + 4 * g + 1], metric_l1, center_cells);
+          sum.add(x4.z, qs[c0 + 4 * g + 2], metric_l1, center_cells);
+          sum.add(x4.w, qs[c0 + 4 * g + 3], metric_l1, center_cells);
+        }
+      } else {
+        for (int c = c0; c < c0 + dn; ++c) {
+          sum.boundary(c, d_chunk);
+          sum.add(x[c - c0], qs[c], metric_l1, center_cells);
+        }
+      }
+    }
+    if (c0 + dn == d) {  // the tile's last stage: its distances are complete
+      if (j >= 0) {
+        const float dd = sum.finish(metric_l1);
+        if (keep(dd)) full = topk_offer(top, dd, middle_out(ti, ntiles) * STAGE_TR + tid);
+      }
+      sum = ChunkedSum(d_chunk);
+    }
   }
 }
 

@@ -13,62 +13,63 @@
 // level (3 KB at T=16, C=3) and does about ten float operations per cell;
 // at the path's batch sizes the launch itself is a large share.
 //
-// Design: tile_count_multilevel.cu's, at one level.  One block per query,
-// one thread per window cell (threads stride when T*T exceeds the block);
-// neighbouring threads read neighbouring cells of a window row, and
-// per-channel int32 sums reduce exactly (warp shuffles, then shared-memory
-// atomics), 32 channels at a time, so any channel count fits one fixed
-// shared array.  The TPU kernel's 2x2 cover of T-aligned tiles with duplicate
-// blanking has no counterpart: the block reads the window itself.  The mask
+// Design: radius_search_loop.cu's layout, for one pass.  One warp per
+// query, WARPS queries per block: a query's window is 256 cells at T = 16,
+// eight per lane, where a block per query left most of its threads idle
+// and paid two barriers and a shared-memory atomic per channel pass.  The
+// warp's 32 lanes stride over the window's cells (neighbouring lanes on
+// neighbouring cells of a window row, so a warp's loads fall in a few
+// lines).  One channel at a time, each lane sums its in-circle cells in
+// int32, an xor-shuffle reduction gives every lane the total, and lane c
+// (mod 32) writes channel c, so any channel count fits; no shared memory,
+// no atomics, no barriers.  The tile side of the configurations, 16, has
+// its own instance, in which the cell loop has a fixed trip count (8) and
+// the divisions by T are shifts, so the loop unrolls and a lane's 8 loads
+// of a channel are in flight together: a cold window costs one round of
+// dependent loads rather than eight (on an H100 at chip_smoke.py phase 2's
+// first pass: 0.0043 ms, against 0.0088 ms with one load in flight per lane
+// and 0.0120 ms for a block per query).  Other sides take the generic
+// instance.  The TPU kernel's 2x2 cover of T-aligned tiles with duplicate
+// blanking has no counterpart: the warp reads the window itself.  The mask
 // is kernel_common.cuh's cell_in_circle, shared with
-// tile_count_multilevel.cu (built with -fmad=false, so a boundary cell
-// rounds as the reference rounds it).
+// tile_count_multilevel.cu and radius_search_loop.cu (built with
+// -fmad=false, so a boundary cell rounds as the reference rounds it); int32
+// sums are exact in any order.
 
 #include "kernel_common.cuh"
 
-#define CHUNK_C 32  // channels reduced per pass over the window
-#define THREADS 256
+#define WARPS 4  // queries per block, one warp each
 
+// TT: the tile side when it is known at compile time (16), else 0 and T_arg.
+template <int TT>
 __global__ void tile_count_kernel(
     const int* __restrict__ level,   // (S, S, C)
     const float* __restrict__ q,     // (B, 2)
     const float* __restrict__ radii, // (B,)
     int* __restrict__ out,           // (B, C)
-    int S, int T, int C, int scale, int metric_l1) {
-  __shared__ int red[CHUNK_C];
-
-  const int b = blockIdx.x;
+    int B, int S, int T_arg, int C, int scale, int metric_l1) {
+  const int T = TT ? TT : T_arg;
+  const int per_lane = (T * T + 31) / 32;  // cells per lane
+  const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (b >= B) return;  // a whole warp: b is the warp's
+  const int lane = threadIdx.x & 31;
   const float sc = (float)scale;
   const float qx = q[2 * b], qy = q[2 * b + 1];
   const float r = radii[b];
   const int ox = min(max((int)floorf(qx / sc) - T / 2, 0), S - T);
   const int oy = min(max((int)floorf(qy / sc) - T / 2, 0), S - T);
 
-  const int lane = threadIdx.x & 31;
-  const int cells = T * T;
-  for (int c0 = 0; c0 < C; c0 += CHUNK_C) {
-    const int cn = min(CHUNK_C, C - c0);
-    for (int c = threadIdx.x; c < cn; c += blockDim.x) red[c] = 0;
-    __syncthreads();
-    for (int cell0 = 0; cell0 < cells; cell0 += blockDim.x) {
-      const int cell = cell0 + threadIdx.x;
-      bool inside = false;
-      long long base = 0;
-      if (cell < cells) {
-        const int x = ox + cell / T;
-        const int y = oy + cell % T;
-        inside = cell_in_circle(x, y, sc, qx, qy, r, metric_l1);
-        base = ((long long)x * S + y) * C + c0;
-      }
-      for (int c = 0; c < cn; ++c) {
-        int v = inside ? level[base + c] : 0;
-        for (int s = 16; s > 0; s >>= 1) v += __shfl_down_sync(0xffffffffu, v, s);
-        if (lane == 0 && v != 0) atomicAdd(&red[c], v);
-      }
+  for (int c = 0; c < C; ++c) {
+    int n = 0;
+#pragma unroll
+    for (int i = 0; i < per_lane; ++i) {
+      const int cell = lane + 32 * i;
+      const int x = ox + cell / T, y = oy + cell % T;
+      if (cell < T * T && cell_in_circle(x, y, sc, qx, qy, r, metric_l1))
+        n += level[((long long)x * S + y) * C + c];
     }
-    __syncthreads();
-    for (int c = threadIdx.x; c < cn; c += blockDim.x) out[(long long)b * C + c0 + c] = red[c];
-    __syncthreads();  // red is zeroed again for the next chunk
+    for (int s = 16; s > 0; s >>= 1) n += __shfl_xor_sync(0xffffffffu, n, s);
+    if (lane == (c & 31)) out[(long long)b * C + c] = n;
   }
 }
 
@@ -76,8 +77,10 @@ extern "C" int tile_count_launch(const void* level, const void* q,
                                  const void* radii, void* out, int B, int S,
                                  int T, int C, int scale, int metric_l1,
                                  void* stream) {
-  tile_count_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)level, (const float*)q, (const float*)radii, (int*)out, S,
+  const int blocks = (B + WARPS - 1) / WARPS;
+  auto kernel = T == 16 ? tile_count_kernel<16> : tile_count_kernel<0>;
+  kernel<<<blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
+      (const int*)level, (const float*)q, (const float*)radii, (int*)out, B, S,
       T, C, scale, metric_l1);
   return (int)cudaGetLastError();
 }

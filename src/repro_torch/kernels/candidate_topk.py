@@ -26,6 +26,17 @@ launches = 0              # kernel launches so far (chip_smoke resets and reads 
 # offers them.  chip_smoke.py holds both against ptxas's count.
 TOPK_SHARED_BYTES = 8 * (512 + 128) + 16
 TOPK_CHUNK = 4096
+# kernel_common.cuh's staged walk (STAGE_RING, STAGE_TR, STAGE_TD): rows of
+# d >= TILE_DIMS floats reach shared memory TILE_DIMS dims at a time, in
+# tiles of TILE_ROWS slots, through a ring of STAGES slots; a staged row
+# takes TILE_DIMS + 4 floats
+STAGES, TILE_ROWS, TILE_DIMS = 2, 256, 32
+
+
+def staged_bytes(tile_rows: int) -> int:
+    """The staged walk's ring (tile_rows rows per slot) and the row numbers
+    of the tiles in flight (TILE_ROWS per slot)."""
+    return STAGES * (tile_rows * (TILE_DIMS + 4) + TILE_ROWS) * 4
 
 
 @functools.cache  # bound once, not on every launch
@@ -36,12 +47,19 @@ def _launcher():
     return fn
 
 
+def tile_rows(c: int) -> int:
+    """Ring rows per slot: a whole tile, or a window of one partial tile's
+    slots rounded up to a warp (csrc/candidate_topk.cu's launcher)."""
+    return min(TILE_ROWS, max(32, -(-c // 32) * 32))
+
+
 def shared_bytes(d: int, c: int) -> int:
-    """Shared memory of one block: the query, a chunk of staged distances,
-    and the top-k's buffer and list.  It does not grow with the candidates
-    (C)."""
-    del c
-    return 4 * d + 4 * TOPK_CHUNK + TOPK_SHARED_BYTES
+    """Shared memory of one block: at d >= TILE_DIMS the staged walk's ring
+    and row numbers, below it a chunk of staged distances; the query, and
+    the top-k's buffer and list.  It does not grow with the candidates (C)
+    past one tile."""
+    staged = staged_bytes(tile_rows(c)) if d >= TILE_DIMS else 4 * TOPK_CHUNK
+    return staged + 4 * d + TOPK_SHARED_BYTES
 
 
 def candidate_topk(

@@ -16,11 +16,12 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.candidate_topk import TOPK_CHUNK, TOPK_SHARED_BYTES
+from repro_torch.kernels.candidate_topk import (
+    TILE_DIMS, TILE_ROWS, TOPK_CHUNK, TOPK_SHARED_BYTES, staged_bytes,
+)
 from repro_torch.kernels.ref import check_csr_args
 
 SOURCE = "csr_candidate_topk"
-STAGES, TILE_ROWS, TILE_DIMS = 2, 256, 32  # CSR_STAGES, CSR_TR, CSR_TD in the source
 launches = 0              # kernel launches so far (chip_smoke resets and reads it)
 
 
@@ -38,7 +39,7 @@ def shared_bytes(d: int, w: int, row_cap: int) -> int:
     chunk of staged distances; the query, and the top-k's buffer and list.
     It does not grow with the window (w, row_cap)."""
     del w, row_cap
-    staged = STAGES * TILE_ROWS * (TILE_DIMS + 4 + 1) * 4 if d >= TILE_DIMS else 4 * TOPK_CHUNK
+    staged = staged_bytes(TILE_ROWS) if d >= TILE_DIMS else 4 * TOPK_CHUNK
     return staged + 4 * d + TOPK_SHARED_BYTES
 
 

@@ -464,41 +464,47 @@ def test_gpu_csr_candidate_topk_kernel_matches_plain(paper):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("tile", [8, 16])
 @pytest.mark.parametrize("c", [3, 40])
 @pytest.mark.parametrize("metric", ["l2", "l1"])
-def test_gpu_tile_count_kernel_matches_plain(metric, c):
+def test_gpu_tile_count_kernel_matches_plain(metric, c, tile):
     """Every level of a 128-grid pyramid, grid corners included, 3 and 40
-    channels: exact."""
+    channels, both instances (T = 16 with shifts, the generic one at T =
+    8), 512 queries, one, and 509 (not a multiple of a block's 4): exact."""
     dev = require_cuda()
     from repro_torch.kernels import tile_count as tc
 
-    cfg, idx, rng = _pyramid_fixture(seed=22, grid=128, tile=16, c=c)
+    cfg, idx, rng = _pyramid_fixture(seed=22, grid=128, tile=tile, c=c)
     g = cfg.padded_size
     q = np.concatenate([np.array([[0, 0], [g - 1e-3, g - 1e-3], [0, g - 1e-3], [g - 1e-3, 0]],
                                  np.float32),
                         rng.uniform(0, g, size=(508, 2)).astype(np.float32)])
     r = rng.uniform(0.5, cfg.max_radius, size=(512,)).astype(np.float32)
     for lv, arr in enumerate(idx.pyramid):
-        args = (_t(arr), _t(q), _t(r))
-        want = ref.tile_count(*args, 1 << lv, cfg.tile, metric=metric)
-        got = tc.tile_count(*[a.to(dev) for a in args], 1 << lv, cfg.tile, metric=metric)
-        torch.cuda.synchronize()
-        np.testing.assert_array_equal(np_(got), np_(want), err_msg=f"level {lv}")
+        for bq in (512, 1, 509):
+            args = (_t(arr), _t(q[:bq]), _t(r[:bq]))
+            want = ref.tile_count(*args, 1 << lv, cfg.tile, metric=metric)
+            got = tc.tile_count(*[a.to(dev) for a in args], 1 << lv, cfg.tile, metric=metric)
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(np_(got), np_(want), err_msg=f"level {lv}, B={bq}")
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d_chunk", [None, 4])
-def test_gpu_candidate_topk_kernel_matches_plain_and_csr_kernel(d_chunk):
+@pytest.mark.parametrize("d", [11, 37, 128])
+@pytest.mark.parametrize("d_chunk", [None, 4, 5])
+def test_gpu_candidate_topk_kernel_matches_plain_and_csr_kernel(d_chunk, d):
     """Against the plain version (slots exact, distances within DIST_RTOL),
-    and bit-equal to the csr_candidate_topk kernel on the same rows."""
+    and bit-equal to the csr_candidate_topk kernel on the same rows: rows
+    read directly (d = 11), staged by 4-byte (37) and 16-byte copies
+    (128), chunk boundaries inside a stage (d_chunk = 4, 5)."""
     dev = require_cuda()
     from repro_torch.kernels import candidate_topk as ctk
     from repro_torch.kernels import csr_candidate_topk as csr
 
-    store, starts, ends, q = [_t(a) for a in _csr_fixture(seed=23, b=64, w=8, d=11)]
+    store, starts, ends, q = [_t(a) for a in _csr_fixture(seed=23, b=64, w=8, d=d)]
     flat, valid = ref.window_slots(starts, ends, store.shape[0], store.shape[0], 16)
     cand = store[flat]
-    dc = 11 if d_chunk is None else d_chunk
+    dc = d if d_chunk is None else d_chunk
     wd, wi = ref.candidate_topk(cand, valid, q, 9, d_chunk=dc)
     gd, gi = ctk.candidate_topk(cand.to(dev), valid.to(dev), q.to(dev), 9, d_chunk=dc)
     fd, fi = csr.csr_candidate_topk(store.to(dev), starts.to(dev), ends.to(dev), q.to(dev), 9,
@@ -691,25 +697,34 @@ def test_gpu_csr_shortlist_q8_windows(case, rerank_k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("c,d", [(65_536, 4), (4096, 2), (4096, 9), (4096, 13)])
+@pytest.mark.parametrize("c,d", [(65_536, 4), (4096, 2), (4096, 9), (4096, 13), (4096, 37),
+                                 (40, 128), (600, 128)])
 @pytest.mark.parametrize("k", [1, 257, -1])
 def test_gpu_candidate_topk_wide(c, d, k):
-    """Dense candidates past the old cap (C = 65,536) and unaligned rows;
-    k = 1, 257 and past C (-1): slots exact up to near-ties, distances
-    within DIST_RTOL."""
+    """Dense candidates past the old cap (C = 65,536), unaligned rows (d =
+    9, 13 read directly, 37 staged by 4-byte copies), the q8 re-rank's
+    shape (2048 queries of 40 rows at d = 128: a ring of one partial tile)
+    and three tiles with a partial last one; each window also 4 bytes past
+    a 16-byte boundary (a slice of a larger tensor, so d = 128 takes 4-byte
+    copies); k = 1, 257 and past C (-1), d_chunk 512 and 5: slots exact up
+    to near-ties, distances within DIST_RTOL."""
     dev = require_cuda()
     from repro_torch.kernels import candidate_topk as ctk
 
     rng = np.random.default_rng(c + d)
-    b = 8
+    b = 2048 if c == 40 else 8
     cand = _t(rng.normal(size=(b, c, d)).astype(np.float32))
     valid = _t(rng.uniform(size=(b, c)) < 0.8)
     valid[0] = False  # a query with no valid candidate
     q = _t(rng.normal(size=(b, d)).astype(np.float32))
     kk = c + 3 if k == -1 else k
-    for dc in (512, 5):
-        wd, wi = ref.candidate_topk(cand, valid, q, kk, d_chunk=dc)
-        gd, gi = ctk.candidate_topk(cand.to(dev), valid.to(dev), q.to(dev), kk, d_chunk=dc)
-        torch.cuda.synchronize()
-        _assert_ids_equal_up_to_ties(gi, wi, lambda b, ids: cand[b][ids], q, "l2")
-        assert_dists_close(gd, wd)
+    aligned = cand.to(dev)
+    shifted = torch.empty(cand.numel() + 1, device=dev)[1:].view(cand.shape)
+    shifted.copy_(aligned)
+    for cand_dev in (aligned, shifted):
+        for dc in (512, 5):
+            wd, wi = ref.candidate_topk(cand, valid, q, kk, d_chunk=dc)
+            gd, gi = ctk.candidate_topk(cand_dev, valid.to(dev), q.to(dev), kk, d_chunk=dc)
+            torch.cuda.synchronize()
+            _assert_ids_equal_up_to_ties(gi, wi, lambda b, ids: cand[b][ids], q, "l2")
+            assert_dists_close(gd, wd)

@@ -199,6 +199,157 @@ def test_candidate_topk_sums_like_csr_candidate_topk(d_chunk):
     assert torch.equal(gi, torch.arange(37, dtype=torch.int32).expand(5, 37))
 
 
+# ------------------------------------------ candidate_topk's staged walk ----
+
+STAGE_TR, STAGE_TD, TOPK_CHUNK = 256, 32, 4096  # csrc/kernel_common.cuh
+
+
+def _middle_out(i, n):
+    """kernel_common.cuh's middle_out: the i-th of n tiles from the middle out."""
+    h = (i + 1) >> 1
+    return n // 2 - h if i & 1 else n // 2 + h
+
+
+class _ChunkedSum:
+    """kernel_common.cuh's ChunkedSum in float32, for a tile's rows at once
+    (every row of a tile crosses the same chunk boundaries)."""
+
+    def __init__(self, rows, d_chunk):
+        self.acc = np.zeros(rows, np.float32)
+        self.part = np.zeros(rows, np.float32)
+        self.next, self.first = d_chunk, True
+
+    def boundary(self, c, d_chunk):
+        if c != self.next:
+            return
+        self.acc = self.part if self.first else self.acc + self.part
+        self.first, self.part = False, np.zeros_like(self.part)
+        self.next += d_chunk
+
+    def add(self, x, q, l1):
+        df = x - q
+        self.part = self.part + (np.abs(df) if l1 else df * df)
+
+    def finish(self, l1):
+        acc = self.part if self.first else self.acc + self.part
+        return acc if l1 else np.sqrt(np.maximum(acc, np.float32(0)))
+
+
+def _offer(best, dists, slots, k):
+    """The running list after a batch of offers: the k best finite (value,
+    slot) pairs, smaller slot first on ties."""
+    return sorted(best + [(v, s) for v, s in zip(dists.tolist(), slots.tolist())
+                          if np.isfinite(v)])[:k]
+
+
+def _emulated_candidate_topk(cand, valid, q, k, metric, d_chunk):
+    """csrc/candidate_topk.cu's walk in numpy float32, step for step: at d
+    >= STAGE_TD kernel_common.cuh's staged_rank (tiles of STAGE_TR slots
+    middle-out, STAGE_TD-dim stages, ChunkedSum's folds where a d_chunk
+    block ends inside a stage, offers after a tile's last stage); below it
+    direct_rank (chunks of TOPK_CHUNK slots centred on the middle, each row
+    summed alone)."""
+    b, c, d = cand.shape
+    dc, l1 = max(1, min(d_chunk, d)), metric == "l1"
+    out_d = np.full((b, k), np.inf, np.float32)
+    out_i = np.full((b, k), -1, np.int32)
+    for bi in range(b):
+        best = []
+        if d < STAGE_TD:
+            steps = 2 * ((c - c // 2 + TOPK_CHUNK // 2 + TOPK_CHUNK - 1) // TOPK_CHUNK) + 1
+            for ci in range(steps):
+                kk = (ci + 1) // 2 if ci & 1 else -(ci // 2)
+                lo = c // 2 - TOPK_CHUNK // 2 + kk * TOPK_CHUNK
+                slots = np.arange(max(lo, 0), min(lo + TOPK_CHUNK, c))
+                if slots.size == 0:
+                    continue
+                s = _ChunkedSum(slots.size, dc)
+                for cc in range(d):
+                    s.boundary(cc, dc)
+                    s.add(cand[bi, slots, cc], q[bi, cc], l1)
+                best = _offer(best, np.where(valid[bi, slots], s.finish(l1), np.inf), slots, k)
+        else:
+            ntiles, nd = -(-c // STAGE_TR), -(-d // STAGE_TD)
+            for t in range(ntiles * nd):
+                ti, c0 = t // nd, (t % nd) * STAGE_TD
+                if c0 == 0:  # the tile's first stage locates its rows
+                    slots = _middle_out(ti, ntiles) * STAGE_TR + np.arange(STAGE_TR)
+                    slots = slots[slots < c]
+                    rows = slots[valid[bi, slots]]
+                    s = _ChunkedSum(rows.size, dc)
+                dn = min(STAGE_TD, d - c0)
+                stage = cand[bi, rows, c0:c0 + dn]  # the ring slot: one line of each row
+                s.boundary(c0, dc)
+                if dn == STAGE_TD and c0 + STAGE_TD <= s.next:  # a whole stage in one chunk
+                    for g in range(STAGE_TD):
+                        s.add(stage[:, g], q[bi, c0 + g], l1)
+                else:
+                    for cc in range(c0, c0 + dn):
+                        s.boundary(cc, dc)
+                        s.add(stage[:, cc - c0], q[bi, cc], l1)
+                if c0 + dn == d:
+                    best = _offer(best, s.finish(l1), rows, k)
+        for j, (v, sl) in enumerate(best):
+            out_d[bi, j], out_i[bi, j] = v, sl
+    return out_d, out_i
+
+
+def _sequential_candidate_topk(cand, valid, q, k, metric, d_chunk):
+    """The kernels' chunked_distance written plainly: each row's terms in
+    feature order, per d_chunk block, blocks folded in order; then the k
+    best (distance, slot) pairs."""
+    b, c, d = cand.shape
+    dc = max(1, min(d_chunk, d))
+    out_d = np.full((b, k), np.inf, np.float32)
+    out_i = np.full((b, k), -1, np.int32)
+    for bi in range(b):
+        acc = None
+        for c0 in range(0, d, dc):
+            part = np.zeros(c, np.float32)
+            for cc in range(c0, min(c0 + dc, d)):
+                df = cand[bi, :, cc] - q[bi, cc]
+                part = part + (np.abs(df) if metric == "l1" else df * df)
+            acc = part if acc is None else acc + part
+        dist = acc if metric == "l1" else np.sqrt(np.maximum(acc, np.float32(0)))
+        best = _offer([], np.where(valid[bi], dist, np.inf), np.arange(c), k)
+        for j, (v, sl) in enumerate(best):
+            out_d[bi, j], out_i[bi, j] = v, sl
+    return out_d, out_i
+
+
+@pytest.mark.parametrize("c,k", [(40, 10), (40, 43), (600, 10)])
+@pytest.mark.parametrize("d_chunk", [5, 32, 512])
+@pytest.mark.parametrize("d", [2, 37, 128])
+def test_candidate_topk_staged_walk(d, d_chunk, c, k):
+    """The staged kernel's order, emulated, ranks as every version does:
+    one partial tile (C = 40, the q8 re-rank's size, with k past C) and
+    three tiles (C = 600), rows invalid throughout and a query with none.
+    Distances and slots bit-equal to the kernels' chunked_distance order
+    (hence to csr_candidate_topk on the same rows); slots equal to
+    ref.candidate_topk's and the JAX kernel's (interpret mode), distances
+    within DIST_RTOL (both sum a row of d > 2 in another order), exact at
+    d = 2."""
+    rng = np.random.default_rng(d * 1000 + d_chunk + c + k)
+    cand = rng.normal(size=(3, c, d)).astype(np.float32)
+    valid = rng.uniform(size=(3, c)) < 0.7
+    valid[1] = False  # a query with no valid candidate
+    q = rng.normal(size=(3, d)).astype(np.float32)
+    got_d, got_i = _emulated_candidate_topk(cand, valid, q, k, "l2", d_chunk)
+    seq_d, seq_i = _sequential_candidate_topk(cand, valid, q, k, "l2", d_chunk)
+    np.testing.assert_array_equal(got_i, seq_i)
+    np.testing.assert_array_equal(got_d, seq_d)
+    want = ref.candidate_topk(torch.from_numpy(cand), torch.from_numpy(valid),
+                              torch.from_numpy(q), k, d_chunk=d_chunk)
+    np.testing.assert_array_equal(got_i, np_(want[1]))
+    assert_dists_close(got_d, want[0])
+    if d == 2:
+        np.testing.assert_array_equal(got_d, np_(want[0]))
+    jd, ji = jops.candidate_topk(jnp.asarray(cand), jnp.asarray(valid), jnp.asarray(q), k,
+                                 d_chunk=d_chunk, interpret=True)
+    np.testing.assert_array_equal(got_i, np.asarray(ji))
+    assert_dists_close(got_d, np.asarray(jd))
+
+
 # ---------------------------------------------------------------- backend ----
 
 
