@@ -93,7 +93,25 @@ per phase:
      full at S = 4096), and scaled_dot_product_attention timed on the same
      tensors as a yardstick (`slower_than_library` says which way each
      shape falls); bound_ms is the three-pass TF32 tensor-core bound of
-     each call, fp32_fma_bound_ms the float32 FMA units' beside it.
+     each call, fp32_fma_bound_ms the float32 FMA units' beside it;
+  5  the mutable index at full scale, through the facade: at PAPER_GRID
+     (phase 2's 1M points and 4096 queries) a build from all but 8 x
+     2048 points, 8 inserts of 2048 and 4 deletes of 2048 ids (half built,
+     half inserted); the handle's index equal to `build_index` of the
+     survivors in every field (tiles included) and `validate_mutable` all
+     true; search (both modes) and classify (both modes) on `hopper`,
+     `hopper_gather`, `hopper_q8`, `torch` and `exact`, and count_at on
+     `hopper` and `hopper_stacked`, every field equal between the mutated
+     and the rebuilt handle; `torch` equal to `hopper` in every field; the
+     seven kernels of those paths each launched on the mutated handles;
+     then 262,144 points spread uniformly over the grid, which overflow
+     the spill log: one compaction, and a rebuild equal again.  At the
+     SIFT1M-shaped scale (phase 3's PROD_GRID, d = 128) one insert and one
+     delete of 2048, `hopper` and `hopper_q8` on a 2048-query chunk equal
+     to a rebuild's.  Each prints insert, delete and snapshot times, the
+     rebuild's (the work the delta path avoids), the state's bytes against
+     the frozen index's, the peak memory and `torch`'s search time beside
+     `hopper`'s, with the card's name and power limit.
 
 Kernel times: `ms` is the median of 10 timed wrapper calls (CUDA events
 around the call, the L2 flushed before each), so a launch-bound kernel's
@@ -103,7 +121,9 @@ the kernel's own durations over 50 back-to-back flushed calls traced by
 torch.profiler, the device alone.
 
 Each path runs with every launch counter set to 0 just before it and read
-just after; a kernel of the path that was never launched fails the run.
+just after (phase 5: before the first insert, and after the mutated
+handle's searches); a kernel of the path that was never launched fails
+the run.
 Then one {"kernels": [...]} line (per kernel: launches on the paths,
 largest error against the plain version, kernel time (and device_ms where
 taken) and plain time, the bound
@@ -1475,7 +1495,7 @@ def phase2(seed, api, cfg, k, mods, timings, n=1_000_000, b=4096):
 
 def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
     from repro_torch.core import batched, projection
-    from repro_torch.core.active_search import padded_csr, window_spans
+    from repro_torch.core.active_search import gather_candidates, padded_csr, window_spans
     from repro_torch.kernels import ref
 
     dev = DEV
@@ -1608,7 +1628,7 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
     rows = int(rr[1].sum())
     rr_bound = bound(rows * d * 4 + chunk * (rk + d * 4 + k * 8), 3 * rows * d)
     # and at the gather shape: the chunk's whole materialised window
-    cand = batched.gather_candidates_batched(s.index, cfg, q_grid, spans=(st, en))
+    cand = gather_candidates(s.index, cfg, q_grid, spans=(st, en))
     ga = (cand.points, cand.valid, qc, k)
     del cand
     ga_ms, got = time_ms(lambda: ctk.candidate_topk(*ga, d_chunk=d))
@@ -1832,6 +1852,268 @@ def phase4(seed, mods, timings, s=32_768, h=24, hd=64, s_check=4096,
     return launches
 
 
+# ----------------------------------------------------------------- phase 5 ---
+
+# the kernels that search a mutated handle, every one of which must launch
+MUTATION_PATH = ("radius_search_loop", "csr_candidate_topk", "tile_count_multilevel",
+                 "tile_count", "candidate_topk", "csr_shortlist_q8", "brute_knn")
+MUTABLE_BACKENDS = ("hopper", "hopper_gather", "hopper_q8", "torch", "exact")
+
+
+def host_ms(fn):
+    """(result, milliseconds) of one call on the host clock, to the end of
+    the device's work."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def index_tensors(index) -> list:
+    return [*index.proj, index.points_sorted, index.coords_sorted, index.labels_sorted,
+            index.ids_sorted, index.offsets, *index.pyramid, index.sat, index.pyr_tiles]
+
+
+def same_index(a, b, what: str) -> None:
+    """Two GridIndex equal in every field, bit for bit."""
+    for field in a._fields:
+        x, y = getattr(a, field), getattr(b, field)
+        if field == "proj" or field == "pyramid":
+            ok = len(x) == len(y) and all(torch.equal(u, v) for u, v in zip(x, y))
+        elif x is None or y is None:
+            ok = x is None and y is None
+        else:
+            ok = torch.equal(x, y)
+        check(ok, f"{what}: {field} differs from a rebuild")
+
+
+def mixed_ids(gen, n0: int, n: int, m: int) -> torch.Tensor:
+    """m distinct ids, half from the built points [0, n0) and half from the
+    inserted ones [n0, n), in a shuffled order."""
+    old = torch.randperm(n0, generator=gen, device=DEV)[:m // 2]
+    new = n0 + torch.randperm(n - n0, generator=gen, device=DEV)[:m - m // 2]
+    both = torch.cat([old, new])
+    return both[torch.randperm(m, generator=gen, device=DEV)].to(torch.int32)
+
+
+def survivors(n: int, dead: torch.Tensor) -> torch.Tensor:
+    """Ids [0, n) not in `dead`, ascending: the arrival order, so a rebuild
+    from them has the mutated index's CSR order."""
+    alive = torch.ones(n, dtype=torch.bool, device=DEV)
+    alive[dead.long()] = False
+    return torch.nonzero(alive).flatten()
+
+
+def run_handle(h, q, k, radii):
+    """Every op of every mutable backend on one handle, and count_at on
+    hopper and hopper_stacked at the given radii."""
+    out = {}
+    for name in MUTABLE_BACKENDS:
+        b = h.with_plan(backend=name)
+        out[name] = {"refined": b.search(q, k), "paper": b.search(q, k, mode="paper")}
+        if h.cfg.n_classes:
+            out[name]["classify"] = b.classify(q, k)
+            out[name]["classify_paper"] = b.classify(q, k, mode="paper")
+    for name in ("hopper", "hopper_stacked"):
+        out[name + "_count_at"] = h.with_plan(backend=name).count_at(q, radii)
+    torch.cuda.synchronize()
+    return out
+
+
+def same_runs(a: dict, b: dict, what: str) -> None:
+    for key, x in a.items():
+        if isinstance(x, dict):
+            for op, r in x.items():
+                if isinstance(r, torch.Tensor):
+                    check(torch.equal(r, b[key][op]), f"{what}: {key} {op} differs")
+                else:
+                    same_result(r, b[key][op], f"{what}: {key} {op}")
+        else:
+            check(torch.equal(x, b[key]), f"{what}: {key} differs")
+
+
+def phase5_paper(seed, api, cfg, k, mods, smi, n=1_000_000, b=4096, batch=2048, batches=8,
+                 n_delete=8192, overflow=262_144) -> list:
+    """Mutation at PAPER_GRID: build from all but `batches` x `batch` of
+    phase 2's 1M points, insert those through the facade, delete `n_delete`
+    ids (half built, half inserted) in batches of `batch`, and hold the
+    handle against a rebuild of the survivors (every GridIndex field, then
+    every backend's search, classify and count_at). The launch counters
+    are zeroed before the first insert and read after the mutated handle's
+    searches: each kernel of MUTATION_PATH must have launched. Then a last
+    insert of `overflow` points spread uniformly over the grid, which
+    overflows the spill log and must compact once, and a rebuild again."""
+    from repro_torch.core import grid, mutable, projection
+
+    gen = torch.Generator(device=DEV).manual_seed(seed + 5)
+    pts = torch.randn((n, 2), generator=gen, device=DEV)
+    labels = torch.randint(0, cfg.n_classes, (n,), generator=gen, device=DEV, dtype=torch.int32)
+    q = torch.randn((b, 2), generator=gen, device=DEV)
+    proj = projection.identity_projection(pts)
+    n0 = n - batches * batch
+    s = api.ActiveSearcher.build(pts[:n0], labels=labels[:n0], cfg=cfg, proj=proj, device=DEV)
+    torch.cuda.synchronize()
+
+    reset(mods)
+    torch.cuda.reset_peak_memory_stats()
+    insert_ms, delete_ms = [], []
+    for i in range(batches):
+        lo, hi = n0 + i * batch, n0 + (i + 1) * batch
+        s, ms = host_ms(lambda: s.insert(pts[lo:hi], labels=labels[lo:hi]))
+        insert_ms.append(ms)
+    spill_after_inserts = int(s.mutable.spill_used)
+    dead = mixed_ids(gen, n0, n, n_delete)
+    for part in dead.split(batch):
+        s, ms = host_ms(lambda: s.delete(part))
+        delete_ms.append(ms)
+    check(on_card(*mutable.state_to_tree(s.mutable).values()), "phase 5: the state left the card")
+    inv = mutable.validate_mutable(s.mutable, cfg)
+    check(all(inv.values()), f"phase 5: validate_mutable {inv}")
+    res = s.search(q, k)
+    mutated = run_handle(s, q, k, res.radius)
+    launches = counts(mods)
+    for name in MUTATION_PATH:
+        check(launches[name] > 0, f"phase 5: kernel {name} was never launched on a mutated handle")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # where a facade insert's and delete's time goes (device busy against
+    # the wall; each call's new handle is dropped), and the snapshot merge
+    # alone, on the final state
+    keep = survivors(n, dead)
+    ins_dev = idle(device_profile(lambda: s.insert(pts[n0:n0 + batch],
+                                                   labels=labels[n0:n0 + batch])),
+                   float(np.median(insert_ms)))
+    del_dev = idle(device_profile(lambda: s.delete(keep[:batch])), float(np.median(delete_ms)))
+    snapshot_ms = [host_ms(lambda: mutable.snapshot(s.mutable, cfg))[1] for _ in range(3)]
+    rebuild = lambda: grid.build_index(pts[keep], cfg, proj, labels=labels[keep],  # noqa: E731
+                                       ids=keep.to(torch.int32))
+    rebuild()
+    rebuild_ms = [host_ms(rebuild)[1] for _ in range(3)]
+    ref = api.ActiveSearcher.from_index(rebuild(), cfg, device=DEV)
+    same_index(s.index, ref.index, "phase 5 PAPER_GRID")
+    check(all(grid.validate_invariants(s.index, cfg).values()), "phase 5: invariants fail")
+    same_runs(mutated, run_handle(ref, q, k, res.radius), "phase 5 mutated against rebuilt")
+    # torch against hopper on the same handle: every field, distances too (d = 2)
+    for mode in ("refined", "paper"):
+        same_result(mutated["torch"][mode], mutated["hopper"][mode], f"phase 5 torch {mode}")
+    torch_ms = search_wall_ms(s.with_plan(backend="torch"), q, k, reps=3)
+    hopper_ms = search_wall_ms(s, q, k, reps=3)
+    state_b, index_b = nbytes(mutable.state_to_tree(s.mutable).values()), nbytes(index_tensors(s.index))
+
+    # the escape hatch: a batch that lands almost wholly in cells with no
+    # bucket overflows the spill log; insert_tracked compacts once
+    lo_, span = proj.lo, proj.hi - proj.lo
+    big = lo_ + torch.rand((overflow, 2), generator=gen, device=DEV) * span
+    big_labels = torch.randint(0, cfg.n_classes, (overflow,), generator=gen, device=DEV,
+                               dtype=torch.int32)
+    spill_cap = s.mutable.spill_capacity
+    s2, overflow_ms = host_ms(lambda: s.insert(big, labels=big_labels))
+    st = s2.stats()
+    check(st["compactions"] == 1 and st["spill_capacity"] == max(2 * spill_cap, overflow),
+          f"phase 5: the overflow insert reported {st['compactions']} compactions")
+    ref2 = grid.build_index(torch.cat([pts[keep], big]), cfg, proj,
+                            labels=torch.cat([labels[keep], big_labels]),
+                            ids=torch.cat([keep, torch.arange(n, n + overflow, device=DEV)]).int())
+    same_index(s2.index, ref2, "phase 5 PAPER_GRID after the compaction")
+    same_result(s2.search(q, k), api.ActiveSearcher.from_index(ref2, cfg, device=DEV).search(q, k),
+                "phase 5 hopper after the compaction")
+    torch.cuda.synchronize()
+
+    emit({
+        "phase": 5, "config": "PAPER_GRID", "nvidia_smi": smi, "n_built": n0,
+        "inserted": batches * batch, "deleted": n_delete, "batch": batch, "B": b, "k": k,
+        "insert_ms": {"median": float(np.median(insert_ms)), "all": insert_ms},
+        "delete_ms": {"median": float(np.median(delete_ms)), "all": delete_ms},
+        "insert_device": ins_dev, "delete_device": del_dev,
+        "snapshot_ms": {"median": float(np.median(snapshot_ms)), "all": snapshot_ms},
+        "rebuild_ms": {"median": float(np.median(rebuild_ms)), "all": rebuild_ms,
+                       "n": int(keep.numel())},
+        "spill_used_after_inserts": spill_after_inserts, "spill_capacity": spill_cap,
+        "overflow": {"points": overflow, "insert_ms": overflow_ms, "compactions": st["compactions"],
+                     "compact_s": st["compact_s"], "spill_capacity_after": st["spill_capacity"],
+                     "equal_to_rebuild": True},
+        "state_bytes": state_b, "index_bytes": index_b, "state_over_index": state_b / index_b,
+        "peak_mem_gb": peak_gb, "validate_mutable": inv,
+        "equal_to_rebuild": {"index": True, "backends": list(MUTABLE_BACKENDS),
+                             "count_at": ["hopper", "hopper_stacked"]},
+        "torch_equal_to_hopper": True,
+        "search_ms": {"torch": torch_ms, "hopper": hopper_ms},
+        "launches": launches, "search_sha256": sha256_of(*res),
+    })
+    return [launches]
+
+
+def phase5_sift(seed, api, cfg, k, mods, smi, n=1_000_000, chunk=2048, batch=2048) -> list:
+    """Mutation on phase 3's SIFT1M-shaped PROD_GRID index (d = 128): one
+    insert of `batch` points and a delete of `batch` ids, then `hopper` and
+    `hopper_q8` on one chunk of queries equal to a rebuild's in every field;
+    the `torch` backend timed on the same chunk."""
+    from repro_torch.core import grid, mutable, projection
+
+    gen = torch.Generator(device=DEV).manual_seed(seed + 6)
+    d = 128
+
+    def planted(m):
+        x = torch.randn((m, d), generator=gen, device=DEV) * 0.3
+        x[:, :2] = torch.randn((m, 2), generator=gen, device=DEV) * 50.0
+        return x
+
+    pts, q = planted(n), planted(chunk)
+    proj = projection.pca_projection(pts)
+    n0 = n - batch
+    plan = api.ExecutionPlan(chunk_size=chunk)
+    s = api.ActiveSearcher.build(pts[:n0], cfg=cfg, plan=plan, proj=proj, device=DEV)
+    torch.cuda.synchronize()
+    reset(mods)
+    torch.cuda.reset_peak_memory_stats()
+    s, insert_ms = host_ms(lambda: s.insert(pts[n0:]))
+    dead = mixed_ids(gen, n0, n, batch)
+    s, delete_ms = host_ms(lambda: s.delete(dead))
+    inv = mutable.validate_mutable(s.mutable, cfg)
+    check(all(inv.values()), f"phase 5 SIFT1M-shaped: validate_mutable {inv}")
+    got = {name: s.with_plan(backend=name).search(q, k) for name in ("hopper", "hopper_q8")}
+    torch.cuda.synchronize()
+    launches = counts(mods)
+    for name in ("radius_search_loop", "csr_candidate_topk", "csr_shortlist_q8", "candidate_topk"):
+        check(launches[name] > 0, f"phase 5 SIFT1M-shaped: kernel {name} was never launched")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    snapshot_ms = [host_ms(lambda: mutable.snapshot(s.mutable, cfg))[1] for _ in range(3)]
+    keep = survivors(n, dead)
+    rebuild = lambda: grid.build_index(pts[keep], cfg, proj, ids=keep.to(torch.int32))  # noqa: E731
+    rebuild()
+    rebuild_ms = [host_ms(rebuild)[1] for _ in range(3)]
+    ref = api.ActiveSearcher.from_index(rebuild(), cfg, plan=plan, device=DEV)
+    same_index(s.index, ref.index, "phase 5 SIFT1M-shaped")
+    for name, r in got.items():
+        same_result(r, ref.with_plan(backend=name).search(q, k), f"phase 5 SIFT1M-shaped {name}")
+    torch_ms = search_wall_ms(s.with_plan(backend="torch"), q, k, reps=2)
+    hopper_ms = search_wall_ms(s, q, k, reps=3)
+    res_t = s.with_plan(backend="torch").search(q, k)
+    state_b, index_b = nbytes(mutable.state_to_tree(s.mutable).values()), nbytes(index_tensors(s.index))
+    emit({
+        "phase": 5, "config": "PROD_GRID, SIFT1M-shaped planted data", "nvidia_smi": smi,
+        "n_built": n0, "d": d, "inserted": batch, "deleted": batch, "B": chunk, "k": k,
+        "insert_ms": insert_ms, "delete_ms": delete_ms,
+        "snapshot_ms": {"median": float(np.median(snapshot_ms)), "all": snapshot_ms},
+        "rebuild_ms": {"median": float(np.median(rebuild_ms)), "all": rebuild_ms,
+                       "n": int(keep.numel())},
+        "spill_used": int(s.mutable.spill_used),
+        "state_bytes": state_b, "index_bytes": index_b, "state_over_index": state_b / index_b,
+        "peak_mem_gb": peak_gb, "validate_mutable": inv,
+        "equal_to_rebuild": {"index": True, "backends": ["hopper", "hopper_q8"]},
+        "search_ms": {"torch": torch_ms, "hopper": hopper_ms},
+        "torch_id_rows_equal_to_hopper": float((res_t.ids == got["hopper"].ids).all(1).float().mean()),
+        "launches": launches,
+    })
+    return [launches]
+
+
 # -------------------------------------------------------------------- main ---
 
 
@@ -1848,7 +2130,7 @@ def kernels_line(max_err: dict, timings: dict, launches: dict) -> dict:
     return {"kernels": [
         {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}.cu",
          "replaces": replaces, "launches": launches[name],
-         "path": "none: phase 4 only" if name in NO_PATH else "phases 2-3",
+         "path": "none: phase 4 only" if name in NO_PATH else "phases 2, 3, 5",
          "max_abs_err": max(max_err[name], timings[name]["max_abs_err"]),
          "ms": timings[name]["ms"],
          "plain_ms": timings[name]["plain_ms"], "bound_ms": timings[name]["bound_ms"],
@@ -1909,6 +2191,8 @@ def main() -> int:
     runs = phase2(seed, api, PAPER_GRID, K, mods, timings)
     runs += phase3(seed, api, PROD_GRID, 10, mods, timings)
     runs.append(phase4(seed, mods, timings))
+    runs += phase5_paper(seed, api, PAPER_GRID, K, mods, smi)
+    runs += phase5_sift(seed, api, PROD_GRID, 10, mods, smi)
     launches = {name: sum(r[name] for r in runs) for name in KERNELS}
     emit(kernels_line(max_err, timings, launches))
     print(smi, flush=True)

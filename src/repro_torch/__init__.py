@@ -23,13 +23,19 @@ Registered: `hopper` (the batched main path on the hand-written Hopper
 kernels in `repro_torch/csrc/`, the default), `hopper_gather` (the
 materialised-window candidate stage, a baseline and second oracle),
 `hopper_q8` (the int8 shortlist and its exact float32 re-rank),
-`hopper_stacked` (count_at only, one `tile_count` launch per pyramid level)
-and `exact` (the brute-force comparator; its l2 route is the `brute_knn`
-kernel).  `flash_attention` has a kernel too, which no path calls yet.  `torch` and `sharded` follow in
-later slices.
+`hopper_stacked` (count_at only, one `tile_count` launch per pyramid level),
+`torch` (the per-query pipeline in plain PyTorch, the whole batch in lock
+step: no kernel) and `exact` (the brute-force comparator; its l2 route is
+the `brute_knn` kernel).  `flash_attention` has a kernel too, which no path
+calls yet.  `sharded` follows in a later slice.
+
+Mutation: `ActiveSearcher.insert` / `.delete` / `.snapshot` keep a
+`core/mutable.py` state beside the handle's index and return new handles;
+every backend but `hopper_stacked` serves them (`supports_mutation`).
 
 Devices: the entry points (`api.ActiveSearcher.build`, `.from_index`,
-`convert.index_from_numpy`, ...) take `device=None`, which means "cuda".
+`convert.index_from_numpy`, `convert.mutable_from_numpy`, ...) take
+`device=None`, which means "cuda".
 Without a card they raise unless the caller passes `device="cpu"`; on the
 CPU every kernel wrapper runs its plain PyTorch version instead
 (`repro_torch/kernels/ops.py`).

@@ -5,6 +5,7 @@
                                cfg=api.GridConfig(n_classes=3),
                                plan=api.ExecutionPlan(backend="hopper"))
   res = s.search(queries, k=11)
+  s2 = s.insert(more_points)                 # streaming growth, a new handle
 
 Backend names map from the reference's as the package docstring states
 (`pallas` -> `hopper`, ...).

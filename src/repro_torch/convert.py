@@ -1,8 +1,10 @@
-"""Carry a built index across from the JAX package as numpy arrays.
+"""Carry a built index, or a mutable index's state, across from the JAX
+package as numpy arrays.
 
 The index is the port's "weights": the tests build it once with the
 reference, turn it into numpy (`jax.tree.map(np.asarray, index)._asdict()`)
-and load it here, so that both packages search the very same arrays.
+and load it here, so that both packages search the very same arrays.  A
+mutable state travels as the reference's `mutable.state_to_tree` dict.
 Nothing here imports the reference: it takes plain arrays.
 """
 
@@ -13,8 +15,8 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.engine import as_tensor, resolve_device
-from repro_torch.core.grid import GridConfig, GridIndex
+from repro_torch.core import mutable as mut
+from repro_torch.core.grid import GridConfig, GridIndex, as_tensor, resolve_device
 from repro_torch.core.projection import Projection
 
 
@@ -39,10 +41,7 @@ def index_from_numpy(
     f32 = lambda a: as_tensor(np.asarray(a), torch.float32, dev)  # noqa: E731
     i32 = lambda a: None if a is None else as_tensor(np.asarray(a), torch.int32, dev)  # noqa: E731
     pyramid = tuple(i32(a) for a in fields["pyramid"])
-    if len(pyramid) != cfg.levels:
-        raise ValueError(
-            f"pyramid has {len(pyramid)} levels; cfg expects {cfg.levels}"
-        )
+    _check_levels(len(pyramid), cfg)
     return GridIndex(
         proj=Projection(*(f32(a) for a in fields["proj"])),
         points_sorted=f32(fields["points_sorted"]),
@@ -54,3 +53,20 @@ def index_from_numpy(
         sat=i32(fields.get("sat")),
         pyr_tiles=i32(fields.get("pyr_tiles")),
     )
+
+
+def mutable_from_numpy(
+    tree: Mapping[str, np.ndarray], cfg: GridConfig, device=None
+) -> mut.MutableIndex:
+    """The port's MutableIndex from the reference's `state_to_tree` dict as
+    numpy arrays (the same keys), in the reference's dtypes, on `device`
+    (None = the card).  The state goes on growing in the port exactly as
+    it would have in the reference."""
+    state = mut.state_from_tree(tree, device=device)
+    _check_levels(len(state.pyramid), cfg)
+    return state
+
+
+def _check_levels(n: int, cfg: GridConfig) -> None:
+    if n != cfg.levels:
+        raise ValueError(f"pyramid has {n} levels; cfg expects {cfg.levels}")

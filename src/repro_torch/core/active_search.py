@@ -1,10 +1,22 @@
-"""Result types and the shared stages of the search pipeline.
+"""Active search for nearest neighbors — the paper's algorithm, end to end.
 
-Port of the parts of `repro/core/active_search.py` that the batched main
-path uses: the result records, the metric, the majority vote, chunked
-streaming, the padded CSR view and the window spans.  The per-query
-reference backend of that module (`search_one`, `gather_candidates`,
-`_search_jnp`) comes with the `torch` backend in a later slice.
+Port of `repro/core/active_search.py`: the result records, the metric, the
+majority vote, chunked streaming, the padded CSR view, the window spans
+and the candidate gather that every path shares, and the per-query
+pipeline behind the `torch` backend (the reference's `jnp`):
+
+  1. project the queries into grid space (projection.py)
+  2. adapt each radius with Eq. 1 over the count pyramid
+     (`pyramid.radius_search`)
+  3. gather candidates from the CSR buckets inside a fixed window around
+     each query cell (row-major cell ids make each window row ONE
+     contiguous span of `points_sorted`)
+  4. either return circle members (paper-faithful) or re-rank candidates
+     by the true metric in the original space (refined mode)
+
+The reference vmaps a one-query function; here each function takes the
+batch (leading dim B) and every lane is computed as alone.  Plain PyTorch
+throughout: no kernel runs on this path.
 """
 
 from __future__ import annotations
@@ -14,8 +26,10 @@ from typing import Any, Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import projection as proj_lib
+from repro_torch.core import pyramid as pyr
 from repro_torch.core.grid import GridConfig, GridIndex
-from repro_torch.kernels.ref import sqrt_rn
+from repro_torch.kernels.ref import smallest_k, sqrt_rn, window_slots
 
 
 class SearchResult(NamedTuple):
@@ -156,3 +170,130 @@ def window_spans(index: GridIndex, cfg: GridConfig, q_grid: torch.Tensor):
     start = index.offsets[rows * g + y0[..., None]]                 # (..., w)
     end = index.offsets[rows * g + (y0[..., None] + w)]             # (..., w)
     return start, end
+
+
+def gather_candidates(
+    index: GridIndex,
+    cfg: GridConfig,
+    q_grid: torch.Tensor,
+    spans: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> Candidates:
+    """Fixed-shape CSR gather of the window around each query cell: the
+    (B, w*row_cap) records of every window slot, one gather per field.
+    Window row i is the row_cap records from its clamped span start
+    (`kernels.ref.window_slots`, the slot -> CSR-row map every candidate
+    stage shares).  `spans` lets a caller that already computed the
+    window spans pass them in."""
+    pts, crd, lab, ids, n, n_pad = padded_csr(index, cfg.row_cap)
+    start, end = spans if spans is not None else window_spans(index, cfg, q_grid)
+    flat, valid = window_slots(start, end, n_pad, n, cfg.row_cap)   # (B, w*rcap)
+    return Candidates(
+        points=pts[flat],      # (B, w*rcap, d)
+        coords=crd[flat],      # (B, w*rcap, 2)
+        labels=lab[flat],      # (B, w*rcap)
+        ids=ids[flat],         # (B, w*rcap)
+        valid=valid,
+    )
+
+
+def _topk_result(
+    cand: Candidates,
+    dists: torch.Tensor,
+    k: int,
+    stats: dict[str, torch.Tensor],
+    truncated: torch.Tensor,
+) -> SearchResult:
+    """The k nearest valid candidates of each lane (lower slot first on
+    ties, as `lax.top_k` orders them; +inf / -1 pads when k exceeds the
+    valid candidates or the window)."""
+    masked = torch.where(cand.valid, dists, torch.full_like(dists, float("inf")))
+    top_d, slots = smallest_k(masked, k)
+    sel_valid = torch.isfinite(top_d)
+    idx = torch.clamp_min(slots, 0)
+    none = torch.full(slots.shape, -1, dtype=torch.int32, device=slots.device)
+    return SearchResult(
+        ids=torch.where(sel_valid, torch.gather(cand.ids, 1, idx), none),
+        dists=top_d,
+        labels=torch.where(sel_valid, torch.gather(cand.labels, 1, idx), none),
+        valid=sel_valid,
+        radius=stats["radius"],
+        count=stats["count"],
+        iters=stats["iters"],
+        converged=stats["converged"],
+        truncated=truncated,
+    )
+
+
+def _search_torch(
+    index: GridIndex, cfg: GridConfig, queries: torch.Tensor, k: int,
+    mode: str = "refined", adaptive_r0: bool = False,
+) -> SearchResult:
+    """Active search for the queries (B, d), each lane as the reference's
+    `search_one` computes it.
+
+    mode="paper":   members of the final circle, ranked by grid-pixel
+                    distance (the paper returns the circle contents when
+                    n == k).
+    mode="refined": candidates re-ranked by the true metric in the
+                    original space (exact kNN restricted to the window).
+    adaptive_r0:    seed Eq. 1 from the pyramid's local-density sketch
+                    (`pyramid.seed_radius`) instead of the global cfg.r0.
+    """
+    queries = queries.to(torch.float32)
+    q_grid = proj_lib.to_grid_coords(index.proj, queries, cfg.grid_size)  # (B, 2)
+    stats = pyr.radius_search(index, cfg, q_grid, k, adaptive_r0=adaptive_r0)
+    r = stats["radius"]
+    # the flag fires whenever candidates were DROPPED: circle wider than the
+    # window, or a window row overflowing its row_cap slice
+    start, end = window_spans(index, cfg, q_grid)
+    truncated = ((2 * r + 1) > cfg.window) | torch.any(end - start > cfg.row_cap, dim=-1)
+
+    cand = gather_candidates(index, cfg, q_grid, spans=(start, end))
+    if mode == "paper":
+        centers = torch.floor(cand.coords) + 0.5
+        gd = _metric_dist(centers, q_grid[:, None, :], cfg.metric)
+        in_circle = gd <= r[:, None].to(torch.float32)
+        cand = cand._replace(valid=cand.valid & in_circle)
+        return _topk_result(cand, gd, k, stats, truncated)
+
+    dists = _metric_dist(cand.points, queries[:, None, :], cfg.metric)
+    return _topk_result(cand, dists, k, stats, truncated)
+
+
+def search_one(
+    index: GridIndex, cfg: GridConfig, query: torch.Tensor, k: int,
+    mode: str = "refined", adaptive_r0: bool = False,
+) -> SearchResult:
+    """Active search for ONE query point (original space, shape (d,)):
+    `_search_torch` on a batch of one, with the batch dim dropped."""
+    res = _search_torch(index, cfg, query[None], k, mode, adaptive_r0)
+    return SearchResult(*(f[0] for f in res))
+
+
+def _classify_torch(
+    index: GridIndex, cfg: GridConfig, queries: torch.Tensor, k: int,
+    mode: str = "refined", adaptive_r0: bool = False,
+) -> torch.Tensor:
+    """kNN classification (B,) int32 on the per-query pipeline.
+
+    mode="paper":   argmax of the per-class counts inside the final circle.
+    mode="refined": majority vote over the refined top-k labels, except
+                    where the window vote is under-sampled (fewer than k
+                    valid candidates, or candidates dropped): there the
+                    count argmax at the final radius.
+    """
+    if cfg.n_classes <= 0:
+        raise ValueError("classify() needs an index built with n_classes > 0")
+    queries = queries.to(torch.float32)
+    q_grid = proj_lib.to_grid_coords(index.proj, queries, cfg.grid_size)
+
+    def count_pred(r: torch.Tensor) -> torch.Tensor:
+        return torch.argmax(pyr.count_in_circle(index, cfg, q_grid, r), dim=-1).to(torch.int32)
+
+    if mode == "paper":
+        return count_pred(pyr.radius_search(index, cfg, q_grid, k, adaptive_r0)["radius"])
+
+    res = _search_torch(index, cfg, queries, k, "refined", adaptive_r0)
+    refined = majority_vote(res.labels, res.valid, cfg.n_classes)
+    short = res.valid.sum(dim=1) < k
+    return torch.where(short | res.truncated, count_pred(res.radius), refined)

@@ -40,10 +40,10 @@ from repro_torch.core import integral as integral_lib
 from repro_torch.core import projection as proj_lib
 from repro_torch.core import pyramid as pyr
 from repro_torch.core.active_search import (
-    Candidates,
     SearchResult,
     _metric_dist,
     empty_result,
+    gather_candidates,
     majority_vote,
     padded_csr,
     run_chunked,
@@ -226,30 +226,6 @@ def radius_search_batched(
 # ----------------------------------------------------------------- gather ----
 
 
-def gather_candidates_batched(
-    index: GridIndex,
-    cfg: GridConfig,
-    q_grid: torch.Tensor,
-    spans: tuple[torch.Tensor, torch.Tensor] | None = None,
-) -> Candidates:
-    """CSR window gather for the whole batch: the (B, w*row_cap) records of
-    every window slot in one gather per field (the "gather" pipeline's
-    stage; the fused pipeline never materialises any of it).  `spans` lets
-    a caller that already computed the window spans pass them in."""
-    pts, crd, lab, ids, n, n_pad = padded_csr(index, cfg.row_cap)
-    start, end = spans if spans is not None else window_spans(index, cfg, q_grid)
-    # the one slot -> CSR-row map (clamped span start + in-row offset) of
-    # every candidate stage, kernels' plain versions included
-    flat, valid = window_slots(start, end, n_pad, n, cfg.row_cap)   # (B, w*rcap)
-    return Candidates(
-        points=pts[flat],      # (B, w*rcap, d)
-        coords=crd[flat],      # (B, w*rcap, 2)
-        labels=lab[flat],      # (B, w*rcap)
-        ids=ids[flat],         # (B, w*rcap)
-        valid=valid,
-    )
-
-
 # -------------------------------------------------------- candidate stage ----
 
 
@@ -310,10 +286,10 @@ def _fused_select(index, cfg, q_grid, queries, spans, k, mode, radius, d_chunk):
 
 
 def _gather_select(index, cfg, q_grid, queries, spans, k, mode, radius, d_chunk):
-    """gather_candidates_batched + dense candidate_topk, with the selected
+    """gather_candidates + dense candidate_topk, with the selected
     LOCAL slots mapped back to global CSR rows so both pipelines share one
     record-assembly step."""
-    cand = gather_candidates_batched(index, cfg, q_grid, spans=spans)
+    cand = gather_candidates(index, cfg, q_grid, spans=spans)
     if mode == "paper":
         centers = torch.floor(cand.coords) + 0.5                    # (B, C, 2)
         gd = _metric_dist(centers, q_grid[:, None, :], cfg.metric)

@@ -9,6 +9,8 @@ Port of `repro/core/engine.py`:
   preds = s.classify(queries, k=11)
   cnts  = s.count_at(queries, radii)         # (B, C) circle counts
   s2    = s.with_plan(backend="exact")       # same index, new execution plan
+  s3    = s.insert(more_points)              # streaming growth (core/mutable.py)
+  live  = s3.delete(stale_ids).snapshot()    # frozen handle, isolated from s3
 
 HOW a search executes lives in the frozen `ExecutionPlan` (backend name,
 chunked streaming, accumulation cap, adaptive start radius); WHAT is
@@ -16,7 +18,8 @@ searched lives in the (index, cfg) pair the handle carries, on the
 handle's device.  Backends are uniform `BackendImpl` adapters resolved
 from a registry: `hopper` (the main path, the default), `hopper_gather`
 (materialised-window baseline), `hopper_q8` (int8 shortlist + exact
-re-rank), `hopper_stacked` (count-only, per-level baseline) and `exact`
+re-rank), `hopper_stacked` (count-only, per-level baseline), `torch` (the
+per-query pipeline in plain PyTorch, the reference's `jnp`) and `exact`
 (the brute-force comparator).
 """
 
@@ -26,41 +29,31 @@ import dataclasses
 import functools
 from typing import Any, Callable
 
-import numpy as np
 import torch
 
 from repro_torch.core import batched
 from repro_torch.core import exact as exact_lib
+from repro_torch.core import mutable as mut
 from repro_torch.core import projection as proj_lib
+from repro_torch.core import pyramid as pyr
 from repro_torch.core import quantized as qz
-from repro_torch.core.active_search import SearchResult, empty_result, run_chunked
+from repro_torch.core.active_search import (
+    SearchResult,
+    _classify_torch,
+    _search_torch,
+    empty_result,
+    run_chunked,
+)
 from repro_torch.core.grid import (
     GridConfig,
     GridIndex,
+    as_tensor,
     build_index,
     flatten_pyramid_tiles,
+    resolve_device,
 )
 
 _MODES = ("refined", "paper")
-
-
-def resolve_device(device=None) -> torch.device:
-    """`device=None` means the card; a CUDA device without a card raises
-    (the port never carries on quietly on the CPU)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the port "
-            "on the CPU through the kernels' plain versions"
-        )
-    return dev
-
-
-def as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """A numpy array (copied) or tensor as a `dtype` tensor on `device`."""
-    if isinstance(x, np.ndarray):
-        x = torch.from_numpy(np.array(x))
-    return torch.as_tensor(x).to(device=device, dtype=dtype)
 
 
 # ------------------------------------------------------------------ plan -----
@@ -123,8 +116,11 @@ class BackendImpl:
 
     Any of the three may be None; the facade raises eagerly when an op is
     missing.  `supports_d_chunk` gates `plan.d_chunk`,
-    `supports_adaptive_r0` gates `plan.adaptive_r0`, and
-    `supports_quantized` gates `plan.rerank_k`.
+    `supports_adaptive_r0` gates `plan.adaptive_r0`,
+    `supports_quantized` gates `plan.rerank_k`, and `supports_mutation`
+    gates the facade's insert/delete (core/mutable.py deltas): backends
+    that can serve the refreshed snapshot declare True, count-only
+    baselines opt out.
     """
 
     search: Callable[..., SearchResult] | None = None
@@ -132,6 +128,7 @@ class BackendImpl:
     count_at: Callable[..., torch.Tensor] | None = None
     supports_d_chunk: bool = False
     supports_adaptive_r0: bool = False
+    supports_mutation: bool = False
     supports_quantized: bool = False
     description: str = ""
 
@@ -173,6 +170,9 @@ class ActiveSearcher:
     index: GridIndex
     cfg: GridConfig
     plan: ExecutionPlan = ExecutionPlan()
+    # streaming-mutation state (core/mutable.py): None for frozen handles;
+    # set by insert/delete so successive mutations reuse the slack layout
+    mutable: Any = None
 
     # -------------------------------------------------------- construction --
     @classmethod
@@ -244,6 +244,78 @@ class ActiveSearcher:
                     overrides = {**overrides, "rerank_k": None}
         new = plan if plan is not None else dataclasses.replace(self.plan, **overrides)
         return dataclasses.replace(self, plan=new)
+
+    # ------------------------------------------------------------- mutation --
+    def _check_mutation(self) -> None:
+        """Eager capability validation: the plan's backend must be able to
+        serve the refreshed snapshot a mutation produces."""
+        impl = get_backend(self.plan.backend)
+        if not impl.supports_mutation:
+            mutable_backends = [
+                n for n in registered_backends()
+                if get_backend(n).supports_mutation
+            ]
+            raise ValueError(
+                f"backend {self.plan.backend!r} does not support mutation "
+                f"(BackendImpl.supports_mutation); insert/delete need one "
+                f"of {mutable_backends}"
+            )
+
+    def _mutable_state(self) -> mut.MutableIndex:
+        """Current mutation state, opening the index on first use."""
+        if self.mutable is not None:
+            return self.mutable
+        return mut.from_index(self.index, self.cfg)
+
+    def _carry_mutation_stats(self, new, compactions: int, compact_s: float):
+        """Accumulate the compaction accounting on the NEW handle (kept in
+        its __dict__, beside the cached properties)."""
+        prev = self.__dict__.get(
+            "_mutation_stats", {"compactions": 0, "compact_s": 0.0}
+        )
+        object.__setattr__(new, "_mutation_stats", {
+            "compactions": prev["compactions"] + compactions,
+            "compact_s": prev["compact_s"] + compact_s,
+        })
+        return new
+
+    def insert(self, points, *, labels=None, ids=None) -> "ActiveSearcher":
+        """Streaming insert: delta-update the grid, pyramid, and dirty tiles
+        (core/mutable.py) and return a NEW handle over the grown index, on
+        this handle's device.
+
+        This handle is unchanged (every update writes new tensors); the
+        returned one carries the refreshed dense snapshot plus the slack
+        state, so chained inserts keep reusing free bucket slots.  Being a
+        new object, it also starts with cold cached properties, so `exact`
+        and `hopper_q8` derive their views of the grown contents afresh.
+        Results are bit-identical to rebuilding from the union of the
+        points."""
+        self._check_mutation()
+        state, report = mut.insert_tracked(self._mutable_state(), self.cfg, points,
+                                           labels=labels, ids=ids)
+        new = dataclasses.replace(
+            self, index=mut.snapshot(state, self.cfg), mutable=state
+        )
+        return self._carry_mutation_stats(new, report.compactions, report.compact_s)
+
+    def delete(self, ids) -> "ActiveSearcher":
+        """Delete by global point id; returns a NEW handle (see `insert`)."""
+        self._check_mutation()
+        state = mut.delete(self._mutable_state(), self.cfg, ids)
+        new = dataclasses.replace(
+            self, index=mut.snapshot(state, self.cfg), mutable=state
+        )
+        return self._carry_mutation_stats(new, 0, 0.0)
+
+    def snapshot(self) -> "ActiveSearcher":
+        """A frozen handle over the current contents.
+
+        Drops the slack state: later insert/delete on either handle cannot
+        affect the other (updates write new tensors and never touch the
+        ones a snapshot holds, so a snapshot taken mid-serving stays valid
+        while the source keeps mutating)."""
+        return dataclasses.replace(self, mutable=None)
 
     # ------------------------------------------------------------- dispatch --
     def _impl(self, op: str) -> Callable:
@@ -328,6 +400,17 @@ class ActiveSearcher:
         """Static facts about the handle: index shape/memory + plan."""
         idx, cfg = self.index, self.cfg
         nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
+        if self.mutable is None:
+            mutation_stats = {}
+        else:
+            mutation_stats = {
+                "free_bucket_slots": int(self.mutable.free_bucket_slots),
+                "spill_used": int(self.mutable.spill_used),
+                "spill_capacity": self.mutable.spill_capacity,
+                **self.__dict__.get(
+                    "_mutation_stats", {"compactions": 0, "compact_s": 0.0}
+                ),
+            }
         return {
             "n_points": int(idx.offsets[-1]),
             "dim": int(idx.points_sorted.shape[-1]),
@@ -346,6 +429,8 @@ class ActiveSearcher:
                 nbytes(a) for a in (idx.points_sorted, idx.coords_sorted,
                                     idx.labels_sorted, idx.ids_sorted, idx.offsets)
             ),
+            "mutable": self.mutable is not None,
+            **mutation_stats,
         }
 
     @functools.cached_property
@@ -370,6 +455,24 @@ class ActiveSearcher:
 
 
 # ------------------------------------------------------ built-in backends ----
+
+
+def _torch_search(s: ActiveSearcher, queries, k, mode):
+    return _search_torch(s.index, s.cfg, queries, k, mode,
+                         adaptive_r0=s.plan.adaptive_r0)
+
+
+def _torch_classify(s: ActiveSearcher, queries, k, mode):
+    return _classify_torch(s.index, s.cfg, queries, k, mode,
+                           adaptive_r0=s.plan.adaptive_r0)
+
+
+def _torch_count_at(s: ActiveSearcher, q_grid, radii):
+    return _count_torch(s.index, s.cfg, q_grid, radii)
+
+
+def _count_torch(index: GridIndex, cfg: GridConfig, q_grid, radii):
+    return pyr.count_in_circle(index, cfg, q_grid, radii)
 
 
 def _hopper_search(s: ActiveSearcher, queries, k, mode, pipeline="fused"):
@@ -441,9 +544,16 @@ def _exact_classify(s: ActiveSearcher, queries, k, mode):
     )
 
 
+register_backend("torch", BackendImpl(
+    search=_torch_search, classify=_torch_classify, count_at=_torch_count_at,
+    supports_adaptive_r0=True, supports_mutation=True,
+    description="per-query reference pipeline in plain PyTorch, the whole "
+                "batch in lock step (core/active_search.py, core/pyramid.py); "
+                "no kernel",
+))
 register_backend("hopper", BackendImpl(
     search=_hopper_search, classify=_hopper_classify, count_at=_hopper_count_at,
-    supports_d_chunk=True, supports_adaptive_r0=True,
+    supports_d_chunk=True, supports_adaptive_r0=True, supports_mutation=True,
     description="batched kernel pipeline: the whole Eq.-1 loop in one "
                 "radius_search_loop launch + fused csr_candidate_topk, both "
                 "hand-written for Hopper (core/batched.py, csrc/)",
@@ -452,6 +562,7 @@ register_backend("hopper_gather", BackendImpl(
     search=functools.partial(_hopper_search, pipeline="gather"),
     classify=functools.partial(_hopper_classify, pipeline="gather"),
     count_at=_hopper_count_at, supports_d_chunk=True, supports_adaptive_r0=True,
+    supports_mutation=True,
     description="benchmark baseline / second oracle: the same counting, but "
                 "the candidate stage gathers the (B, w*row_cap) window and "
                 "ranks it with the dense candidate_topk kernel",
@@ -459,7 +570,7 @@ register_backend("hopper_gather", BackendImpl(
 register_backend("hopper_q8", BackendImpl(
     search=_hopper_q8_search, classify=_hopper_q8_classify,
     count_at=_hopper_count_at, supports_d_chunk=True,
-    supports_adaptive_r0=True, supports_quantized=True,
+    supports_adaptive_r0=True, supports_mutation=True, supports_quantized=True,
     description="quantized candidate stage: the int8 csr_shortlist_q8 "
                 "kernel keeps the best rerank_k rows, then candidate_topk "
                 "re-ranks them exactly in float32 (recall contract against "
@@ -471,7 +582,7 @@ register_backend("hopper_stacked", BackendImpl(
                 "pyramid level + select",
 ))
 register_backend("exact", BackendImpl(
-    search=_exact_search, classify=_exact_classify,
+    search=_exact_search, classify=_exact_classify, supports_mutation=True,
     description="brute-force kNN — the paper's 'original kNN' comparator "
                 "(core/exact.py): l2 on the hand-written brute_knn kernel, "
                 "l1 in plain tensor code",

@@ -22,11 +22,31 @@ import dataclasses
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import integral as integral_lib
 from repro_torch.core import projection as proj_lib
 from repro_torch.core.projection import Projection
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device=None` means the card; a CUDA device without a card raises
+    (the port never carries on quietly on the CPU)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the port "
+            "on the CPU through the kernels' plain versions"
+        )
+    return dev
+
+
+def as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A numpy array (copied) or tensor as a `dtype` tensor on `device`."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.array(x))
+    return torch.as_tensor(x).to(device=device, dtype=dtype)
 
 
 @dataclasses.dataclass(frozen=True)

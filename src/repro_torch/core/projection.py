@@ -3,7 +3,8 @@
 Port of `repro/core/projection.py`.  A projection is data — (matrix, lo,
 hi) float32 tensors — so the index of one framework can be carried to the
 other (`repro_torch/convert.py`).  Every matrix product here runs in full
-float32: TF32 is switched off for the product.
+float32: TF32 is switched off for the product.  Points are projected
+without one (`apply`), in a fixed summation order.
 """
 
 from __future__ import annotations
@@ -40,8 +41,39 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def apply(proj: Projection, x: torch.Tensor) -> torch.Tensor:
-    """Project points (..., d) into grid space (..., gd)."""
-    return matmul_f32(x.to(torch.float32), proj.matrix)
+    """Project points (..., d) into grid space (..., gd).
+
+    Each coordinate is the sum of its d products in one fixed pairwise
+    order, in elementwise operations only, so a point's coordinates do not
+    depend on the batch it is projected in, nor on the device: a point
+    inserted later lands where a rebuild puts it, bit for bit.  A GEMM's
+    summation order changes with the row count on the card (cuBLAS picks
+    its algorithm by shape), which moved inserted d = 128 points an ulp
+    from a rebuild's.  Rows go through in blocks of _APPLY_ROWS, which
+    bounds the (rows, d, gd) products held at once."""
+    d, gd = proj.matrix.shape
+    flat = x.to(torch.float32).reshape(-1, d)
+    out = flat.new_zeros((0, gd))
+    if flat.shape[0]:
+        out = torch.cat([_sum_products(blk, proj.matrix) for blk in flat.split(_APPLY_ROWS)])
+    return out.reshape(x.shape[:-1] + (gd,))
+
+
+_APPLY_ROWS = 1 << 16
+
+
+def _sum_products(x: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """x (n, d) @ mat (d, gd) as x[:, i] * mat[i] summed by halves: the
+    products padded with zeros to a power of two (adding 0 is exact), then
+    the first half added to the second until one row is left."""
+    p = x[:, :, None] * mat                                     # (n, d, gd)
+    width = 1 << max(p.shape[1] - 1, 0).bit_length()
+    if width != p.shape[1]:
+        p = torch.cat([p, p.new_zeros((p.shape[0], width - p.shape[1], p.shape[2]))], dim=1)
+    while p.shape[1] > 1:
+        half = p.shape[1] // 2
+        p = p[:, :half] + p[:, half:]
+    return p[:, 0]
 
 
 def _extents(g: torch.Tensor, margin: float) -> tuple[torch.Tensor, torch.Tensor]:

@@ -6,10 +6,13 @@ tile, read ONE (T, T, C) window around the query, mask cell centers by the
 circle, and sum.  Cost is O(T^2 * C) regardless of r and N — level
 selection IS the zoom.  The hot loop reaches the same count through the
 `radius_search_loop` kernel (core/batched.py); the functions here serve
-the start-radius seed and the plain per-level count.
+the start-radius seed, the plain per-level count and the per-query
+backend's Eq.-1 loop (`radius_search`, the `torch` backend).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -79,6 +82,13 @@ def count_in_circle(
     return out
 
 
+def count_total(
+    index: GridIndex, cfg: GridConfig, q: torch.Tensor, r: torch.Tensor
+) -> torch.Tensor:
+    """Total circle counts (B,) int32 over every class channel."""
+    return count_in_circle(index, cfg, q, r).sum(dim=-1, dtype=torch.int32)
+
+
 def seed_radius(
     index: GridIndex, cfg: GridConfig, q: torch.Tensor, k: int
 ) -> torch.Tensor:
@@ -115,3 +125,33 @@ def seed_radius(
     return torch.where(
         n1 > 0, torch.clamp(est, 1, r_max), torch.full_like(est, cfg.r0)
     )
+
+
+def radius_search(
+    index: GridIndex, cfg: GridConfig, q: torch.Tensor, k: int,
+    adaptive_r0: bool = False,
+) -> dict[str, torch.Tensor]:
+    """The paper's Eq. 1, r_{t+1} = round(r_t * sqrt(k / n_t)), for the
+    queries q (B, 2): radius, count, iters and converged (B,), lane for
+    lane what the reference's per-query `lax.while_loop` gives under vmap.
+
+    The lanes run in lock step (`batched.lockstep_radius_loop`, unmasked:
+    every lane counted each pass, finished lanes frozen, every lane
+    recounted at its final radius).  Counts come from `count_in_circle`,
+    the pyramid's T x T window or the summed-area table, never the
+    flattened tiles, so this loop is an oracle of the `radius_search_loop`
+    kernel independent of its tile layout.  adaptive_r0=True seeds the
+    start radii with `seed_radius` instead of cfg.r0."""
+    # imported here: core.batched imports this module
+    from repro_torch.core.batched import lockstep_radius_loop
+
+    if adaptive_r0:
+        r0 = seed_radius(index, cfg, q, k)
+    else:
+        r0 = torch.full((q.shape[0],), cfg.r0, dtype=torch.int32, device=q.device)
+    out = lockstep_radius_loop(
+        lambda r, _active: count_total(index, cfg, q, r), r0, k,
+        max(k, math.ceil(k * cfg.k_slack)), cfg.max_radius, cfg.max_iters, masked=False,
+    )
+    del out["tile_dmas_skipped"]
+    return out

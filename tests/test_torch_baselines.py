@@ -16,7 +16,7 @@ from test_torch_search import K, _pair
 from repro.core import batched as jbatched
 from repro.core import projection as jproj
 from repro.kernels import ops as jops
-from repro_torch.core import batched
+from repro_torch.core import active_search
 from repro_torch.kernels import ops
 
 
@@ -60,7 +60,7 @@ def test_gather_candidates_matches_reference(l2_pair):
     js, ts, q = l2_pair
     jgrid = jproj.to_grid_coords(js.index.proj, jnp.asarray(q), js.cfg.grid_size)
     want = jbatched.gather_candidates_batched(js.index, js.cfg, jgrid)
-    got = batched.gather_candidates_batched(ts.index, ts.cfg, torch.from_numpy(np.asarray(jgrid)))
+    got = active_search.gather_candidates(ts.index, ts.cfg, torch.from_numpy(np.asarray(jgrid)))
     for field in want._fields:
         np.testing.assert_array_equal(np_(getattr(got, field)), np.asarray(getattr(want, field)),
                                       err_msg=field)

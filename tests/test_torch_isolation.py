@@ -15,7 +15,8 @@ import torch
 
 import repro_torch
 from repro_torch import api
-from repro_torch.convert import index_from_numpy, projection_from_numpy
+from repro_torch.convert import index_from_numpy, mutable_from_numpy, projection_from_numpy
+from repro_torch.core import mutable
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -39,7 +40,7 @@ def test_port_imports_neither_jax_nor_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(mods) >= 16
+    assert len(mods) >= 31 and "repro_torch.core.mutable" in mods
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():
@@ -69,6 +70,18 @@ def test_entry_points_default_to_the_card():
         projection_from_numpy(np.eye(2), np.zeros(2), np.ones(2))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         index_from_numpy({}, built.cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mutable_from_numpy({}, built.cfg)
+    tree = {k: v.numpy() for k, v in mutable.state_to_tree(
+        mutable.from_index(built.index, built.cfg)).items()}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mutable.state_from_tree(tree)
+    # a handle's insert stays on the handle's device: the CPU only when the
+    # handle was built there on request
+    grown = built.insert(pts[:5] + 0.01)
+    assert {t.device.type for t in mutable.state_to_tree(grown.mutable).values()} == {"cpu"}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.ActiveSearcher.build(pts).insert(pts[:5])
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
