@@ -111,7 +111,36 @@ per phase:
      to a rebuild's.  Each prints insert, delete and snapshot times, the
      rebuild's (the work the delta path avoids), the state's bytes against
      the frozen index's, the peak memory and `torch`'s search time beside
-     `hopper`'s, with the card's name and power limit.
+     `hopper`'s, with the card's name and power limit;
+  6  the sharded tier and the search side of serving, at full width:
+     6a PAPER_GRID, 1M random 2-D points over 4 shards on the one card
+     (4096 queries, k = 11): the stacked index equal to `build_index` of
+     each shard's routed points, the `sharded` search (no kernel: its
+     shards search on `torch`, as the reference's on `jnp`) equal to a
+     host merge of the per-shard `torch` results, two inserts of 2048 and
+     a delete of 2048 equal to a sharded rebuild in every field of the
+     index, search (both modes) and classify, snapshot() equal to
+     `build_index` of the live points in arrival order; times of search,
+     insert, delete and merge_to_dense, and recall@11 against `exact`;
+     6b the kNN-LM head at minitron-8b's width (d = 4096, vocab 256,000),
+     KNN_LM_PAIRS synthetic pairs made on the card, KNNLMConfig's
+     defaults (`hopper`), a decode stream of 256 requests of 1-8 rows
+     through DynamicBatcher(max_batch=64) with 4 inserts of 2048 pairs
+     between batches: each request equal to an unpadded call on the
+     handle that served it, each p_knn row summing to 1 within 1e-5, one
+     radius_search_loop and one csr_candidate_topk per batch, the grown
+     datastore equal to `build_index` of the union; decode rows/s, ms per
+     batch, insert ms, pad rows, recall@16, peak memory, and
+     csr_candidate_topk at a batch's shape against its plain version;
+     6c retrieval memory at minitron-8b's long_500k (524,288 positions,
+     8 KV heads of 128, 32 query heads; RetrievalMemoryConfig's defaults)
+     in 64 decode steps of 8 rows, one launch of each path kernel a step,
+     two steps held against the CPU's plain versions, recall@64 against
+     `exact`, extend_memory_index of 1024 positions equal to the build
+     over the concatenation; 6d that memory's mutable state saved and
+     restored through CheckpointManager (under build/, removed after),
+     then one insert of 1024 into the restored and the live state: equal
+     in every field; bytes, save and restore seconds.
 
 Kernel times: `ms` is the median of 10 timed wrapper calls (CUDA events
 around the call, the L2 flushed before each), so a launch-bound kernel's
@@ -122,8 +151,9 @@ torch.profiler, the device alone.
 
 Each path runs with every launch counter set to 0 just before it and read
 just after (phase 5: before the first insert, and after the mutated
-handle's searches); a kernel of the path that was never launched fails
-the run.
+handle's searches; phase 6b: before the decode stream and after it, the
+checks of each batch's requests taken off again); a kernel of the path
+that was never launched fails the run.
 Then one {"kernels": [...]} line (per kernel: launches on the paths,
 largest error against the plain version, kernel time (and device_ms where
 taken) and plain time, the bound
@@ -144,8 +174,10 @@ import importlib
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -178,6 +210,10 @@ KERNELS = {
 SOURCES = tuple(src for src, _ in KERNELS.values())
 FUSED_PATH = ("radius_search_loop", "csr_candidate_topk")  # the kernels `hopper` searches on
 NO_PATH = ("flash_attention",)  # no path of the system calls it: phase 4 only
+# the kernels phase 6 launches besides phases 2, 3 and 5: the kNN-LM head's
+# and retrieval memory's `hopper` searches, and `exact` as their recall
+# reference (the `sharded` backend launches none: its shards search on `torch`)
+PATHS = {name: "phases 2, 3, 5, 6" for name in FUSED_PATH + ("brute_knn",)}
 F32_EPS = float(np.finfo(np.float32).eps)
 LOOP_STATS = ("radius", "count", "iters", "converged", "tile_dmas_skipped")
 
@@ -2114,6 +2150,464 @@ def phase5_sift(seed, api, cfg, k, mods, smi, n=1_000_000, chunk=2048, batch=204
     return [launches]
 
 
+# ----------------------------------------------------------------- phase 6 ---
+
+# minitron-8b's widths (src/repro/configs/minitron_8b.py): d_model, vocab,
+# query heads, KV heads and head_dim; its long_500k context is served by
+# the retrieval-memory path (LONG_CONTEXT = "retrieval")
+MINITRON = {"d_model": 4096, "vocab": 256_000, "n_heads": 32, "n_kv_heads": 8, "head_dim": 128}
+# the kNN-LM datastore's size in phase 6b: at 524,288 pairs (8.6 GB of
+# keys) the mutable state is 3.4x the index (a cell holds one or two keys
+# at this width, and each gets at least 4 slack rows) and the stream's
+# first insert ran out of the card's memory at a 66.7 GB peak (PERF.md,
+# PR 23), so the datastore is cut to half
+KNN_LM_PAIRS = 262_144
+
+
+def host_merge(results, k):
+    """Numpy's lexsort on (dist, id) over the per-shard top-k lists, the
+    diagnostics reduced across shards: the sharded merge on the host."""
+    d = np.concatenate([to_np(r.dists) for r in results], axis=1)
+    i = np.concatenate([to_np(r.ids) for r in results], axis=1)
+    lab = np.concatenate([to_np(r.labels) for r in results], axis=1)
+    order = np.stack([np.lexsort((ii, dd)) for dd, ii in zip(d, i)])[:, :k]
+    top_d = np.take_along_axis(d, order, 1)
+    ok = np.isfinite(top_d)
+    stat = lambda f: np.stack([to_np(getattr(r, f)) for r in results])  # noqa: E731
+    return {"ids": np.where(ok, np.take_along_axis(i, order, 1), -1),
+            "dists": top_d, "labels": np.where(ok, np.take_along_axis(lab, order, 1), -1),
+            "valid": ok, "radius": stat("radius").max(0), "count": stat("count").sum(0),
+            "iters": stat("iters").max(0), "converged": stat("converged").all(0),
+            "truncated": stat("truncated").any(0)}
+
+
+def phase6_sharded(seed, api, cfg, k, mods, smi, n=1_000_000, b=4096, n_shards=4,
+                   batch=2048) -> list:
+    """6a, the sharded tier on one card: PAPER_GRID, `n` random 2-D points
+    routed over `n_shards` shards, built from all but 2 x `batch` points,
+    two inserts of `batch` and a delete of `batch` ids. The stacked index
+    equals build_index of each shard's routed points; the `sharded` search
+    equals a host merge of the per-shard `torch` results and launches no
+    kernel (its shards search on `torch`, as the reference's on `jnp`); the
+    mutated handle equals a sharded rebuild in every field of the index,
+    search (both modes) and classify; snapshot() equals build_index over
+    the live points in arrival order; recall@k against `exact`."""
+    from repro_torch.core import distributed, grid, projection
+
+    gen = torch.Generator(device=DEV).manual_seed(seed + 60)
+    pts = torch.randn((n, 2), generator=gen, device=DEV)
+    labels = torch.randint(0, cfg.n_classes, (n,), generator=gen, device=DEV, dtype=torch.int32)
+    q = torch.randn((b, 2), generator=gen, device=DEV)
+    proj = projection.identity_projection(pts)
+    n0 = n - 2 * batch
+    s, build_ms = host_ms(lambda: api.ActiveSearcher.build_sharded(
+        pts[:n0], n_shards=n_shards, labels=labels[:n0], cfg=cfg, proj=proj, device=DEV))
+    check(s.sharded and s.plan.backend == "sharded", "phase 6a: not a sharded handle")
+    owner = distributed.shard_of_points(pts[:n0], cfg, proj, n_shards)
+    for sh in range(n_shards):
+        sel = torch.nonzero(owner == sh).flatten()
+        want = grid.build_index(pts[sel], cfg, proj, labels=labels[sel], ids=sel.to(torch.int32))
+        same_index(distributed.live_shard(s.index, sh), want, f"phase 6a shard {sh}")
+    check(s.index.points_sorted.shape[1] == distributed._pow2(int(s.index.offsets[:, -1].max())),
+          "phase 6a: the stacked store is not padded to a power of two")
+
+    # the sharded search: no kernel; equal to a host merge of the shards
+    s.search(q, k)
+    torch.cuda.synchronize()
+    reset(mods)
+    res = s.search(q, k)
+    torch.cuda.synchronize()
+    launches = counts(mods)
+    check(sum(launches.values()) == 0, f"phase 6a: the sharded search launched {launches}")
+    check(on_card(*res), "phase 6a: the search output left the card")
+    per_shard = [api.ActiveSearcher(index=distributed.shard(s.index, sh), cfg=cfg,
+                                    plan=api.ExecutionPlan(backend="torch")).search(q, k)
+                 for sh in range(n_shards)]
+    for field, want in host_merge(per_shard, k).items():
+        check(np.array_equal(to_np(getattr(res, field)), want),
+              f"phase 6a: sharded {field} differs from the host merge")
+    search_ms = search_wall_ms(s, q, k, reps=3)
+
+    # two inserts and a delete, against a sharded rebuild of the survivors
+    insert_ms = []
+    for i in range(2):
+        lo, hi = n0 + i * batch, n0 + (i + 1) * batch
+        s, ms = host_ms(lambda: s.insert(pts[lo:hi], labels=labels[lo:hi]))
+        insert_ms.append(ms)
+    dead = mixed_ids(gen, n0, n, batch)
+    s, delete_ms = host_ms(lambda: s.delete(dead))
+    keep = survivors(n, dead)
+    ref = api.ActiveSearcher.build_sharded(pts[keep], n_shards=n_shards, labels=labels[keep],
+                                           ids=keep.to(torch.int32), cfg=cfg, proj=proj,
+                                           device=DEV)
+    same_index(s.index, ref.index, "phase 6a mutated against a sharded rebuild")
+    for mode in ("refined", "paper"):
+        same_result(s.search(q, k, mode=mode), ref.search(q, k, mode=mode),
+                    f"phase 6a mutated {mode} search")
+    check(torch.equal(s.classify(q, k), ref.classify(q, k)), "phase 6a: classify differs")
+    st = s.stats()
+    check(st["n_points"] == keep.numel() and sum(st["shard_points"]) == keep.numel(),
+          f"phase 6a: stats {st['n_points']} points, {st['shard_points']}")
+    mutated_ms = search_wall_ms(s, q, k, reps=3)
+
+    # the merge to one dense handle, against build_index in arrival order
+    snap, snapshot_ms = host_ms(s.snapshot)
+    merge_ms = [host_ms(lambda: distributed.merge_to_dense(s.index, cfg))[1] for _ in range(3)]
+    dense = grid.build_index(pts[keep], cfg, proj, labels=labels[keep], ids=keep.to(torch.int32))
+    same_index(snap.index, dense, "phase 6a snapshot() against build_index")
+    check(snap.plan.backend == "torch" and not snap.sharded, "phase 6a: snapshot plan")
+    dense_torch_ms = search_wall_ms(snap, q, k, reps=3)
+    reset(mods)
+    truth = snap.with_plan(backend="exact").search(q, k)
+    torch.cuda.synchronize()
+    exact_launches = counts(mods)
+    check(exact_launches["brute_knn"] == 1, f"phase 6a exact launched {exact_launches}")
+    emit({
+        "phase": "6a", "config": "PAPER_GRID, sharded over 4 shards on one card",
+        "nvidia_smi": smi, "n_built": n0, "n_shards": n_shards, "B": b, "k": k,
+        "inserted": 2 * batch, "deleted": batch, "build_ms": build_ms,
+        "stacked_rows_per_shard": int(s.index.points_sorted.shape[1]),
+        "sharded_search_ms": search_ms, "sharded_search_ms_after_mutation": mutated_ms,
+        "dense_torch_search_ms_same_points": dense_torch_ms,
+        "sharded_search_launches": launches, "insert_ms": insert_ms, "delete_ms": delete_ms,
+        "snapshot_ms": snapshot_ms,
+        "merge_to_dense_ms": {"median": float(np.median(merge_ms)), "all": merge_ms},
+        "shard_points": st["shard_points"], "compactions": st["compactions"],
+        "compact_s": st["compact_s"],
+        "recall_at_k_vs_exact": recall(s.search(q, k).ids, truth.ids, k),
+        "equal": {"stacked_index_to_per_shard_build_index": True,
+                  "sharded_search_to_host_merge": True,
+                  "mutated_to_sharded_rebuild": ["index", "search refined", "search paper",
+                                                 "classify"],
+                  "snapshot_to_build_index": True},
+        "search_sha256": sha256_of(*res),
+    })
+    return [launches, exact_launches]
+
+
+def zipf_tokens(gen, m: int, vocab: int, s: float = 1.1) -> torch.Tensor:
+    """m next tokens, token r drawn with probability proportional to
+    1 / (r + 1)^s (a Zipf law over the vocabulary)."""
+    w = torch.arange(1, vocab + 1, dtype=torch.float64, device=DEV).pow(-s).float()
+    return torch.multinomial(w, m, replacement=True, generator=gen).to(torch.int32)
+
+
+def clustered_keys(gen, centres: torch.Tensor, m: int, spread: float) -> torch.Tensor:
+    """m hidden states: a random centre each, plus Gaussian noise of std
+    `spread` per dim; made in blocks of 65,536 rows."""
+    keys = torch.empty((m, centres.shape[1]), device=DEV)
+    for lo in range(0, m, 1 << 16):
+        hi = min(m, lo + (1 << 16))
+        pick = torch.randint(0, centres.shape[0], (hi - lo,), generator=gen, device=DEV)
+        keys[lo:hi] = centres[pick] + spread * torch.randn((hi - lo, centres.shape[1]),
+                                                          generator=gen, device=DEV)
+    return keys
+
+
+def datastore_keys(seed: int, n: int, d: int, n_centres: int, spread: float):
+    """The datastore's keys and the cluster centres, from their own seed,
+    so the same keys can be made again for the rebuild check."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    centres = torch.randn((n_centres, d), generator=gen, device=DEV)
+    return clustered_keys(gen, centres, n, spread), centres
+
+
+def phase6_knn_lm(seed, api, mods, smi, n=524_288, requests=256, max_batch=64, inserts=4,
+                  batch=2048, n_centres=4096, spread=0.5):
+    """6b, the kNN-LM head at minitron-8b's width: a datastore of `n`
+    (hidden state, next token) pairs made on the card (keys Gaussian
+    clusters, tokens Zipf over the vocabulary) with KNNLMConfig's defaults
+    (grid 1024, window 32, row_cap 32, k = 16, plan `hopper`), then a
+    decode stream of `requests` requests of 1-8 rows through
+    DynamicBatcher(max_batch), with `inserts` offer_insert calls of
+    `batch` pairs between batches.  Every request's result equals an
+    unpadded call on the handle that served it, each p_knn row sums to 1
+    within 1e-5, each batch launches one radius_search_loop and one
+    csr_candidate_topk, and the grown datastore equals build_index over
+    the union with the datastore's projection.  Returns (launches,
+    csr_candidate_topk's timing at a batch's shape)."""
+    from repro_torch.core import knn_lm, mutable
+    from repro_torch.core.active_search import padded_csr, window_spans
+    from repro_torch.core.projection import to_grid_coords
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import DynamicBatcher
+
+    d, vocab = MINITRON["d_model"], MINITRON["vocab"]
+    cfg = knn_lm.KNNLMConfig()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 62)
+    keys, centres = datastore_keys(seed + 61, n, d, n_centres, spread)
+    toks = zipf_tokens(gen, n, vocab)
+    sizes = torch.randint(1, 9, (requests,), generator=gen, device=DEV).tolist()
+    rows = torch.randint(0, n, (sum(sizes),), generator=gen, device=DEV)
+    hidden = keys[rows] + 0.1 * spread * torch.randn((sum(sizes), d), generator=gen, device=DEV)
+    reqs = list(hidden.split(sizes))
+    new = [(clustered_keys(gen, centres, batch, spread), zipf_tokens(gen, batch, vocab))
+           for _ in range(inserts)]
+    index, build_ms = host_ms(lambda: knn_lm.build_datastore(keys, toks, cfg))
+    proj = index.proj
+    del keys
+    build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    batcher = DynamicBatcher(api.ActiveSearcher.from_index(index, cfg.grid, plan=cfg.plan,
+                                                           device=DEV),
+                             k=cfg.k, max_batch=max_batch)
+    index_b = nbytes(index_tensors(index))
+    del index
+    batcher.searcher.search(reqs[0], cfg.k)                  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(mods)
+    pending, done, step_ms = [], [0], {"batch": [], "insert": []}
+    sum_err = [0.0]
+
+    def verify() -> None:
+        """The requests this batch served, each against an unpadded call on
+        the handle that served it, and each p_knn row's sum; their
+        launches are taken off the counts again."""
+        saved = counts(mods)
+        while done[0] < len(pending) and pending[done[0]][1].done():
+            q_rows, fut = pending[done[0]]
+            got = fut.result(timeout=0)
+            same_result(got, batcher.searcher.search(q_rows, cfg.k),
+                        f"phase 6b: request {done[0]} differs from an unpadded call")
+            p = knn_lm.logprobs_from_result(got, cfg, vocab).double().exp().sum(-1)
+            sum_err[0] = max(sum_err[0], float((p - 1.0).abs().max()))
+            done[0] += 1
+        for name, mod in mods.items():
+            mod.launches = saved[name]
+
+    def timed_step() -> bool:
+        before = (batcher.stats["batches"], batcher.stats["inserts_applied"])
+        ran, ms = host_ms(batcher.step)
+        if batcher.stats["batches"] != before[0]:
+            step_ms["batch"].append(ms)
+            verify()
+        elif batcher.stats["inserts_applied"] != before[1]:
+            step_ms["insert"].append(ms)
+        return ran
+
+    per_insert = requests // inserts
+    for i, q_rows in enumerate(reqs):
+        pending.append((q_rows, batcher.submit(q_rows)))
+        if i % per_insert == per_insert - 1:
+            new_keys, new_toks = new[i // per_insert]
+            batcher.offer_insert(new_keys, labels=new_toks)
+        if i % 8 == 7:
+            timed_step()
+    while timed_step():
+        pass
+    launches = counts(mods)
+    stream_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = dict(batcher.stats)
+    check(done[0] == requests, f"phase 6b: {done[0]} of {requests} requests served")
+    check(sum_err[0] <= 1e-5, f"phase 6b: a p_knn row sums to 1 +- {sum_err[0]}")
+    check(launches["radius_search_loop"] == st["batches"]
+          and launches["csr_candidate_topk"] == st["batches"],
+          f"phase 6b: {st['batches']} batches launched {launches}")
+    check(st["inserts_applied"] == inserts * batch, "phase 6b: inserts not applied")
+    grown = batcher.searcher
+    state_b = nbytes(mutable.state_to_tree(grown.mutable).values())
+    st["compactions"] = grown.stats()["compactions"]
+    grown = grown.snapshot()
+    del batcher
+
+    # the grown datastore == a build over the union, the same projection
+    keys, _ = datastore_keys(seed + 61, n, d, n_centres, spread)
+    union = knn_lm.build_datastore(torch.cat([keys] + [k_ for k_, _ in new]),
+                                   torch.cat([toks] + [t for _, t in new]), cfg, proj=proj)
+    del keys
+    same_index(grown.index, union, "phase 6b grown datastore against build_index of the union")
+    del union
+
+    # recall against exact, and csr_candidate_topk at a batch's shape
+    all_q = torch.cat(reqs)
+    res = grown.search(all_q, cfg.k)
+    reset(mods)
+    truth = grown.with_plan(backend="exact").search(all_q, cfg.k)
+    torch.cuda.synchronize()
+    exact_launches = counts(mods)
+    qc = all_q[:max_batch].contiguous()
+    q_grid = to_grid_coords(grown.index.proj, qc, cfg.grid.grid_size)
+    pts_pad, _, _, _, n_live, n_pad = padded_csr(grown.index, cfg.grid.row_cap)
+    stt, en = window_spans(grown.index, cfg.grid, q_grid)
+    args = (pts_pad, stt, en, qc, cfg.k, n_live, cfg.grid.row_cap)
+    csr = mods["csr_candidate_topk"].csr_candidate_topk
+    ms, got = time_ms(lambda: csr(*args))
+    dev_ms = device_ms(lambda: csr(*args), "csr_candidate_topk_kernel")
+    plain_ms, want = time_ms(lambda: ref.csr_candidate_topk(*args), reps=3)
+    err, swaps = compare_topk(got, want, pts_pad, qc, "l2", 1e-5)
+    s_cl = stt.long().clamp(0, max(n_pad - cfg.grid.row_cap, 0))
+    j = s_cl[:, :, None] + torch.arange(cfg.grid.row_cap, device=DEV)
+    valid = (j >= stt[:, :, None]) & (j < en[:, :, None]) & (j < n_live)
+    pairs, distinct = int(valid.sum()), int(torch.unique(j[valid]).numel())
+    b_ms, b_by = bound(distinct * d * 4 + max_batch * (cfg.grid.window * 8 + d * 4 + cfg.k * 8),
+                       3 * pairs * d)
+    timing = {"shape": f"kNN-LM d={d} B={max_batch} k={cfg.k}", "ms": ms, "device_ms": dev_ms,
+              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+              "gathered_ms": 1e3 * pairs * d * 4 / HBM_BYTES_PER_S, "valid_pairs": pairs,
+              "distinct_rows": distinct, "max_abs_err": err, "tie_swaps": swaps}
+    batch_ms = float(np.median(step_ms["batch"]))
+    emit({
+        "phase": "6b", "config": "kNN-LM head, minitron-8b widths (d_model 4096, vocab 256,000)",
+        "nvidia_smi": smi, "n": n, "d": d, "vocab": vocab, "k": cfg.k,
+        "grid": {"grid_size": cfg.grid.grid_size, "window": cfg.grid.window,
+                 "row_cap": cfg.grid.row_cap}, "plan": cfg.plan.backend,
+        "keys": {"clusters": n_centres, "spread": spread, "tokens": "Zipf s=1.1"},
+        "build_ms": build_ms, "requests": requests, "request_rows": st["request_rows"],
+        "batches": st["batches"], "batch_rows": st["batch_rows"], "pad_rows": st["pad_rows"],
+        "truncated_rows": st["truncated_rows"], "max_batch": max_batch,
+        "ms_per_batch": {"median": batch_ms, "min": min(step_ms["batch"]),
+                         "max": max(step_ms["batch"])},
+        "decode_rows_per_s": 1e3 * st["request_rows"] / sum(step_ms["batch"]),
+        "insert_ms": step_ms["insert"], "inserted": inserts * batch,
+        "insert_backlog_peak": st["insert_backlog_peak"], "compactions": st["compactions"],
+        "p_knn_row_sum_max_err": sum_err[0],
+        "recall_at_k_vs_exact": recall(res.ids, truth.ids, cfg.k),
+        "valid_frac": float(res.valid.float().mean()),
+        "state_bytes": state_b, "index_bytes": index_b, "state_over_index": state_b / index_b,
+        "peak_mem_gb": {"build": build_peak_gb, "stream": stream_peak_gb},
+        "launches": launches, "exact_launches": exact_launches,
+        "csr_candidate_topk_at_batch": timing,
+        "equal": {"requests_to_unpadded_calls": True, "grown_to_build_index_of_union": True},
+    })
+    return [launches, exact_launches], timing
+
+
+def phase6_retrieval(seed, api, mods, smi, n=524_288, steps=64, rows=8, extend=1024):
+    """6c, retrieval memory at minitron-8b's long_500k: `n` positions whose
+    8 KV heads of head_dim 128 are summarised by key_summary, a fixed
+    random projection (make_projection), RetrievalMemoryConfig's defaults
+    (64 retrieved, grid 2048, window 32, row_cap 64, max_iters 12), then
+    `steps` decode steps of `rows` rows of 32 query heads each (query heads
+    near a past position's key heads): each step one radius_search_loop
+    and one csr_candidate_topk; recall of the positions against `exact`;
+    extend_memory_index of `extend` positions equal to the build over the
+    concatenation.  Returns (launches, the mutable state grown by the same
+    positions, cfg) for 6d."""
+    from repro_torch.core import mutable, retrieval_memory as rm
+
+    hd, n_kv, n_q = MINITRON["head_dim"], MINITRON["n_kv_heads"], MINITRON["n_heads"]
+    cfg = rm.RetrievalMemoryConfig()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 63)
+    k_heads = torch.randn((n, n_kv, hd), generator=gen, device=DEV)
+    keys = rm.key_summary(k_heads)
+    proj = rm.make_projection(gen, hd)
+    pos = torch.randint(0, n, (steps * rows,), generator=gen, device=DEV)
+    q_heads = k_heads[pos].repeat_interleave(n_q // n_kv, dim=1)
+    q_heads = q_heads + 0.5 * torch.randn(q_heads.shape, generator=gen, device=DEV)
+    q_sum = rm.query_summary(q_heads).split(rows)
+    del k_heads, q_heads
+    index, build_ms = host_ms(lambda: rm.build_memory_index(keys, cfg, proj))
+
+    rm.retrieve_positions(index, cfg, q_sum[0])               # warm-up, not counted
+    torch.cuda.synchronize()
+    reset(mods)
+    step_ms, out = [], []
+    for qs in q_sum:
+        res, ms = host_ms(lambda: rm.retrieve_positions(index, cfg, qs))
+        step_ms.append(ms)
+        out.append(res)
+    launches = counts(mods)
+    check(launches["radius_search_loop"] == steps and launches["csr_candidate_topk"] == steps,
+          f"phase 6c: {steps} decode steps launched {launches}")
+    positions = torch.cat([p for p, _ in out])
+    ok = torch.cat([v for _, v in out])
+    check(positions.shape == (steps * rows, cfg.n_retrieved) and positions.dtype == torch.int32
+          and bool(((positions >= 0) & (positions < n)).all()), "phase 6c: positions out of range")
+    check(bool(ok.any()), "phase 6c: no decode row retrieved a position")
+    # the first two steps again on the CPU, through the plain versions: the
+    # same Eq.-1 stats, distances within rtol 1e-5 and positions equal up
+    # to near-ties (d = 128 sums in another order)
+    card = api.ActiveSearcher.from_index(index, cfg.grid, device=DEV)
+    cpu = api.ActiveSearcher.from_index(index, cfg.grid, device="cpu")
+    q2 = torch.cat(q_sum[:2])
+    rg = card.search(q2, cfg.n_retrieved)
+    before = counts(mods)
+    rc = cpu.search(q2.cpu(), cfg.n_retrieved)
+    check(counts(mods) == before, "phase 6c: the CPU run launched a kernel")
+    for field in ("radius", "count", "iters", "converged", "truncated", "valid"):
+        check(torch.equal(getattr(rg, field).cpu(), getattr(rc, field)),
+              f"phase 6c CPU cross-check: {field} differs")
+    check(torch.equal(positions[:2 * rows], torch.clamp_min(rg.ids, 0)),
+          "phase 6c: retrieve_positions differs from the searcher's ids")
+    cpu_err, cpu_swaps = compare_topk((rg.dists.cpu(), rg.ids.cpu()), (rc.dists, rc.ids),
+                                      keys.cpu(), q2.cpu(), "l2", 1e-5)
+    del cpu
+    self_hit = float((positions == pos[:, None]).any(dim=1).float().mean())
+    all_q = torch.cat(q_sum)
+    reset(mods)
+    truth = api.ActiveSearcher.from_index(index, cfg.grid, device=DEV).with_plan(
+        backend="exact").search(all_q, cfg.n_retrieved)
+    torch.cuda.synchronize()
+    exact_launches = counts(mods)
+    rec = recall(torch.where(ok, positions, torch.full_like(positions, -1)), truth.ids,
+                 cfg.n_retrieved)
+
+    new_heads = torch.randn((extend, n_kv, hd), generator=gen, device=DEV)
+    new_keys = rm.key_summary(new_heads)
+    ext, extend_ms = host_ms(lambda: rm.extend_memory_index(index, cfg, new_keys))
+    same_index(ext, rm.build_memory_index(torch.cat([keys, new_keys]), cfg, proj),
+               "phase 6c extend_memory_index against the build over the concatenation")
+    state = mutable.insert(mutable.from_index(index, cfg.grid), cfg.grid, new_keys)
+    same_index(mutable.snapshot(state, cfg.grid), ext, "phase 6c held state against extend")
+    emit({
+        "phase": "6c", "config": "retrieval memory, minitron-8b long_500k (8 KV heads, "
+                                 "32 query heads, head_dim 128)",
+        "nvidia_smi": smi, "positions": n, "n_retrieved": cfg.n_retrieved,
+        "grid": {"grid_size": cfg.grid.grid_size, "window": cfg.grid.window,
+                 "row_cap": cfg.grid.row_cap, "max_iters": cfg.grid.max_iters},
+        "plan": cfg.plan.backend, "build_ms": build_ms, "decode_steps": steps,
+        "rows_per_step": rows,
+        "ms_per_step": {"median": float(np.median(step_ms)), "min": min(step_ms),
+                        "max": max(step_ms)},
+        "decode_rows_per_s": 1e3 * steps * rows / sum(step_ms),
+        "recall_at_m_vs_exact": rec, "own_position_retrieved_frac": self_hit,
+        "cpu_crosscheck": {"rows": 2 * rows, "max_abs_err": cpu_err, "tie_swaps": cpu_swaps},
+        "valid_frac": float(ok.float().mean()),
+        "extend": {"positions": extend, "ms": extend_ms, "equal_to_build": True},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "exact_launches": exact_launches,
+    })
+    return [launches, exact_launches], state, cfg
+
+
+def phase6_checkpoint(seed, state, cfg, smi, extra=1024) -> None:
+    """6d, the checkpoint: 6c's mutable state saved with save_mutable_index
+    into a directory under build/ (removed afterwards), restored with
+    restore_mutable_index, then one insert of `extra` positions into both
+    the restored and the live state: equal in every field."""
+    from repro_torch.checkpoint.store import CheckpointManager
+    from repro_torch.core import mutable, retrieval_memory as rm
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ROOT / "build")
+    try:
+        mgr = CheckpointManager(tmp)
+        _, save_ms = host_ms(lambda: mgr.save_mutable_index(1, state, blocking=True))
+        step_dir = Path(tmp) / "step_1"
+        written = sum(f.stat().st_size for f in step_dir.iterdir())
+        restored, restore_ms = host_ms(lambda: mgr.restore_mutable_index(1, device=DEV))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 64)
+    more = rm.key_summary(torch.randn((extra, MINITRON["n_kv_heads"], MINITRON["head_dim"]),
+                                      generator=gen, device=DEV))
+    a = mutable.state_to_tree(mutable.insert(restored, cfg.grid, more))
+    b = mutable.state_to_tree(mutable.insert(state, cfg.grid, more))
+    check(sorted(a) == sorted(b), "phase 6d: the restored state has other fields")
+    for key in b:
+        check(a[key].dtype == b[key].dtype and a[key].device.type == DEV.type
+              and torch.equal(a[key], b[key]), f"phase 6d: {key} differs after the insert")
+    emit({
+        "phase": "6d", "config": "checkpoint of 6c's mutable state", "nvidia_smi": smi,
+        "bytes_written": written, "state_bytes": nbytes(mutable.state_to_tree(state).values()),
+        "save_s": save_ms / 1e3, "restore_s": restore_ms / 1e3, "inserted_after": extra,
+        "restored_then_inserted_equal_to_live": True,
+    })
+
+
 # -------------------------------------------------------------------- main ---
 
 
@@ -2124,13 +2618,13 @@ def kernels_line(max_err: dict, timings: dict, launches: dict) -> dict:
     candidate_topk its gather shape, flash_attention its S = 4096 widths."""
     extra = {"candidate_topk": ("gather_shape",), "brute_knn": ("d2_shape",),
              "flash_attention": ("wide_head", "other_widths"),
-             "radius_search_loop": ("chunk_shape",)}
+             "radius_search_loop": ("chunk_shape",), "csr_candidate_topk": ("knn_lm_shape",)}
     timings = {**timings, "brute_knn": {**timings["brute_knn"],
                                         "d2_shape": timings["brute_knn_d2"]}}
     return {"kernels": [
         {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}.cu",
          "replaces": replaces, "launches": launches[name],
-         "path": "none: phase 4 only" if name in NO_PATH else "phases 2, 3, 5",
+         "path": "none: phase 4 only" if name in NO_PATH else PATHS.get(name, "phases 2, 3, 5"),
          "max_abs_err": max(max_err[name], timings[name]["max_abs_err"]),
          "ms": timings[name]["ms"],
          "plain_ms": timings[name]["plain_ms"], "bound_ms": timings[name]["bound_ms"],
@@ -2193,6 +2687,13 @@ def main() -> int:
     runs.append(phase4(seed, mods, timings))
     runs += phase5_paper(seed, api, PAPER_GRID, K, mods, smi)
     runs += phase5_sift(seed, api, PROD_GRID, 10, mods, smi)
+    runs += phase6_sharded(seed, api, PAPER_GRID, K, mods, smi)
+    knn_runs, timings["csr_candidate_topk"]["knn_lm_shape"] = phase6_knn_lm(
+        seed, api, mods, smi, n=KNN_LM_PAIRS)
+    runs += knn_runs
+    retrieval_runs, state, rcfg = phase6_retrieval(seed, api, mods, smi)
+    runs += retrieval_runs
+    phase6_checkpoint(seed, state, rcfg, smi)
     launches = {name: sum(r[name] for r in runs) for name in KERNELS}
     emit(kernels_line(max_err, timings, launches))
     print(smi, flush=True)

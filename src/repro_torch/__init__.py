@@ -25,13 +25,22 @@ materialised-window candidate stage, a baseline and second oracle),
 `hopper_q8` (the int8 shortlist and its exact float32 re-rank),
 `hopper_stacked` (count_at only, one `tile_count` launch per pyramid level),
 `torch` (the per-query pipeline in plain PyTorch, the whole batch in lock
-step: no kernel) and `exact` (the brute-force comparator; its l2 route is
-the `brute_knn` kernel).  `flash_attention` has a kernel too, which no path
-calls yet.  `sharded` follows in a later slice.
+step: no kernel), `exact` (the brute-force comparator; its l2 route is
+the `brute_knn` kernel) and `sharded` (on an `ActiveSearcher.build_sharded`
+handle: one grid per shard, all on one device, each searched on `torch`
+as the reference's shards search on `jnp`, the top-k lists merged by
+(distance, global id); `core/distributed.py`).  `flash_attention` has a
+kernel too, which no path calls yet.
 
 Mutation: `ActiveSearcher.insert` / `.delete` / `.snapshot` keep a
-`core/mutable.py` state beside the handle's index and return new handles;
+`core/mutable.py` state beside the handle's index (one per shard on a
+sharded handle, routed by grid-cell ownership) and return new handles;
 every backend but `hopper_stacked` serves them (`supports_mutation`).
+
+Serving: `core/knn_lm.py` (the kNN-LM head), `core/retrieval_memory.py`
+(retrieval-augmented attention memory), `checkpoint/store.py`
+(`CheckpointManager`, the reference's on-disk format) and
+`launch/serve.py` (`DynamicBatcher`, the dynamic batching queue).
 
 Devices: the entry points (`api.ActiveSearcher.build`, `.from_index`,
 `convert.index_from_numpy`, `convert.mutable_from_numpy`, ...) take

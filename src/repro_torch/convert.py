@@ -4,8 +4,10 @@ package as numpy arrays.
 The index is the port's "weights": the tests build it once with the
 reference, turn it into numpy (`jax.tree.map(np.asarray, index)._asdict()`)
 and load it here, so that both packages search the very same arrays.  A
-mutable state travels as the reference's `mutable.state_to_tree` dict.
-Nothing here imports the reference: it takes plain arrays.
+mutable state travels as the reference's `mutable.state_to_tree` dict; a
+sharded index as the stacked index's arrays, and a sharded mutation state
+as one such dict per shard plus the global `next_id`.  Nothing here imports
+the reference: it takes plain arrays.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import distributed as dist
 from repro_torch.core import mutable as mut
 from repro_torch.core.grid import GridConfig, GridIndex, as_tensor, resolve_device
 from repro_torch.core.projection import Projection
@@ -65,6 +68,36 @@ def mutable_from_numpy(
     state = mut.state_from_tree(tree, device=device)
     _check_levels(len(state.pyramid), cfg)
     return state
+
+
+def sharded_index_from_numpy(
+    fields: Mapping[str, np.ndarray | Sequence[np.ndarray]],
+    cfg: GridConfig,
+    device=None,
+) -> GridIndex:
+    """The port's stacked sharded GridIndex from the fields of the
+    reference's `build_sharded_index` / `stacked_snapshot` result as numpy
+    arrays: the same fields as `index_from_numpy`, each with a leading
+    shard dimension, on `device` (None = the card)."""
+    if np.ndim(fields["offsets"]) != 2:
+        raise ValueError(
+            f"a stacked index has (n_shards, G*G + 1) offsets; got shape "
+            f"{np.shape(fields['offsets'])}"
+        )
+    return index_from_numpy(fields, cfg, device=device)
+
+
+def sharded_mutable_from_numpy(
+    trees: Sequence[Mapping[str, np.ndarray]],
+    next_id: int,
+    cfg: GridConfig,
+    device=None,
+) -> dist.ShardedMutable:
+    """The port's ShardedMutable from the reference's per-shard
+    `state_to_tree` dicts (shard order) and its global `next_id`, on
+    `device` (None = the card)."""
+    states = tuple(mutable_from_numpy(t, cfg, device=device) for t in trees)
+    return dist.ShardedMutable(states=states, next_id=int(next_id))
 
 
 def _check_levels(n: int, cfg: GridConfig) -> None:

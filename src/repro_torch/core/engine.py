@@ -19,8 +19,9 @@ handle's device.  Backends are uniform `BackendImpl` adapters resolved
 from a registry: `hopper` (the main path, the default), `hopper_gather`
 (materialised-window baseline), `hopper_q8` (int8 shortlist + exact
 re-rank), `hopper_stacked` (count-only, per-level baseline), `torch` (the
-per-query pipeline in plain PyTorch, the reference's `jnp`) and `exact`
-(the brute-force comparator).
+per-query pipeline in plain PyTorch, the reference's `jnp`), `exact` (the
+brute-force comparator) and `sharded` (per-shard `torch` searches merged
+by (distance, global id), on a `build_sharded` handle: core/distributed.py).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core import batched
+from repro_torch.core import distributed as dist
 from repro_torch.core import exact as exact_lib
 from repro_torch.core import mutable as mut
 from repro_torch.core import projection as proj_lib
@@ -42,6 +44,7 @@ from repro_torch.core.active_search import (
     _classify_torch,
     _search_torch,
     empty_result,
+    majority_vote,
     run_chunked,
 )
 from repro_torch.core.grid import (
@@ -165,13 +168,16 @@ class ActiveSearcher:
     """The one handle: (index, cfg) = WHAT is searched, plan = HOW.
 
     Frozen and cheap to re-plan: `with_plan` returns a new handle sharing
-    the same index tensors.  Queries are moved to the index's device."""
+    the same index tensors.  Queries are moved to the index's device.  A
+    handle from `build_sharded` carries a STACKED index (a leading shard
+    dimension; `sharded` is true) and a per-shard mutation state."""
 
     index: GridIndex
     cfg: GridConfig
     plan: ExecutionPlan = ExecutionPlan()
-    # streaming-mutation state (core/mutable.py): None for frozen handles;
-    # set by insert/delete so successive mutations reuse the slack layout
+    # streaming-mutation state (core/mutable.py; distributed.ShardedMutable
+    # on sharded handles): None for frozen handles; set by insert/delete so
+    # successive mutations reuse the slack layout
     mutable: Any = None
 
     # -------------------------------------------------------- construction --
@@ -218,9 +224,39 @@ class ActiveSearcher:
             )
         return cls(index=index, cfg=cfg, plan=plan or ExecutionPlan())
 
+    @classmethod
+    def build_sharded(
+        cls,
+        points,
+        *,
+        n_shards: int,
+        labels=None,
+        ids=None,
+        cfg: GridConfig | None = None,
+        plan: ExecutionPlan | None = None,
+        proj: proj_lib.Projection | None = None,
+        device=None,
+    ) -> "ActiveSearcher":
+        """One grid per shard, all on `device` (None = the card), with
+        GLOBAL point ids; searches merge the per-shard top-k lists (backend
+        "sharded", core/distributed.py).  proj defaults to a PCA projection
+        of all the points, shared by every shard."""
+        dev = resolve_device(device)
+        cfg = cfg or GridConfig()
+        pts = as_tensor(points, torch.float32, dev)
+        proj = proj_lib.pca_projection(pts, grid_dim=2) if proj is None else proj
+        index = dist.build_sharded_index(pts, cfg, proj, n_shards, labels, ids=ids, device=dev)
+        plan = dataclasses.replace(plan or ExecutionPlan(), backend="sharded")
+        return cls(index=index, cfg=cfg, plan=plan)
+
     @property
     def device(self) -> torch.device:
         return self.index.device
+
+    @property
+    def sharded(self) -> bool:
+        """True for a `build_sharded` handle (its index is stacked)."""
+        return self.index.offsets.dim() == 2
 
     def with_plan(
         self, plan: ExecutionPlan | None = None, **overrides
@@ -261,15 +297,19 @@ class ActiveSearcher:
                 f"of {mutable_backends}"
             )
 
-    def _mutable_state(self) -> mut.MutableIndex:
-        """Current mutation state, opening the index on first use."""
+    def _mutable_state(self):
+        """Current mutation state, opening the index on first use (per-shard
+        MutableIndex states for sharded handles, one state for dense)."""
         if self.mutable is not None:
             return self.mutable
+        if self.sharded:
+            return dist.open_sharded(self.index, self.cfg)
         return mut.from_index(self.index, self.cfg)
 
     def _carry_mutation_stats(self, new, compactions: int, compact_s: float):
         """Accumulate the compaction accounting on the NEW handle (kept in
-        its __dict__, beside the cached properties)."""
+        its __dict__, beside the cached properties; sharded handles carry
+        theirs inside ShardedMutable instead)."""
         prev = self.__dict__.get(
             "_mutation_stats", {"compactions": 0, "compact_s": 0.0}
         )
@@ -290,8 +330,18 @@ class ActiveSearcher:
         new object, it also starts with cold cached properties, so `exact`
         and `hopper_q8` derive their views of the grown contents afresh.
         Results are bit-identical to rebuilding from the union of the
-        points."""
+        points.
+
+        Sharded handles route every point to its owning shard (grid-cell
+        ownership, core/distributed.py) and delta-insert per shard; the
+        same insert == rebuild parity holds on the "sharded" backend."""
         self._check_mutation()
+        if self.sharded:
+            state = dist.sharded_insert(self._mutable_state(), self.cfg, points,
+                                        labels=labels, ids=ids)
+            return dataclasses.replace(
+                self, index=dist.stacked_snapshot(state, self.cfg), mutable=state
+            )
         state, report = mut.insert_tracked(self._mutable_state(), self.cfg, points,
                                            labels=labels, ids=ids)
         new = dataclasses.replace(
@@ -300,8 +350,15 @@ class ActiveSearcher:
         return self._carry_mutation_stats(new, report.compactions, report.compact_s)
 
     def delete(self, ids) -> "ActiveSearcher":
-        """Delete by global point id; returns a NEW handle (see `insert`)."""
+        """Delete by global point id; returns a NEW handle (see `insert`).
+        On sharded handles the ids are matched globally (strict accounting
+        across shards) and tombstoned on whichever shards carry them."""
         self._check_mutation()
+        if self.sharded:
+            state = dist.sharded_delete(self._mutable_state(), self.cfg, ids)
+            return dataclasses.replace(
+                self, index=dist.stacked_snapshot(state, self.cfg), mutable=state
+            )
         state = mut.delete(self._mutable_state(), self.cfg, ids)
         new = dataclasses.replace(
             self, index=mut.snapshot(state, self.cfg), mutable=state
@@ -314,8 +371,17 @@ class ActiveSearcher:
         Drops the slack state: later insert/delete on either handle cannot
         affect the other (updates write new tensors and never touch the
         ones a snapshot holds, so a snapshot taken mid-serving stays valid
-        while the source keeps mutating)."""
-        return dataclasses.replace(self, mutable=None)
+        while the source keeps mutating).
+
+        On a SHARDED handle this also merges the per-shard stores into ONE
+        dense handle (plan switched to the "torch" backend) whose index is
+        bit-identical to an unsharded `build_index` over the same points —
+        cells are wholly shard-owned, so the merge reproduces the global
+        CSR order exactly (distributed.merge_to_dense)."""
+        if not self.sharded:
+            return dataclasses.replace(self, mutable=None)
+        dense = dist.merge_to_dense(self.index, self.cfg)
+        return dataclasses.replace(self.with_plan(backend="torch"), index=dense, mutable=None)
 
     # ------------------------------------------------------------- dispatch --
     def _impl(self, op: str) -> Callable:
@@ -402,6 +468,8 @@ class ActiveSearcher:
         nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
         if self.mutable is None:
             mutation_stats = {}
+        elif self.sharded:
+            mutation_stats = dist.sharded_stats(self.mutable)
         else:
             mutation_stats = {
                 "free_bucket_slots": int(self.mutable.free_bucket_slots),
@@ -412,7 +480,9 @@ class ActiveSearcher:
                 ),
             }
         return {
-            "n_points": int(idx.offsets[-1]),
+            # LIVE record count from the CSR offsets: a sharded handle sums
+            # the per-shard live prefixes (its pow2 pad rows do not count)
+            "n_points": int(idx.offsets[..., -1].sum()),
             "dim": int(idx.points_sorted.shape[-1]),
             "grid_size": cfg.grid_size,
             "padded_size": cfg.padded_size,
@@ -423,6 +493,7 @@ class ActiveSearcher:
             "backend": self.plan.backend,
             "plan": self.plan,
             "device": str(self.device),
+            "sharded": self.sharded,
             "pyramid_bytes": sum(nbytes(a) for a in idx.pyramid),
             "pyr_tiles_bytes": 0 if idx.pyr_tiles is None else nbytes(idx.pyr_tiles),
             "csr_bytes": sum(
@@ -544,6 +615,28 @@ def _exact_classify(s: ActiveSearcher, queries, k, mode):
     )
 
 
+def _sharded_search(s: ActiveSearcher, queries, k, mode):
+    if not s.sharded:
+        raise ValueError(
+            "backend 'sharded' needs a handle from ActiveSearcher.build_sharded"
+        )
+    return dist.sharded_search(s.index, s.cfg, queries, k, mode=mode,
+                               adaptive_r0=s.plan.adaptive_r0)
+
+
+def _sharded_classify(s: ActiveSearcher, queries, k, mode):
+    """Majority vote over the globally merged top-k.
+
+    There is NO count-based fallback for short/truncated lanes: Eq. 1
+    converges to a DIFFERENT radius on every shard, so "per-class counts at
+    the final radius" has no global definition.  mode="paper" (pure count
+    argmax) is rejected for the same reason."""
+    if mode != "refined":
+        raise ValueError("backend 'sharded' classifies in mode='refined' only")
+    res = _sharded_search(s, queries, k, "refined")
+    return majority_vote(res.labels, res.valid, s.cfg.n_classes)
+
+
 register_backend("torch", BackendImpl(
     search=_torch_search, classify=_torch_classify, count_at=_torch_count_at,
     supports_adaptive_r0=True, supports_mutation=True,
@@ -586,6 +679,14 @@ register_backend("exact", BackendImpl(
     description="brute-force kNN — the paper's 'original kNN' comparator "
                 "(core/exact.py): l2 on the hand-written brute_knn kernel, "
                 "l1 in plain tensor code",
+))
+register_backend("sharded", BackendImpl(
+    search=_sharded_search, classify=_sharded_classify,
+    supports_adaptive_r0=True, supports_mutation=True,
+    description="per-shard `torch` searchers over a stacked index on one device "
+                "+ (dist, global id) lexicographic top-k merge; mutation routed "
+                "by grid-cell ownership (core/distributed.py; build via "
+                "build_sharded); no kernel",
 ))
 
 

@@ -45,6 +45,36 @@ def assert_results_match(got, want) -> None:
             np.testing.assert_array_equal(g, w, err_msg=field)
 
 
+INDEX_FIELDS = ("points_sorted", "coords_sorted", "labels_sorted", "ids_sorted", "offsets")
+
+
+def assert_index_equal(got, want, fields=INDEX_FIELDS) -> None:
+    """Two GridIndex (either package, dense or stacked) equal in every
+    array, bit for bit."""
+    for f in fields:
+        np.testing.assert_array_equal(np_(getattr(got, f)), np_(getattr(want, f)), err_msg=f)
+    assert len(got.pyramid) == len(want.pyramid)
+    for lv, (a, b) in enumerate(zip(got.pyramid, want.pyramid)):
+        np.testing.assert_array_equal(np_(a), np_(b), err_msg=f"pyramid[{lv}]")
+    for f in ("pyr_tiles", "sat"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            np.testing.assert_array_equal(np_(a), np_(b), err_msg=f)
+
+
+def assert_trees_equal(got: dict, want: dict, msg: str = "") -> None:
+    """Two `state_to_tree` dicts (either package) equal array for array:
+    keys, dtypes, shapes, values."""
+    got = {k: np_(v) for k, v in got.items()}
+    want = {k: np_(v) for k, v in want.items()}
+    assert sorted(got) == sorted(want), (msg, sorted(set(got) ^ set(want)))
+    for key, w in want.items():
+        g = got[key]
+        assert (g.dtype, g.shape) == (w.dtype, w.shape), (msg, key, g.dtype, w.dtype)
+        np.testing.assert_array_equal(g, w, err_msg=f"{msg}: {key}")
+
+
 def require_cuda() -> torch.device:
     """The card, or skip with the reason (decided inside the test body)."""
     if not torch.cuda.is_available():

@@ -40,7 +40,10 @@ def test_port_imports_neither_jax_nor_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(mods) >= 31 and "repro_torch.core.mutable" in mods
+    assert len(mods) >= 38 and "repro_torch.core.mutable" in mods
+    assert {"repro_torch.core.distributed", "repro_torch.core.knn_lm",
+            "repro_torch.core.retrieval_memory", "repro_torch.checkpoint.store",
+            "repro_torch.launch.serve"} <= set(mods)
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():

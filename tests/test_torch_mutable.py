@@ -16,7 +16,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import assert_results_match, np_, require_cuda
+from _torch_port import (
+    assert_index_equal,
+    assert_results_match,
+    assert_trees_equal,
+    np_,
+    require_cuda,
+)
 
 from repro import api as japi
 from repro.core import grid as jgrid
@@ -32,10 +38,10 @@ CFG_KW = dict(grid_size=128, tile=16, n_classes=3, window=48, row_cap=48, r0=8, 
 SMALL_KW = dict(grid_size=64, tile=8, window=16, row_cap=32, r0=4, k_slack=2.0)
 JCFG, TCFG = jgrid.GridConfig(**CFG_KW), tgrid.GridConfig(**CFG_KW)
 JSMALL, TSMALL = jgrid.GridConfig(**SMALL_KW), tgrid.GridConfig(**SMALL_KW)
-INDEX_FIELDS = ("points_sorted", "coords_sorted", "labels_sorted", "ids_sorted", "offsets")
 # the reference's backend names and the port's (package docstring)
 BACKEND_MAP = {"jnp": "torch", "pallas": "hopper", "pallas_gather": "hopper_gather",
-               "pallas_q8": "hopper_q8", "pallas_stacked": "hopper_stacked", "exact": "exact"}
+               "pallas_q8": "hopper_q8", "pallas_stacked": "hopper_stacked", "exact": "exact",
+               "sharded": "sharded"}
 
 
 def _data(seed, n, scale=1.0, d=2):
@@ -56,27 +62,7 @@ def _open(pts, labels, cfgs=(JCFG, TCFG), proj_pts=None, **layout):
 
 def assert_state_equal(js, ts, msg=""):
     """Array for array through state_to_tree: keys, dtypes, shapes, values."""
-    want = {k: np.asarray(v) for k, v in jm.state_to_tree(js).items()}
-    got = {k: np_(v) for k, v in tm.state_to_tree(ts).items()}
-    assert sorted(got) == sorted(want), (msg, sorted(set(got) ^ set(want)))
-    for key, w in want.items():
-        g = got[key]
-        assert (g.dtype, g.shape) == (w.dtype, w.shape), (msg, key, g.dtype, w.dtype)
-        np.testing.assert_array_equal(g, w, err_msg=f"{msg}: {key}")
-
-
-def assert_index_equal(got, want, fields=INDEX_FIELDS):
-    """Two GridIndex (either package) equal in every array, bit for bit."""
-    for f in fields:
-        np.testing.assert_array_equal(np_(getattr(got, f)), np_(getattr(want, f)), err_msg=f)
-    assert len(got.pyramid) == len(want.pyramid)
-    for lv, (a, b) in enumerate(zip(got.pyramid, want.pyramid)):
-        np.testing.assert_array_equal(np_(a), np_(b), err_msg=f"pyramid[{lv}]")
-    for f in ("pyr_tiles", "sat"):
-        a, b = getattr(got, f), getattr(want, f)
-        assert (a is None) == (b is None), f
-        if a is not None:
-            np.testing.assert_array_equal(np_(a), np_(b), err_msg=f)
+    assert_trees_equal(tm.state_to_tree(ts), jm.state_to_tree(js), msg)
 
 
 # ------------------------------------------------------ state, array by array
@@ -373,7 +359,10 @@ def test_facade_insert_equals_rebuild_on_every_backend(grown):
     grown handle on its counterpart backend."""
     jgrown, tgrown, tref, q = grown
     assert_index_equal(tgrown.index, tref.index)
-    names = [n for n in tapi.registered_backends() if tapi.get_backend(n).search is not None]
+    # every backend that searches a dense handle (`sharded` searches only a
+    # build_sharded handle: tests/test_torch_sharded.py)
+    names = [n for n in tapi.registered_backends()
+             if tapi.get_backend(n).search is not None and n != "sharded"]
     assert set(names) == {"torch", "hopper", "hopper_gather", "hopper_q8", "exact"}
     reverse = {v: k for k, v in BACKEND_MAP.items()}
     for name in names:
@@ -494,7 +483,7 @@ def test_hopper_stacked_refuses_mutation_as_reference():
     assert not tapi.get_backend("hopper_stacked").supports_mutation
     msg = ("backend 'hopper_stacked' does not support mutation "
            "(BackendImpl.supports_mutation); insert/delete need one of "
-           "['exact', 'hopper', 'hopper_gather', 'hopper_q8', 'torch']")
+           "['exact', 'hopper', 'hopper_gather', 'hopper_q8', 'sharded', 'torch']")
     with pytest.raises(ValueError) as err:
         s.insert(pts[:2])
     assert str(err.value) == msg

@@ -303,7 +303,7 @@ def test_d6_coordinate_projection_via_index_from_numpy(metric):
 
 def test_registered_backends():
     assert tapi.registered_backends() == (
-        "exact", "hopper", "hopper_gather", "hopper_q8", "hopper_stacked", "torch")
+        "exact", "hopper", "hopper_gather", "hopper_q8", "hopper_stacked", "sharded", "torch")
     assert tapi.ExecutionPlan().backend == "hopper"
 
 
