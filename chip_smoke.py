@@ -140,7 +140,27 @@ per phase:
      over the concatenation; 6d that memory's mutable state saved and
      restored through CheckpointManager (under build/, removed after),
      then one insert of 1024 into the restored and the live state: equal
-     in every field; bytes, save and restore seconds.
+     in every field; bytes, save and restore seconds;
+  7  the LM serving path (models/, launch/serve.py's Engine): 7a
+     minitron-8b's widths at depth 2 in float32 (the port's ACT_DTYPE
+     switched for the phase), a prefill of 64 tokens and 4 decode steps on
+     the card and through the same module on the CPU, logits and hidden
+     states within rtol 1e-4 (atol 1e-4), decode equal to the training
+     forward; 7b minitron-8b's CONFIG at full width and depth (32 layers,
+     9.88 B parameters in bf16, random weights from the seed): prefill of
+     S-2 tokens plus one decode step against the forward (the reference's
+     own tolerance), build_datastore_from_model over 256 random sequences
+     of 1,025 tokens (262,144 pairs at d = 4096, labels corpus[:, 1:] in
+     order), Engine.generate with the kNN-LM head (KNNLMConfig's defaults,
+     `hopper`) on 8 prompts of 512 tokens, 32 greedy tokens, one
+     radius_search_loop and one csr_candidate_topk per pick, `hopper` equal
+     to `torch` at every pick (ids up to counted near-ties, distances
+     within rtol 1e-5), recall@16 against `exact`, the online
+     queue -> drain (248 pairs; n_points and labels exact) and a second
+     generate over the grown datastore; parameters and bytes, harvest
+     seconds and tokens/s, prefill ms, decode ms per step with the
+     device-busy share and both kernels' device ms per step from a traced
+     run, insert ms, tokens/s of each generate, peak memory.
 
 Kernel times: `ms` is the median of 10 timed wrapper calls (CUDA events
 around the call, the L2 flushed before each), so a launch-bound kernel's
@@ -152,8 +172,9 @@ torch.profiler, the device alone.
 Each path runs with every launch counter set to 0 just before it and read
 just after (phase 5: before the first insert, and after the mutated
 handle's searches; phase 6b: before the decode stream and after it, the
-checks of each batch's requests taken off again); a kernel of the path
-that was never launched fails the run.
+checks of each batch's requests taken off again; phase 7b: around each
+counted generate); a kernel of the path that was never launched fails the
+run.
 Then one {"kernels": [...]} line (per kernel: launches on the paths,
 largest error against the plain version, kernel time (and device_ms where
 taken) and plain time, the bound
@@ -169,6 +190,7 @@ without the repo's src/.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import importlib
 import json
@@ -210,10 +232,11 @@ KERNELS = {
 SOURCES = tuple(src for src, _ in KERNELS.values())
 FUSED_PATH = ("radius_search_loop", "csr_candidate_topk")  # the kernels `hopper` searches on
 NO_PATH = ("flash_attention",)  # no path of the system calls it: phase 4 only
-# the kernels phase 6 launches besides phases 2, 3 and 5: the kNN-LM head's
-# and retrieval memory's `hopper` searches, and `exact` as their recall
-# reference (the `sharded` backend launches none: its shards search on `torch`)
-PATHS = {name: "phases 2, 3, 5, 6" for name in FUSED_PATH + ("brute_knn",)}
+# the kernels phases 6 and 7 launch besides phases 2, 3 and 5: the kNN-LM
+# head's and retrieval memory's `hopper` searches, and `exact` as their
+# recall reference (the `sharded` backend launches none: its shards search
+# on `torch`)
+PATHS = {name: "phases 2, 3, 5, 6, 7" for name in FUSED_PATH + ("brute_knn",)}
 F32_EPS = float(np.finfo(np.float32).eps)
 LOOP_STATS = ("radius", "count", "iters", "converged", "tile_dmas_skipped")
 
@@ -2608,6 +2631,323 @@ def phase6_checkpoint(seed, state, cfg, smi, extra=1024) -> None:
     })
 
 
+# ----------------------------------------------------------------- phase 7 ---
+
+# the reference model's own prefill/decode tolerance (tests/test_models.py)
+MODEL_TOL = dict(rtol=0.15, atol=0.15)
+# float32 on the card (cuBLAS, TF32 off) against the CPU's sums
+F32_CARD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def model_size(model) -> tuple[int, int]:
+    return (sum(p.numel() for p in model.parameters()),
+            sum(p.numel() * p.element_size() for p in model.parameters()))
+
+
+def close(got, want, tol: dict, what: str) -> float:
+    """Check allclose under `tol`; returns the largest absolute error."""
+    got, want = got.float().cpu(), want.float().cpu()
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, **tol), f"{what}: max abs error {err} beyond {tol}")
+    return err
+
+
+def lm_run(model, tokens, prompt: int, steps: int):
+    """Prefill of `prompt` tokens, `steps` decode steps teacher-forced on
+    `tokens`, and the training forward over all of them: (prefill logits,
+    prefill hidden, [(decode logits, hidden)], forward logits)."""
+    toks = tokens.to(model.device)
+    with torch.no_grad():
+        logits, caches, hidden = model.prefill({"tokens": toks[:, :prompt]},
+                                               cache_len=prompt + steps)
+        dec = []
+        for i in range(steps):
+            lg, caches, h = model.decode_step(caches, toks[:, prompt + i], prompt + i)
+            dec.append((lg, h))
+        full, _ = model({"tokens": toks[:, :prompt + steps]})
+    return logits, hidden, dec, full
+
+
+def phase7_equations(seed, smi, cfg=None) -> None:
+    """7a, the model's equations at full width: minitron-8b's widths at
+    depth 2 (or `cfg`), float32 activations (the port's ACT_DTYPE switched
+    for the phase), weights drawn on the card from a seeded generator and
+    copied to the CPU; a prefill of 64 tokens and 4 decode steps, 2 rows,
+    through the same module on the card and on the CPU: logits and hidden
+    states within F32_CARD_TOL, and on each side the decode logits equal
+    to the training forward's at the same positions."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import DecoderLM
+
+    prompt, steps, batch = 64, 4, 2
+    cfg = cfg or dataclasses.replace(get_config("minitron-8b"), n_layers=2)
+    saved = L.ACT_DTYPE
+    L.ACT_DTYPE = torch.float32
+    try:
+        card = DecoderLM(cfg, device=DEV, generator=torch.Generator(device=DEV).manual_seed(seed + 70))
+        cpu = DecoderLM(cfg, device="meta").to_empty(device="cpu")
+        cpu.load_state_dict(card.state_dict())
+        gen = torch.Generator().manual_seed(seed + 71)
+        tokens = torch.randint(0, cfg.vocab_size, (batch, prompt + steps), generator=gen)
+        (lg_c, h_c, dec_c, full_c), card_ms = host_ms(lambda: lm_run(card, tokens, prompt, steps))
+        t0 = time.perf_counter()
+        lg_h, h_h, dec_h, full_h = lm_run(cpu, tokens, prompt, steps)
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        L.ACT_DTYPE = saved
+    errs = {"prefill_logits": close(lg_c, lg_h, F32_CARD_TOL, "phase 7a prefill logits"),
+            "prefill_hidden": close(h_c, h_h, F32_CARD_TOL, "phase 7a prefill hidden"),
+            "forward_logits": close(full_c, full_h, F32_CARD_TOL, "phase 7a forward logits")}
+    errs["decode_logits"] = max(close(a[0], b[0], F32_CARD_TOL, f"phase 7a decode {i} logits")
+                                for i, (a, b) in enumerate(zip(dec_c, dec_h)))
+    errs["decode_hidden"] = max(close(a[1], b[1], F32_CARD_TOL, f"phase 7a decode {i} hidden")
+                                for i, (a, b) in enumerate(zip(dec_c, dec_h)))
+    dec_fwd = 0.0
+    for side, lg, dec, full in (("card", lg_c, dec_c, full_c), ("cpu", lg_h, dec_h, full_h)):
+        dec_fwd = max(dec_fwd, close(lg, full[:, prompt - 1], F32_CARD_TOL,
+                                     f"phase 7a {side}: prefill against forward"))
+        for i, (lgi, _) in enumerate(dec):
+            dec_fwd = max(dec_fwd, close(lgi, full[:, prompt + i], F32_CARD_TOL,
+                                         f"phase 7a {side}: decode {i} against forward"))
+    n_params, _ = model_size(card)
+    emit({
+        "phase": "7a", "config": f"minitron-8b widths at depth {cfg.n_layers}, float32",
+        "nvidia_smi": smi, "params": n_params, "batch": batch, "prompt": prompt,
+        "decode_steps": steps, "tolerance": F32_CARD_TOL, "card_vs_cpu_max_abs_err": errs,
+        "decode_vs_forward_max_abs_err": dec_fwd, "card_ms": card_ms, "cpu_ms": cpu_ms,
+    })
+
+
+def lm_device_profile(engine, prompts, steps: int) -> dict:
+    """`steps` decode steps (decode_step, then the kNN-LM pick) after a
+    prefill, twice: untraced, each decode_step and each pick timed alone
+    on the host clock (median ms); then under torch.profiler: the traced
+    window's wall ms per step and the device records' ms per step (their
+    ratio the card's busy share), the largest records by kernel name, the
+    host operators with the most self time per step, and the two search
+    kernels' per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = engine.model
+    gen = torch.Generator(device=engine.device).manual_seed(0)
+    s = prompts.shape[1]
+
+    def prefilled():
+        logits, caches, hidden = model.prefill({"tokens": prompts}, cache_len=s + steps)
+        tok = engine._pick(logits, hidden, gen)
+        torch.cuda.synchronize()
+        return caches, tok
+
+    with torch.no_grad():
+        caches, tok = prefilled()
+        timed = []
+        for i in range(steps):
+            (logits, caches, hidden), ms_model = host_ms(
+                lambda: model.decode_step(caches, tok, s + i))
+            tok, ms_pick = host_ms(lambda: engine._pick(logits, hidden, gen))
+            timed.append((ms_model, ms_pick))
+        caches, tok = prefilled()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                logits, caches, hidden = model.decode_step(caches, tok, s + i)
+                tok = engine._pick(logits, hidden, gen)
+            torch.cuda.synchronize()
+            traced_ms = 1e3 * (time.perf_counter() - t0) / steps
+    records = kernel_records(prof)
+    by_name: dict[str, float] = {}
+    for name, ms in records:
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + ms / steps
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / steps, e.count / steps)
+                   for e in prof.key_averages()), key=lambda t: -t[1])[:8]
+    busy = sum(ms for _, ms in records) / steps
+    per = {"model_ms": float(np.median([m for m, _ in timed])),
+           "pick_ms": float(np.median([p for _, p in timed])),
+           "traced_step_ms": traced_ms, "device_busy_ms": busy,
+           "device_busy_share": busy / traced_ms,
+           "device_records_per_step": len(records) / steps,
+           "top_device_ms_per_step": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]),
+           "top_host_ops_per_step": {k: {"self_ms": ms, "calls": n} for k, ms, n in host}}
+    for kname in ("radius_search_loop_kernel", "csr_candidate_topk_kernel"):
+        pat = re.compile(rf"\b{kname}\b")
+        times = [ms for name, ms in records if pat.search(name)]
+        per[kname] = {"ms_per_step": sum(times) / steps, "launches_traced": len(times)}
+    return per
+
+
+def phase7_serving(seed, api, mods, smi, cfg=None, n_seqs=256) -> list:
+    """7b, serving at minitron-8b's full width and depth (CONFIG, bf16, or
+    `cfg`): random weights on the card from the seed; the model's own
+    prefill / decode consistency against its training forward (the
+    reference's tolerance); build_datastore_from_model over `n_seqs` random
+    sequences of 1,024 tokens (labels equal to corpus[:, 1:] in order);
+    then Engine.generate with the kNN-LM head (KNNLMConfig's defaults,
+    `hopper`) on 8 prompts of 512 tokens, 32 greedy tokens, timed by the
+    engine's own clock: one radius_search_loop and one csr_candidate_topk
+    per pick; afterwards, at every pick (the prefill's last hidden and the
+    hiddens generate returns), `hopper` equal to `torch` on the same
+    hidden and handle (ids but for near-ties, distances within rtol 1e-5),
+    recall@k against `exact`; the online flow (queue_datastore_pairs,
+    drain_datastore: n_points grows by exactly the pairs queued, their
+    labels the stream's next tokens); a second generate on new prompts over
+    the grown datastore; and a traced run of 8 decode steps.  Returns the
+    counted runs' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import knn_lm
+    from repro_torch.launch import serve
+    from repro_torch.models.model import DecoderLM
+
+    seq_len, n_prompts, prompt_len, new, profile_steps = 1024, 8, 512, 32, 8
+    cfg = cfg or get_config("minitron-8b")
+    knn_cfg = knn_lm.KNNLMConfig()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_ms = host_ms(lambda: DecoderLM(
+        cfg, device=DEV, generator=torch.Generator(device=DEV).manual_seed(seed + 72)))
+    n_params, n_bytes = model_size(model)
+    check(n_params == cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model,
+          f"phase 7b: {n_params} parameters, the config counts {cfg.param_count()} + norms")
+    gen = torch.Generator(device=DEV).manual_seed(seed + 73)
+
+    # the model's own consistency: prefill of S-2 tokens, one decode step
+    toks = torch.randint(0, cfg.vocab_size, (n_prompts, 64), generator=gen, device=DEV)
+    lg_p, _, dec, full = lm_run(model, toks, 62, 1)
+    consistency = {
+        "prefill_max_abs_err": close(lg_p, full[:, 61], MODEL_TOL, "phase 7b prefill against forward"),
+        "decode_max_abs_err": close(dec[0][0], full[:, 62], MODEL_TOL,
+                                    "phase 7b decode against forward"),
+        "decode_top1": float((dec[0][0].argmax(-1) == full[:, 62].argmax(-1)).float().mean()),
+        "max_abs_logit": float(full[:, 61:63].abs().max()), "rows": n_prompts,
+        "tolerance": MODEL_TOL}
+    check(consistency["decode_top1"] >= 0.5, f"phase 7b: decode top-1 {consistency}")
+    del full, dec
+
+    corpus = torch.randint(0, cfg.vocab_size, (n_seqs, seq_len), generator=gen, device=DEV)
+    index, harvest_ms = host_ms(lambda: serve.build_datastore_from_model(
+        cfg, model, corpus, knn_cfg))
+    pairs = n_seqs * (seq_len - 1)
+    order = torch.argsort(index.ids_sorted.long())
+    check(index.n_points == pairs and torch.equal(index.labels_sorted[order],
+                                                  corpus[:, 1:].reshape(-1)),
+          "phase 7b: the datastore's labels are not corpus[:, 1:] in order")
+    harvest_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del corpus, order
+
+    engine = serve.Engine(cfg, model, serve.ServeConfig(max_new_tokens=new, knn=knn_cfg), index,
+                          device=DEV)
+    prompts = torch.randint(0, cfg.vocab_size, (n_prompts, prompt_len), generator=gen, device=DEV)
+    engine.generate(prompts[:2, :64], 4)                      # warm-up, not counted
+
+    def counted_generate(label):
+        """One generate with the counters zeroed just before and read just
+        after; its readings (the decode steps' ms from the engine's own
+        stats), tokens and hiddens."""
+        prefill_s, decode_s = engine.stats["prefill_s"], engine.stats["decode_s"]
+        reset(mods)
+        (toks_out, hiddens), ms = host_ms(lambda: engine.generate(prompts, new))
+        launches = counts(mods)
+        check(launches["radius_search_loop"] == new and launches["csr_candidate_topk"] == new,
+              f"phase 7b {label} generate: {new} picks launched {launches}")
+        check(toks_out.shape == (n_prompts, new) and toks_out.device.type == DEV.type
+              and bool(((toks_out >= 0) & (toks_out < cfg.vocab_size)).all()),
+              f"phase 7b {label} generate: tokens out of range")
+        reading = {"wall_ms": ms, "tokens_per_s": 1e3 * n_prompts * new / ms,
+                   "prefill_ms": 1e3 * (engine.stats["prefill_s"] - prefill_s),
+                   "decode_ms_per_step": 1e3 * (engine.stats["decode_s"] - decode_s) / (new - 1),
+                   "launches": launches}
+        return reading, toks_out, hiddens
+
+    torch.cuda.reset_peak_memory_stats()
+    first, toks_out, hiddens = counted_generate("first")
+
+    # the hidden of every pick: the prefill's last (a prefill of the same
+    # prompts, whose pick must give the first token again) and the decode
+    # steps' that generate returns
+    with torch.no_grad():
+        logits, caches, h0 = model.prefill({"tokens": prompts}, cache_len=prompt_len + new)
+        tok0 = engine._pick(logits, h0, torch.Generator(device=DEV))
+    check(torch.equal(tok0, toks_out[:, 0]), "phase 7b: the prefill's pick differs from generate's")
+    pick_hidden = [h.float() for h in [h0, *hiddens]]
+    del logits, caches
+
+    # at every pick, the head's `hopper` search equals a `torch` search of
+    # the same hidden on the same handle: the same validity, distances
+    # within rtol 1e-5, ids equal but for near-ties (the kernel and the
+    # plain path sum d = 4096 products in different orders), which are
+    # counted; recall@k against `exact`
+    hop = api.ActiveSearcher.from_index(engine.datastore, knn_cfg.grid, plan=knn_cfg.plan,
+                                        device=DEV)
+    per_query = hop.with_plan(backend="torch")
+    row_of = torch.argsort(hop.index.ids_sorted.long())        # id -> CSR row
+
+    def rows(ids):
+        return torch.where(ids >= 0, row_of[ids.long().clamp_min(0)], ids.long())
+
+    max_err, swaps, hop_ids, valid = 0.0, 0, [], []
+    for i, h in enumerate(pick_hidden):
+        a = hop.search(h, knn_cfg.k, mode="refined")
+        b = per_query.search(h, knn_cfg.k, mode="refined")
+        check(torch.equal(a.valid, b.valid), f"phase 7b pick {i}: hopper's validity differs")
+        err, sw = compare_topk((a.dists, rows(a.ids)), (b.dists, rows(b.ids)),
+                               hop.index.points_sorted, h, "l2", 1e-5)
+        max_err, swaps = max(max_err, err), swaps + sw
+        hop_ids.append(a.ids)
+        valid.append(a.valid)
+    all_h = torch.cat(pick_hidden)
+    reset(mods)
+    truth = hop.with_plan(backend="exact").search(all_h, knn_cfg.k)
+    torch.cuda.synchronize()
+    exact_launches = counts(mods)
+    rec = recall(torch.cat(hop_ids), truth.ids, knn_cfg.k)
+    del hop, per_query, row_of, truth, pick_hidden, all_h
+
+    # the --knn-online flow: the first stream's pairs queued, then drained
+    n0 = engine.datastore.n_points
+    added = engine.queue_datastore_pairs(hiddens, toks_out)
+    backlog = engine.datastore_queue().stats["insert_backlog"]
+    applied, drain_ms = host_ms(engine.drain_datastore)
+    check(added == applied == backlog == n_prompts * (new - 1)
+          and engine.datastore.n_points == n0 + added,
+          f"phase 7b: queued {added}, applied {applied}, n_points {n0} -> "
+          f"{engine.datastore.n_points}")
+    ids = engine.datastore.ids_sorted.long()
+    check(torch.equal(engine.datastore.labels_sorted[torch.argsort(ids)][n0:],
+                      toks_out[:, 1:].T.reshape(-1)),
+          "phase 7b: the grown datastore's labels are not the stream's next tokens")
+    del ids, hiddens
+    prompts = torch.randint(0, cfg.vocab_size, (n_prompts, prompt_len), generator=gen, device=DEV)
+    second, _, _ = counted_generate("second")
+    serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    prof = lm_device_profile(engine, prompts, profile_steps)
+    emit({
+        "phase": "7b", "config": "minitron-8b CONFIG (32 layers, d_model 4096, 32 heads over "
+                                 "8 KV heads of 128, d_ff 16384, vocab 256,000), bf16, "
+                                 "random weights",
+        "nvidia_smi": smi, "params": n_params, "param_bytes": n_bytes, "init_ms": init_ms,
+        "consistency": consistency,
+        "harvest": {"sequences": n_seqs, "seq_len": seq_len, "pairs": pairs,
+                    "batch_size": serve.HARVEST_BATCH, "s": harvest_ms / 1e3,
+                    "tokens_per_s": 1e3 * n_seqs * seq_len / harvest_ms,
+                    "peak_mem_gb": harvest_peak_gb},
+        "knn": {"k": knn_cfg.k, "lam": knn_cfg.lam, "plan": knn_cfg.plan.backend,
+                "grid_size": knn_cfg.grid.grid_size, "window": knn_cfg.grid.window,
+                "row_cap": knn_cfg.grid.row_cap},
+        "prompts": n_prompts, "prompt_len": prompt_len, "new_tokens": new,
+        "generate": {"first": first, "second_on_grown_datastore": second},
+        "online_insert": {"pairs": added, "drain_ms": drain_ms,
+                          "n_points": [n0, engine.datastore.n_points]},
+        "hopper_vs_torch_per_pick": {"picks": new, "max_abs_dist_err": max_err,
+                                     "tie_swaps": swaps},
+        "recall_at_k_vs_exact": rec, "valid_frac": float(torch.cat(valid).float().mean()),
+        "exact_launches": exact_launches,
+        "decode_profile": {"steps": profile_steps, **prof},
+        "peak_mem_gb": {"harvest": harvest_peak_gb, "serve": serve_peak_gb},
+    })
+    return [first["launches"], second["launches"], exact_launches]
+
+
 # -------------------------------------------------------------------- main ---
 
 
@@ -2694,6 +3034,10 @@ def main() -> int:
     retrieval_runs, state, rcfg = phase6_retrieval(seed, api, mods, smi)
     runs += retrieval_runs
     phase6_checkpoint(seed, state, rcfg, smi)
+    del state
+    torch.cuda.empty_cache()
+    phase7_equations(seed, smi)
+    runs += phase7_serving(seed, api, mods, smi)
     launches = {name: sum(r[name] for r in runs) for name in KERNELS}
     emit(kernels_line(max_err, timings, launches))
     print(smi, flush=True)

@@ -1,13 +1,15 @@
-"""Carry a built index, or a mutable index's state, across from the JAX
-package as numpy arrays.
+"""Carry a built index, a mutable index's state, or a model's weights and
+decode caches across from the JAX package as numpy arrays.
 
 The index is the port's "weights": the tests build it once with the
 reference, turn it into numpy (`jax.tree.map(np.asarray, index)._asdict()`)
 and load it here, so that both packages search the very same arrays.  A
 mutable state travels as the reference's `mutable.state_to_tree` dict; a
 sharded index as the stacked index's arrays, and a sharded mutation state
-as one such dict per shard plus the global `next_id`.  Nothing here imports
-the reference: it takes plain arrays.
+as one such dict per shard plus the global `next_id`.  A model travels as
+the reference's `init_params` tree (layers stacked by period position) and
+its decode caches as the reference's period-stacked list.  Nothing here
+imports the reference: it takes plain arrays.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ from repro_torch.core import distributed as dist
 from repro_torch.core import mutable as mut
 from repro_torch.core.grid import GridConfig, GridIndex, as_tensor, resolve_device
 from repro_torch.core.projection import Projection
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import DecoderLM
 
 
 def projection_from_numpy(matrix, lo, hi, device=None) -> Projection:
@@ -98,6 +103,48 @@ def sharded_mutable_from_numpy(
     `device` (None = the card)."""
     states = tuple(mutable_from_numpy(t, cfg, device=device) for t in trees)
     return dist.ShardedMutable(states=states, next_id=int(next_id))
+
+
+def model_from_numpy(tree: Mapping, cfg: ModelConfig, device=None) -> DecoderLM:
+    """The port's DecoderLM from the reference's `init_params` tree as numpy
+    arrays (`jax.tree.map(np.asarray, params)`): `embed`, `final_norm`,
+    `lm_head` (unless the embeddings are tied) and `blocks`, a list over
+    period positions whose leaves carry a leading (n_repeat,) axis.  Layer i
+    takes repeat i // period of position i % period.  Matrices are rounded
+    to `ACT_DTYPE` as the reference rounds them at use; on `device` (None =
+    the card)."""
+    dev = resolve_device(device)
+    model = DecoderLM(cfg, device="meta").to_empty(device=dev)
+    f32 = lambda a: torch.from_numpy(np.array(a, np.float32))  # noqa: E731
+    state = {"embed": f32(tree["embed"]), "final_norm": f32(tree["final_norm"])}
+    if not cfg.tie_embeddings:
+        state["lm_head"] = f32(tree["lm_head"])
+    period = cfg.block_period
+    for i in range(cfg.n_layers):
+        blk, r = tree["blocks"][i % period], i // period
+        for key, leaf in blk.items():
+            if isinstance(leaf, Mapping):
+                state.update({f"layers.{i}.{key}.{k}": f32(v[r]) for k, v in leaf.items()})
+            else:
+                state[f"layers.{i}.{key}"] = f32(leaf[r])
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def caches_from_numpy(caches: Sequence[Mapping[str, np.ndarray]], device=None) -> list:
+    """The port's decode caches from the reference's (a list over period
+    positions of {"k", "v"}, each (n_repeat, B, T, Hkv, hd)), in
+    `ACT_DTYPE`, on `device` (None = the card)."""
+    dev = resolve_device(device)
+    return [{key: torch.from_numpy(np.array(c[key], np.float32)).to(dev, L.ACT_DTYPE)
+             for key in ("k", "v")} for c in caches]
+
+
+def caches_to_numpy(caches: Sequence[Mapping[str, torch.Tensor]]) -> list:
+    """The port's decode caches as the reference's structure of float32
+    numpy arrays (every bf16 value is exactly a float32 one)."""
+    return [{key: c[key].detach().to("cpu", torch.float32).numpy() for key in ("k", "v")}
+            for c in caches]
 
 
 def _check_levels(n: int, cfg: GridConfig) -> None:

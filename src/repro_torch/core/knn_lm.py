@@ -80,7 +80,7 @@ def logprobs_from_result(res: SearchResult, cfg: KNNLMConfig, vocab_size: int) -
     """log p_knn over the vocab from a datastore search's (B, k) result ->
     (B, vocab): the softmax of -dist / T over the valid neighbours,
     scatter-added onto their tokens."""
-    temp = torch.tensor(cfg.temperature, dtype=torch.float32, device=res.dists.device)
+    temp = torch.full((), cfg.temperature, dtype=torch.float32, device=res.dists.device)
     w = torch.where(res.valid, -res.dists / temp, torch.full_like(res.dists, -math.inf))
     w = torch.softmax(w, dim=-1)                      # (B, k)
     w = torch.where(res.valid, w, torch.zeros_like(w))
@@ -106,13 +106,28 @@ def knn_logprobs(
     return logprobs_from_result(res, cfg, vocab_size)
 
 
+def log_softmax(x: torch.Tensor) -> torch.Tensor:
+    """log_softmax over the last axis in x's own dtype, rounded where
+    `jax.nn.log_softmax` rounds: the shift, exp and log each in x's dtype,
+    the sum in float32.  For bf16 logits one fused `torch.log_softmax`
+    rounds once instead, and so differs from the reference on many
+    entries by a bf16 ulp or more."""
+    shifted = x - x.amax(dim=-1, keepdim=True)
+    total = torch.exp(shifted).sum(dim=-1, keepdim=True, dtype=torch.float32)
+    return shifted - torch.log(total.to(x.dtype))
+
+
 def interpolate(lm_logits: torch.Tensor, knn_logp: torch.Tensor, cfg: KNNLMConfig) -> torch.Tensor:
-    """log( lam * p_knn + (1-lam) * p_lm ), numerically via logaddexp."""
-    lm_logp = torch.log_softmax(lm_logits.to(torch.float32), dim=-1)
+    """log( lam * p_knn + (1-lam) * p_lm ), numerically via logaddexp.
+
+    As in the reference, log p_lm stays in the logits' dtype (bf16 for the
+    model's logits) until logaddexp promotes it to float32, and log(1 - lam)
+    is rounded to that dtype before it is added."""
+    lm_logp = log_softmax(lm_logits)
     f32 = dict(dtype=torch.float32, device=knn_logp.device)
-    log_lam = torch.log(torch.tensor(cfg.lam, **f32))
-    log_rest = torch.log1p(-torch.tensor(cfg.lam, **f32))
-    return torch.logaddexp(log_lam + knn_logp, log_rest + lm_logp)
+    log_lam = torch.log(torch.full((), cfg.lam, **f32))
+    log_rest = torch.log1p(torch.full((), -cfg.lam, **f32)).to(lm_logp.dtype)
+    return torch.logaddexp(log_lam + knn_logp, (log_rest + lm_logp).to(torch.float32))
 
 
 def knn_lm_logits(

@@ -1,1 +1,2 @@
-"""Serving: the dynamic batching queue over one searcher (`serve.DynamicBatcher`)."""
+"""Serving: the LM engine with the kNN-LM head (`serve.Engine`, `serve.main`)
+and the dynamic batching queue over one searcher (`serve.DynamicBatcher`)."""

@@ -40,10 +40,14 @@ def test_port_imports_neither_jax_nor_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(mods) >= 38 and "repro_torch.core.mutable" in mods
+    assert len(mods) >= 53 and "repro_torch.core.mutable" in mods
     assert {"repro_torch.core.distributed", "repro_torch.core.knn_lm",
             "repro_torch.core.retrieval_memory", "repro_torch.checkpoint.store",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.models.config",
+            "repro_torch.models.layers", "repro_torch.models.attention",
+            "repro_torch.models.model", "repro_torch.configs.shapes",
+            "repro_torch.configs.minitron_8b", "repro_torch.configs.xlstm_125m",
+            "repro_torch.utils.scan"} <= set(mods)
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():

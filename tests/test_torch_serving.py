@@ -127,6 +127,35 @@ def test_interpolate_and_knn_lm_logits_match_reference(datastore):
         rtol=P_RTOL, atol=1e-6)
 
 
+def test_interpolate_and_knn_lm_logits_with_bf16_logits_match_reference(datastore):
+    """The model's logits are bf16, and the reference takes their
+    log_softmax in bf16, rounding log(1 - lam) + log p_lm to bf16 too;
+    only logaddexp promotes to float32.  Tolerance: one bf16 ulp of the
+    reference's LM log-probability (a one-ulp change of that term moves
+    logaddexp's output by at most one ulp), plus a float32 ulp."""
+    keys, _, jcfg, tcfg, jidx, tidx = datastore
+    h = _hidden(keys)
+    lm = np.random.default_rng(4).normal(size=(len(h), VOCAB)).astype(np.float32) * 3.0
+    lm_j, lm_t = jnp.asarray(lm).astype(jnp.bfloat16), torch.from_numpy(lm).to(torch.bfloat16)
+    want_lm = np.asarray(jax.nn.log_softmax(lm_j, axis=-1).astype(jnp.float32))
+    bf16_ulp = np.spacing(np.abs(want_lm)) * 2.0 ** 16
+    knn_lp = np.log(np.random.default_rng(5).dirichlet(np.ones(VOCAB), len(h))).astype(np.float32)
+    pairs = [
+        (tknn.interpolate(lm_t, torch.from_numpy(knn_lp), tcfg),
+         jknn.interpolate(lm_j, jnp.asarray(knn_lp), jcfg)),
+        (tknn.knn_lm_logits(tidx, tcfg, torch.from_numpy(h), lm_t),
+         jknn.knn_lm_logits(jidx, jcfg, jnp.asarray(h), lm_j)),
+    ]
+    for got, want in pairs:
+        assert got.dtype == torch.float32 and want.dtype == jnp.float32
+        want = np.asarray(want)
+        err = np.abs(np_(got) - want)
+        assert (err <= bf16_ulp + np.spacing(np.abs(want))).all(), float(err.max())
+    got_lm = tknn.log_softmax(lm_t)
+    assert got_lm.dtype == torch.bfloat16
+    assert (np.abs(np_(got_lm.float()) - want_lm) <= bf16_ulp).all()
+
+
 def test_extend_datastore_matches_reference_and_build(datastore):
     keys, toks, jcfg, tcfg, jidx, tidx = datastore
     rng = np.random.default_rng(3)
