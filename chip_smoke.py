@@ -160,7 +160,31 @@ per phase:
      generate over the grown datastore; parameters and bytes, harvest
      seconds and tokens/s, prefill ms, decode ms per step with the
      device-busy share and both kernels' device ms per step from a traced
-     run, insert ms, tokens/s of each generate, peak memory.
+     run, insert ms, tokens/s of each generate, peak memory;
+  8  the MoE, Mamba and xLSTM layers on that path: 8a in float32, card
+     against CPU at rtol / atol 1e-4: one moe_block at qwen2-moe-a2.7b's
+     width (60 experts padded to 64, 2048 x 1408, top-4, a shared MLP of
+     5632) and one at jamba-v0.1-52b's (16 x 4096 x 14,336, top-2; 11.3 GB
+     of float32 weights on each side), the router's top-k ids and kept
+     mask equal; one Mamba sublayer at jamba's width (d_inner 8192): a
+     prefill of 64 tokens, 4 decode steps, the training form, decode equal
+     to it; xlstm-125m whole as 7a (atol 1e-3: 12 layers); 8b
+     qwen2-moe-a2.7b's CONFIG at full width and depth (24 layers, 15.15 B
+     parameters: param_count() plus the 4 padded experts of every layer
+     and the norms) through 7b's steps: prefill / decode against the
+     forward held in float32 with the same weights, alone on the card, at
+     a drop-free capacity factor (n_experts / top_k: every group's
+     capacity its size; the bf16 gaps, there and at the real 1.25,
+     printed); a harvest of 256 x 1,024 tokens cut only between whole
+     GShard groups; two counted generates of 8 x 512 prompts and 32
+     tokens, `hopper` equal to `torch` at every pick, the online flow, a
+     traced decode run with its cudaLaunchKernel calls per step; 8c the
+     same for jamba-v0.1-52b at
+     full width with its depth cut to one period (8 of 32 layers,
+     `reduced` in its line; consistency in float32 as 8b) and for
+     xlstm-125m whole (consistency in bf16 as 7b), with 32 sequences and
+     16 new tokens, and the selective scan's and the sLSTM loop's share of
+     one prefill (CUDA events around each call).
 
 Kernel times: `ms` is the median of 10 timed wrapper calls (CUDA events
 around the call, the L2 flushed before each), so a launch-bound kernel's
@@ -172,9 +196,9 @@ torch.profiler, the device alone.
 Each path runs with every launch counter set to 0 just before it and read
 just after (phase 5: before the first insert, and after the mutated
 handle's searches; phase 6b: before the decode stream and after it, the
-checks of each batch's requests taken off again; phase 7b: around each
-counted generate); a kernel of the path that was never launched fails the
-run.
+checks of each batch's requests taken off again; phases 7b, 8b and 8c:
+around each counted generate); a kernel of the path that was never
+launched fails the run.
 Then one {"kernels": [...]} line (per kernel: launches on the paths,
 largest error against the plain version, kernel time (and device_ms where
 taken) and plain time, the bound
@@ -190,6 +214,7 @@ without the repo's src/.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import importlib
@@ -232,11 +257,11 @@ KERNELS = {
 SOURCES = tuple(src for src, _ in KERNELS.values())
 FUSED_PATH = ("radius_search_loop", "csr_candidate_topk")  # the kernels `hopper` searches on
 NO_PATH = ("flash_attention",)  # no path of the system calls it: phase 4 only
-# the kernels phases 6 and 7 launch besides phases 2, 3 and 5: the kNN-LM
+# the kernels phases 6-8 launch besides phases 2, 3 and 5: the kNN-LM
 # head's and retrieval memory's `hopper` searches, and `exact` as their
 # recall reference (the `sharded` backend launches none: its shards search
 # on `torch`)
-PATHS = {name: "phases 2, 3, 5, 6, 7" for name in FUSED_PATH + ("brute_knn",)}
+PATHS = {name: "phases 2, 3, 5, 6, 7, 8" for name in FUSED_PATH + ("brute_knn",)}
 F32_EPS = float(np.finfo(np.float32).eps)
 LOOP_STATS = ("radius", "count", "iters", "converged", "tile_dmas_skipped")
 
@@ -2637,6 +2662,10 @@ def phase6_checkpoint(seed, state, cfg, smi, extra=1024) -> None:
 MODEL_TOL = dict(rtol=0.15, atol=0.15)
 # float32 on the card (cuBLAS, TF32 off) against the CPU's sums
 F32_CARD_TOL = dict(rtol=1e-4, atol=1e-4)
+# the same for a whole 12-layer model (xlstm-125m): its residual stream's
+# float32 error grows about 1e-6 (relative) a layer, and on the CPU alone
+# its logits move 9.8e-5 between 8 threads and 1 (other GEMM sums)
+F32_DEEP_TOL = dict(rtol=1e-4, atol=1e-3)
 
 
 def model_size(model) -> tuple[int, int]:
@@ -2668,55 +2697,73 @@ def lm_run(model, tokens, prompt: int, steps: int):
     return logits, hidden, dec, full
 
 
-def phase7_equations(seed, smi, cfg=None) -> None:
-    """7a, the model's equations at full width: minitron-8b's widths at
-    depth 2 (or `cfg`), float32 activations (the port's ACT_DTYPE switched
-    for the phase), weights drawn on the card from a seeded generator and
-    copied to the CPU; a prefill of 64 tokens and 4 decode steps, 2 rows,
-    through the same module on the card and on the CPU: logits and hidden
-    states within F32_CARD_TOL, and on each side the decode logits equal
-    to the training forward's at the same positions."""
-    from repro_torch.configs import get_config
+@contextlib.contextmanager
+def f32_activations():
+    """The port's ACT_DTYPE switched to float32 inside the block (models
+    built inside store their matrices in float32)."""
     from repro_torch.models import layers as L
-    from repro_torch.models.model import DecoderLM
 
-    prompt, steps, batch = 64, 4, 2
-    cfg = cfg or dataclasses.replace(get_config("minitron-8b"), n_layers=2)
     saved = L.ACT_DTYPE
     L.ACT_DTYPE = torch.float32
     try:
-        card = DecoderLM(cfg, device=DEV, generator=torch.Generator(device=DEV).manual_seed(seed + 70))
+        yield
+    finally:
+        L.ACT_DTYPE = saved
+
+
+def tree_to(tree: dict, device) -> dict:
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+def lm_equations(seed, cfg, tol=F32_CARD_TOL) -> dict:
+    """The model's equations at `cfg`'s widths in float32: weights drawn on
+    the card from generator `seed` and copied to the CPU; a prefill of 64
+    tokens and 4 decode steps, 2 rows, through the same module on the card
+    and on the CPU: logits and hidden states within `tol`, and on each
+    side the decode logits equal to the training forward's at the same
+    positions."""
+    from repro_torch.models.model import DecoderLM
+
+    prompt, steps, batch = 64, 4, 2
+    with f32_activations():
+        card = DecoderLM(cfg, device=DEV, generator=torch.Generator(device=DEV).manual_seed(seed))
         cpu = DecoderLM(cfg, device="meta").to_empty(device="cpu")
         cpu.load_state_dict(card.state_dict())
-        gen = torch.Generator().manual_seed(seed + 71)
+        gen = torch.Generator().manual_seed(seed + 1)
         tokens = torch.randint(0, cfg.vocab_size, (batch, prompt + steps), generator=gen)
         (lg_c, h_c, dec_c, full_c), card_ms = host_ms(lambda: lm_run(card, tokens, prompt, steps))
         t0 = time.perf_counter()
         lg_h, h_h, dec_h, full_h = lm_run(cpu, tokens, prompt, steps)
         cpu_ms = 1e3 * (time.perf_counter() - t0)
-    finally:
-        L.ACT_DTYPE = saved
-    errs = {"prefill_logits": close(lg_c, lg_h, F32_CARD_TOL, "phase 7a prefill logits"),
-            "prefill_hidden": close(h_c, h_h, F32_CARD_TOL, "phase 7a prefill hidden"),
-            "forward_logits": close(full_c, full_h, F32_CARD_TOL, "phase 7a forward logits")}
-    errs["decode_logits"] = max(close(a[0], b[0], F32_CARD_TOL, f"phase 7a decode {i} logits")
+    errs = {"prefill_logits": close(lg_c, lg_h, tol, f"{cfg.name} prefill logits"),
+            "prefill_hidden": close(h_c, h_h, tol, f"{cfg.name} prefill hidden"),
+            "forward_logits": close(full_c, full_h, tol, f"{cfg.name} forward logits")}
+    errs["decode_logits"] = max(close(a[0], b[0], tol, f"{cfg.name} decode {i} logits")
                                 for i, (a, b) in enumerate(zip(dec_c, dec_h)))
-    errs["decode_hidden"] = max(close(a[1], b[1], F32_CARD_TOL, f"phase 7a decode {i} hidden")
+    errs["decode_hidden"] = max(close(a[1], b[1], tol, f"{cfg.name} decode {i} hidden")
                                 for i, (a, b) in enumerate(zip(dec_c, dec_h)))
     dec_fwd = 0.0
     for side, lg, dec, full in (("card", lg_c, dec_c, full_c), ("cpu", lg_h, dec_h, full_h)):
-        dec_fwd = max(dec_fwd, close(lg, full[:, prompt - 1], F32_CARD_TOL,
-                                     f"phase 7a {side}: prefill against forward"))
+        dec_fwd = max(dec_fwd, close(lg, full[:, prompt - 1], tol,
+                                     f"{cfg.name} {side}: prefill against forward"))
         for i, (lgi, _) in enumerate(dec):
-            dec_fwd = max(dec_fwd, close(lgi, full[:, prompt + i], F32_CARD_TOL,
-                                         f"phase 7a {side}: decode {i} against forward"))
+            dec_fwd = max(dec_fwd, close(lgi, full[:, prompt + i], tol,
+                                         f"{cfg.name} {side}: decode {i} against forward"))
     n_params, _ = model_size(card)
-    emit({
-        "phase": "7a", "config": f"minitron-8b widths at depth {cfg.n_layers}, float32",
-        "nvidia_smi": smi, "params": n_params, "batch": batch, "prompt": prompt,
-        "decode_steps": steps, "tolerance": F32_CARD_TOL, "card_vs_cpu_max_abs_err": errs,
-        "decode_vs_forward_max_abs_err": dec_fwd, "card_ms": card_ms, "cpu_ms": cpu_ms,
-    })
+    return {"params": n_params, "batch": batch, "prompt": prompt, "decode_steps": steps,
+            "tolerance": tol, "card_vs_cpu_max_abs_err": errs,
+            "decode_vs_forward_max_abs_err": dec_fwd, "card_ms": card_ms, "cpu_ms": cpu_ms}
+
+
+def phase7_equations(seed, smi, cfg=None) -> None:
+    """7a, the model's equations at full width: minitron-8b's widths at
+    depth 2 (or `cfg`), float32 activations (the port's ACT_DTYPE switched
+    for the phase), through `lm_equations`."""
+    from repro_torch.configs import get_config
+
+    cfg = cfg or dataclasses.replace(get_config("minitron-8b"), n_layers=2)
+    emit({"phase": "7a", "config": f"minitron-8b widths at depth {cfg.n_layers}, float32",
+          "nvidia_smi": smi, **lm_equations(seed + 70, cfg)})
 
 
 def lm_device_profile(engine, prompts, steps: int) -> dict:
@@ -2725,8 +2772,8 @@ def lm_device_profile(engine, prompts, steps: int) -> dict:
     on the host clock (median ms); then under torch.profiler: the traced
     window's wall ms per step and the device records' ms per step (their
     ratio the card's busy share), the largest records by kernel name, the
-    host operators with the most self time per step, and the two search
-    kernels' per step."""
+    host operators with the most self time per step, the cudaLaunchKernel
+    calls per step, and the two search kernels' device ms per step."""
     from torch.profiler import ProfilerActivity, profile
 
     model = engine.model
@@ -2759,14 +2806,17 @@ def lm_device_profile(engine, prompts, steps: int) -> dict:
     by_name: dict[str, float] = {}
     for name, ms in records:
         by_name[name[:60]] = by_name.get(name[:60], 0.0) + ms / steps
+    averages = prof.key_averages()
     host = sorted(((e.key, e.self_cpu_time_total / 1e3 / steps, e.count / steps)
-                   for e in prof.key_averages()), key=lambda t: -t[1])[:8]
+                   for e in averages), key=lambda t: -t[1])[:8]
     busy = sum(ms for _, ms in records) / steps
     per = {"model_ms": float(np.median([m for m, _ in timed])),
            "pick_ms": float(np.median([p for _, p in timed])),
            "traced_step_ms": traced_ms, "device_busy_ms": busy,
            "device_busy_share": busy / traced_ms,
            "device_records_per_step": len(records) / steps,
+           "launch_calls_per_step": sum(e.count for e in averages
+                                        if e.key.startswith("cudaLaunchKernel")) / steps,
            "top_device_ms_per_step": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]),
            "top_host_ops_per_step": {k: {"self_ms": ms, "calls": n} for k, ms, n in host}}
     for kname in ("radius_search_loop_kernel", "csr_candidate_topk_kernel"):
@@ -2776,52 +2826,211 @@ def lm_device_profile(engine, prompts, steps: int) -> dict:
     return per
 
 
-def phase7_serving(seed, api, mods, smi, cfg=None, n_seqs=256) -> list:
-    """7b, serving at minitron-8b's full width and depth (CONFIG, bf16, or
-    `cfg`): random weights on the card from the seed; the model's own
-    prefill / decode consistency against its training forward (the
-    reference's tolerance); build_datastore_from_model over `n_seqs` random
-    sequences of 1,024 tokens (labels equal to corpus[:, 1:] in order);
-    then Engine.generate with the kNN-LM head (KNNLMConfig's defaults,
-    `hopper`) on 8 prompts of 512 tokens, 32 greedy tokens, timed by the
-    engine's own clock: one radius_search_loop and one csr_candidate_topk
-    per pick; afterwards, at every pick (the prefill's last hidden and the
-    hiddens generate returns), `hopper` equal to `torch` on the same
-    hidden and handle (ids but for near-ties, distances within rtol 1e-5),
-    recall@k against `exact`; the online flow (queue_datastore_pairs,
-    drain_datastore: n_points grows by exactly the pairs queued, their
-    labels the stream's next tokens); a second generate on new prompts over
-    the grown datastore; and a traced run of 8 decode steps.  Returns the
+def left_out_params(cfg) -> int:
+    """What `ModelConfig.param_count()` leaves out of the model the port
+    builds: the norm scales (norm1 of every layer, norm2 of every layer
+    with an MLP, final_norm), the padded experts' wi / wg / wo of every MoE
+    layer (3 * n_padded * d_model * d_expert), Mamba's conv_b and dt_bias
+    (2 * d_inner), mLSTM's fgate_bias (n_heads) and sLSTM's bias
+    (4 * d_inner)."""
+    d = cfg.d_model
+    n = d
+    for i in range(cfg.n_layers):
+        kind = cfg.pattern[i % cfg.block_period]
+        n += d
+        if cfg.is_moe_layer(i) or (cfg.d_ff > 0 and kind in ("attn", "mamba")):
+            n += d
+        if cfg.is_moe_layer(i):
+            n += 3 * cfg.moe.n_padded * d * cfg.moe.d_expert
+        if kind == "mamba":
+            n += 2 * cfg.mamba.expand * d
+        elif kind == "mlstm":
+            n += cfg.xlstm.n_heads
+        elif kind == "slstm":
+            din = int(cfg.xlstm.proj_factor_slstm * d)
+            n += 4 * (din - din % cfg.xlstm.n_heads)
+    return n
+
+
+def region_ms(model, prompts, regions) -> dict:
+    """One prefill of `prompts` with CUDA events around it and around every
+    call of each function in `regions` ((module, name) pairs, wrapped for
+    the call): the prefill's ms on the card's clock and each function's
+    summed ms and share of it."""
+    events: dict[str, list] = {name: [] for _, name in regions}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in regions]
+
+    def timed(fn, name):
+        def wrapped(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            events[name].append((start, end))
+            return out
+        return wrapped
+
+    for mod, name, fn in saved:
+        setattr(mod, name, timed(fn, name))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    try:
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            start.record()
+            model.prefill({"tokens": prompts}, cache_len=prompts.shape[1])
+            end.record()
+            torch.cuda.synchronize()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    total = start.elapsed_time(end)
+    out = {"prefill_ms": total}
+    for name, evs in events.items():
+        ms = sum(s.elapsed_time(e) for s, e in evs)
+        out[name] = {"calls": len(evs), "ms": ms, "share": ms / total}
+    return out
+
+
+def drop_free(cfg):
+    """`cfg` with the capacity factor n_experts / top_k, which makes every
+    group's capacity its size g (an expert takes at most one slot of a
+    token), so no token is dropped: for checks that hold one grouping
+    against another (a decode step's 8 rows against the forward's 504
+    tokens).  The reference's SMOKE configs use 4, which drops at decode
+    where 8 rows over 16 experts at top-2 give a capacity of 4."""
+    if cfg.moe is None:
+        return cfg
+    mo = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        mo, capacity_factor=mo.n_experts / mo.top_k))
+
+
+def routed_run(model, toks, prompt: int):
+    """lm_run(model, toks, prompt, 1) with a spy on moe.route, and the
+    rows whose router choices all agree between the forward and the
+    prefill (B,) and between the forward and the prefill and decode (B,)
+    bool, and the count of (layer, token) choices of k experts that
+    differ (all rows agree for a model without MoE)."""
+    from repro_torch.models import moe
+
+    real, ids = moe.route, []
+
+    def spy(*args):
+        r = real(*args)
+        ids.append(torch.sort(r.top_i.reshape(-1, r.top_i.shape[-1]), dim=-1).values)
+        return r
+
+    moe.route = spy
+    try:
+        out = lm_run(model, toks, prompt, 1)
+    finally:
+        moe.route = real
+    b, n = toks.shape[0], len(ids) // 3           # calls: prefill, decode, forward per layer
+    flip_pre = torch.zeros(b, prompt, dtype=torch.bool, device=toks.device)
+    flip_dec = torch.zeros(b, 1, dtype=torch.bool, device=toks.device)
+    flips = 0
+    for pre, dec, fwd in zip(ids[:n], ids[n:2 * n], ids[2 * n:]):
+        fwd = fwd[:b * (prompt + 1)].reshape(b, prompt + 1, -1)
+        fp = (pre[:b * prompt].reshape(b, prompt, -1) != fwd[:, :prompt]).any(-1)
+        fd = (dec[:b].reshape(b, 1, -1) != fwd[:, prompt:]).any(-1)
+        flips += int(fp.sum()) + int(fd.sum())
+        flip_pre |= fp
+        flip_dec |= fd
+    agree_pre = ~flip_pre.any(-1)
+    return out, agree_pre, agree_pre & ~flip_dec[:, 0], flips
+
+
+def consistency_check(model, toks, tol, phase) -> dict:
+    """A prefill of toks[:, :62], one decode step, and the training forward
+    over 63 tokens: the prefill's and the decode's logits against the
+    forward's, held to `tol` (and the decode's top-1 to 0.5) unless `tol`
+    is None (then only printed).  An MoE model's router can choose other
+    experts for a token in the forward than in the prefill or decode, where
+    a near-tie rounds the other way; such a flip moves the rest of its row.
+    The flips are counted, and only the rows free of them are held (at
+    least one must be)."""
+    (lg_p, _, dec, full), agree_pre, agree_dec, flips = routed_run(model, toks, 62)
+    pairs = (("prefill", lg_p, full[:, 61], agree_pre), ("decode", dec[0][0], full[:, 62], agree_dec))
+    out = {f"{name}_max_abs_err": float((a.float() - b.float()).abs().max())
+           for name, a, b, _ in pairs}
+    out.update({f"{name}_rows_held": int(rows.sum()) for name, _, _, rows in pairs})
+    out.update({f"{name}_held_max_abs_err": float((a[rows].float() - b[rows].float()).abs().max())
+                if rows.any() else None for name, a, b, rows in pairs})
+    top1 = dec[0][0].argmax(-1) == full[:, 62].argmax(-1)
+    out.update({"decode_top1": float(top1.float().mean()),
+                "decode_held_top1": float(top1[agree_dec].float().mean()) if agree_dec.any()
+                else None,
+                "router_flips": flips, "max_abs_logit": float(full[:, 61:63].abs().max()),
+                "rows": toks.shape[0],
+                "capacity_factor": model.cfg.moe.capacity_factor if model.cfg.moe else None,
+                "tolerance": tol})
+    if tol is not None:
+        for name, a, b, rows in pairs:
+            check(bool(rows.any()), f"phase {phase} {name}: router flips in every row {out}")
+            close(a[rows], b[rows], tol, f"phase {phase} {name} against forward")
+        check(out["decode_held_top1"] >= 0.5, f"phase {phase}: decode top-1 {out}")
+    return out
+
+
+def lm_serving(seed, api, mods, smi, cfg, phase: str, label: str, n_seqs=256, new=32,
+               reduced=None, regions=(), f32_consistency=False) -> list:
+    """Serving at `cfg`'s width and depth in bf16 with random weights on
+    the card from generator `seed`: the model's own prefill / decode
+    consistency against its training forward (`consistency_check` at the
+    reference's tolerance; an MoE model at a drop-free capacity factor
+    (`drop_free`), the real one's gap printed beside it; with
+    `f32_consistency`, the same weights in float32 first, alone on the
+    card, held at F32_CARD_TOL);
+    build_datastore_from_model over `n_seqs` random sequences of 1,024
+    tokens (labels equal to corpus[:, 1:] in order); then Engine.generate
+    with the kNN-LM head (KNNLMConfig's defaults, `hopper`) on 8 prompts of
+    512 tokens, `new` greedy tokens, timed by the engine's own clock: one
+    radius_search_loop and one csr_candidate_topk per pick; afterwards, at
+    every pick (the prefill's last hidden and the hiddens generate
+    returns), `hopper` equal to `torch` on the same hidden and handle (ids
+    but for near-ties, distances within rtol 1e-5), recall@k against
+    `exact`; the online flow (queue_datastore_pairs, drain_datastore:
+    n_points grows by exactly the pairs queued, their labels the stream's
+    next tokens); a second generate on new prompts over the grown
+    datastore; a traced run of 8 decode steps; and, for each function in
+    `regions`, its share of one prefill of the prompts.  Returns the
     counted runs' launches."""
-    from repro_torch.configs import get_config
     from repro_torch.core import knn_lm
     from repro_torch.launch import serve
     from repro_torch.models.model import DecoderLM
 
-    seq_len, n_prompts, prompt_len, new, profile_steps = 1024, 8, 512, 32, 8
-    cfg = cfg or get_config("minitron-8b")
+    seq_len, n_prompts, prompt_len, profile_steps = 1024, 8, 512, 8
     knn_cfg = knn_lm.KNNLMConfig()
     torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    toks = torch.randint(0, cfg.vocab_size, (n_prompts, 64), generator=gen, device=DEV)
+    consistency = {}
+    if f32_consistency:
+        # the same weights in float32, alone on the card, held at float32's tolerance
+        with f32_activations():
+            m32 = DecoderLM(drop_free(cfg), device=DEV,
+                            generator=torch.Generator(device=DEV).manual_seed(seed))
+            consistency["float32"] = consistency_check(m32, toks, F32_CARD_TOL, phase)
+        del m32
+        torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model, init_ms = host_ms(lambda: DecoderLM(
-        cfg, device=DEV, generator=torch.Generator(device=DEV).manual_seed(seed + 72)))
+        cfg, device=DEV, generator=torch.Generator(device=DEV).manual_seed(seed)))
     n_params, n_bytes = model_size(model)
-    check(n_params == cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model,
-          f"phase 7b: {n_params} parameters, the config counts {cfg.param_count()} + norms")
-    gen = torch.Generator(device=DEV).manual_seed(seed + 73)
+    expected = cfg.param_count() + left_out_params(cfg)
+    check(n_params == expected, f"phase {phase}: {n_params} parameters, the config counts "
+                                f"{cfg.param_count()} + {left_out_params(cfg)} left out")
 
     # the model's own consistency: prefill of S-2 tokens, one decode step
-    toks = torch.randint(0, cfg.vocab_size, (n_prompts, 64), generator=gen, device=DEV)
-    lg_p, _, dec, full = lm_run(model, toks, 62, 1)
-    consistency = {
-        "prefill_max_abs_err": close(lg_p, full[:, 61], MODEL_TOL, "phase 7b prefill against forward"),
-        "decode_max_abs_err": close(dec[0][0], full[:, 62], MODEL_TOL,
-                                    "phase 7b decode against forward"),
-        "decode_top1": float((dec[0][0].argmax(-1) == full[:, 62].argmax(-1)).float().mean()),
-        "max_abs_logit": float(full[:, 61:63].abs().max()), "rows": n_prompts,
-        "tolerance": MODEL_TOL}
-    check(consistency["decode_top1"] >= 0.5, f"phase 7b: decode top-1 {consistency}")
-    del full, dec
+    # (an MoE model at a drop-free capacity factor)
+    model.cfg = drop_free(cfg)
+    try:
+        consistency["bfloat16"] = consistency_check(model, toks, MODEL_TOL, phase)
+    finally:
+        model.cfg = cfg
+    if cfg.moe is not None:
+        consistency[f"bfloat16_capacity_factor_{cfg.moe.capacity_factor}"] = consistency_check(
+            model, toks, None, phase)
 
     corpus = torch.randint(0, cfg.vocab_size, (n_seqs, seq_len), generator=gen, device=DEV)
     index, harvest_ms = host_ms(lambda: serve.build_datastore_from_model(
@@ -2830,8 +3039,9 @@ def phase7_serving(seed, api, mods, smi, cfg=None, n_seqs=256) -> list:
     order = torch.argsort(index.ids_sorted.long())
     check(index.n_points == pairs and torch.equal(index.labels_sorted[order],
                                                   corpus[:, 1:].reshape(-1)),
-          "phase 7b: the datastore's labels are not corpus[:, 1:] in order")
+          f"phase {phase}: the datastore's labels are not corpus[:, 1:] in order")
     harvest_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bounds = serve.harvest_bounds(cfg, n_seqs, seq_len)
     del corpus, order
 
     engine = serve.Engine(cfg, model, serve.ServeConfig(max_new_tokens=new, knn=knn_cfg), index,
@@ -2848,10 +3058,10 @@ def phase7_serving(seed, api, mods, smi, cfg=None, n_seqs=256) -> list:
         (toks_out, hiddens), ms = host_ms(lambda: engine.generate(prompts, new))
         launches = counts(mods)
         check(launches["radius_search_loop"] == new and launches["csr_candidate_topk"] == new,
-              f"phase 7b {label} generate: {new} picks launched {launches}")
+              f"phase {phase} {label} generate: {new} picks launched {launches}")
         check(toks_out.shape == (n_prompts, new) and toks_out.device.type == DEV.type
               and bool(((toks_out >= 0) & (toks_out < cfg.vocab_size)).all()),
-              f"phase 7b {label} generate: tokens out of range")
+              f"phase {phase} {label} generate: tokens out of range")
         reading = {"wall_ms": ms, "tokens_per_s": 1e3 * n_prompts * new / ms,
                    "prefill_ms": 1e3 * (engine.stats["prefill_s"] - prefill_s),
                    "decode_ms_per_step": 1e3 * (engine.stats["decode_s"] - decode_s) / (new - 1),
@@ -2867,15 +3077,16 @@ def phase7_serving(seed, api, mods, smi, cfg=None, n_seqs=256) -> list:
     with torch.no_grad():
         logits, caches, h0 = model.prefill({"tokens": prompts}, cache_len=prompt_len + new)
         tok0 = engine._pick(logits, h0, torch.Generator(device=DEV))
-    check(torch.equal(tok0, toks_out[:, 0]), "phase 7b: the prefill's pick differs from generate's")
+    check(torch.equal(tok0, toks_out[:, 0]),
+          f"phase {phase}: the prefill's pick differs from generate's")
     pick_hidden = [h.float() for h in [h0, *hiddens]]
     del logits, caches
 
     # at every pick, the head's `hopper` search equals a `torch` search of
     # the same hidden on the same handle: the same validity, distances
     # within rtol 1e-5, ids equal but for near-ties (the kernel and the
-    # plain path sum d = 4096 products in different orders), which are
-    # counted; recall@k against `exact`
+    # plain path sum d products in different orders), which are counted;
+    # recall@k against `exact`
     hop = api.ActiveSearcher.from_index(engine.datastore, knn_cfg.grid, plan=knn_cfg.plan,
                                         device=DEV)
     per_query = hop.with_plan(backend="torch")
@@ -2888,7 +3099,7 @@ def phase7_serving(seed, api, mods, smi, cfg=None, n_seqs=256) -> list:
     for i, h in enumerate(pick_hidden):
         a = hop.search(h, knn_cfg.k, mode="refined")
         b = per_query.search(h, knn_cfg.k, mode="refined")
-        check(torch.equal(a.valid, b.valid), f"phase 7b pick {i}: hopper's validity differs")
+        check(torch.equal(a.valid, b.valid), f"phase {phase} pick {i}: hopper's validity differs")
         err, sw = compare_topk((a.dists, rows(a.ids)), (b.dists, rows(b.ids)),
                                hop.index.points_sorted, h, "l2", 1e-5)
         max_err, swaps = max(max_err, err), swaps + sw
@@ -2909,12 +3120,12 @@ def phase7_serving(seed, api, mods, smi, cfg=None, n_seqs=256) -> list:
     applied, drain_ms = host_ms(engine.drain_datastore)
     check(added == applied == backlog == n_prompts * (new - 1)
           and engine.datastore.n_points == n0 + added,
-          f"phase 7b: queued {added}, applied {applied}, n_points {n0} -> "
+          f"phase {phase}: queued {added}, applied {applied}, n_points {n0} -> "
           f"{engine.datastore.n_points}")
     ids = engine.datastore.ids_sorted.long()
     check(torch.equal(engine.datastore.labels_sorted[torch.argsort(ids)][n0:],
                       toks_out[:, 1:].T.reshape(-1)),
-          "phase 7b: the grown datastore's labels are not the stream's next tokens")
+          f"phase {phase}: the grown datastore's labels are not the stream's next tokens")
     del ids, hiddens
     prompts = torch.randint(0, cfg.vocab_size, (n_prompts, prompt_len), generator=gen, device=DEV)
     second, _, _ = counted_generate("second")
@@ -2922,14 +3133,12 @@ def phase7_serving(seed, api, mods, smi, cfg=None, n_seqs=256) -> list:
 
     prof = lm_device_profile(engine, prompts, profile_steps)
     emit({
-        "phase": "7b", "config": "minitron-8b CONFIG (32 layers, d_model 4096, 32 heads over "
-                                 "8 KV heads of 128, d_ff 16384, vocab 256,000), bf16, "
-                                 "random weights",
+        "phase": phase, "config": label, **({"reduced": reduced} if reduced else {}),
         "nvidia_smi": smi, "params": n_params, "param_bytes": n_bytes, "init_ms": init_ms,
         "consistency": consistency,
         "harvest": {"sequences": n_seqs, "seq_len": seq_len, "pairs": pairs,
-                    "batch_size": serve.HARVEST_BATCH, "s": harvest_ms / 1e3,
-                    "tokens_per_s": 1e3 * n_seqs * seq_len / harvest_ms,
+                    "batches": len(bounds) - 1, "batch_size": bounds[1] - bounds[0],
+                    "s": harvest_ms / 1e3, "tokens_per_s": 1e3 * n_seqs * seq_len / harvest_ms,
                     "peak_mem_gb": harvest_peak_gb},
         "knn": {"k": knn_cfg.k, "lam": knn_cfg.lam, "plan": knn_cfg.plan.backend,
                 "grid_size": knn_cfg.grid.grid_size, "window": knn_cfg.grid.window,
@@ -2943,9 +3152,172 @@ def phase7_serving(seed, api, mods, smi, cfg=None, n_seqs=256) -> list:
         "recall_at_k_vs_exact": rec, "valid_frac": float(torch.cat(valid).float().mean()),
         "exact_launches": exact_launches,
         "decode_profile": {"steps": profile_steps, **prof},
+        **({"prefill_regions": region_ms(model, prompts, regions)} if regions else {}),
         "peak_mem_gb": {"harvest": harvest_peak_gb, "serve": serve_peak_gb},
     })
     return [first["launches"], second["launches"], exact_launches]
+
+
+def phase7_serving(seed, api, mods, smi, cfg=None, n_seqs=256) -> list:
+    """7b, serving at minitron-8b's full width and depth (CONFIG, bf16, or
+    `cfg`) through `lm_serving`.  Returns the counted runs' launches."""
+    from repro_torch.configs import get_config
+
+    return lm_serving(seed + 72, api, mods, smi, cfg or get_config("minitron-8b"), "7b",
+                      "minitron-8b CONFIG (32 layers, d_model 4096, 32 heads over 8 KV heads "
+                      "of 128, d_ff 16384, vocab 256,000), bf16, random weights", n_seqs=n_seqs)
+
+
+# ----------------------------------------------------------------- phase 8 ---
+
+
+def moe_equations(seed, cfg) -> dict:
+    """One moe_block over 2 x 64 tokens at `cfg`'s full width in float32,
+    weights drawn on the card and copied to the CPU: output and aux loss
+    within F32_CARD_TOL, the router's top-k ids and kept mask equal, card
+    against CPU."""
+    from repro_torch.models import moe
+
+    batch, s = 2, 64
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    params = moe.init_moe(gen, cfg, DEV)
+    x = torch.randn((batch, s, cfg.d_model), generator=gen, device=DEV)
+    ng, g, cap = moe.group_shape(cfg, batch * s)
+    check(ng * g == batch * s, f"{cfg.name}: {batch * s} tokens are not whole groups of {g}")
+
+    def run(p, xx):
+        with torch.no_grad():
+            y, aux = moe.moe_block(p, cfg, xx)
+            return y, aux, moe.route(p, cfg, xx.reshape(ng, g, -1), cap)
+
+    (y_c, aux_c, r_c), card_ms = host_ms(lambda: run(params, x))
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    params = tree_to(params, "cpu")
+    t0 = time.perf_counter()
+    y_h, aux_h, r_h = run(params, x.cpu())
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    del params
+    check(torch.equal(r_c.top_i.cpu(), r_h.top_i) and torch.equal(r_c.keep.cpu(), r_h.keep),
+          f"{cfg.name}: the router's choices differ, card against CPU")
+    return {"experts": cfg.moe.n_total, "top_k": cfg.moe.top_k, "d_expert": cfg.moe.d_expert,
+            "tokens": batch * s, "group": g, "capacity": cap,
+            "dropped_slots": int((~r_h.keep).sum()), "weight_gb_float32": weight_bytes / 1e9,
+            "router_choices_equal": True,
+            "max_abs_err": {"y": close(y_c, y_h, F32_CARD_TOL, f"{cfg.name} moe_block"),
+                            "aux": close(aux_c, aux_h, F32_CARD_TOL, f"{cfg.name} aux"),
+                            "probs": close(r_c.probs, r_h.probs, F32_CARD_TOL,
+                                           f"{cfg.name} router probs")},
+            "card_ms": card_ms, "cpu_ms": cpu_ms}
+
+
+def leaves(tree: dict) -> list:
+    """The tensors of a nested dict."""
+    out = []
+    for v in tree.values():
+        out.extend(leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def mamba_equations(seed, cfg) -> dict:
+    """One Mamba sublayer at `cfg`'s full width in float32, 2 rows: a
+    prefill of 64 tokens, then 4 decode steps, and the training form over
+    all of them, on the card and on the CPU: outputs and both cache states
+    within F32_CARD_TOL, and on each side the decode outputs equal to the
+    training form's at the same positions."""
+    from repro_torch.models import mamba
+
+    batch, prompt, steps = 2, 64, 4
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    params = mamba.init_mamba(gen, cfg, DEV)
+    x = torch.randn((batch, prompt + steps, cfg.d_model), generator=gen, device=DEV)
+
+    def run(p, xx):
+        with torch.no_grad():
+            out, cache = mamba.mamba_prefill(p, cfg, xx[:, :prompt])
+            pre_cache, dec = dict(cache), []
+            for i in range(steps):
+                o, cache = mamba.mamba_decode_step(p, cfg, xx[:, prompt + i:prompt + i + 1], cache)
+                dec.append(o)
+            return out, pre_cache, cache, torch.cat(dec, dim=1), mamba.mamba_block(p, cfg, xx)
+
+    card, card_ms = host_ms(lambda: run(params, x))
+    t0 = time.perf_counter()
+    cpu = run(tree_to(params, "cpu"), x.cpu())
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    errs = {"prefill": close(card[0], cpu[0], F32_CARD_TOL, "mamba prefill"),
+            "decode": close(card[3], cpu[3], F32_CARD_TOL, "mamba decode"),
+            "forward": close(card[4], cpu[4], F32_CARD_TOL, "mamba forward")}
+    for j, when in ((1, "prefill"), (2, "decode")):
+        for key in ("conv", "ssm"):
+            errs[f"{when}_cache_{key}"] = close(card[j][key], cpu[j][key], F32_CARD_TOL,
+                                                f"mamba {when} cache {key}")
+    dec_fwd = max(close(side[3], side[4][:, prompt:], F32_CARD_TOL, f"mamba {name}: decode "
+                        "against forward") for name, side in (("card", card), ("cpu", cpu)))
+    return {"d_inner": cfg.mamba.expand * cfg.d_model, "d_state": cfg.mamba.d_state,
+            "batch": batch, "prompt": prompt, "decode_steps": steps,
+            "card_vs_cpu_max_abs_err": errs, "decode_vs_forward_max_abs_err": dec_fwd,
+            "card_ms": card_ms, "cpu_ms": cpu_ms}
+
+
+def phase8_equations(seed, smi, moe_cfgs=None, mamba_cfg=None, xlstm_cfg=None) -> None:
+    """8a, the MoE, Mamba and xLSTM equations at full width in float32,
+    card against CPU at F32_CARD_TOL: one moe_block at qwen2-moe-a2.7b's
+    width (64 experts of 2048 x 1408, top-4, the shared MLP) and one at
+    jamba's (16 x 4096 x 14,336, top-2), with the router's choices equal;
+    one Mamba sublayer at jamba's width; xlstm-125m whole (lm_equations,
+    at F32_DEEP_TOL: 12 layers)."""
+    from repro_torch.configs import get_config
+
+    moe_cfgs = moe_cfgs or [get_config("qwen2-moe-a2.7b"), get_config("jamba-v0.1-52b")]
+    mamba_cfg = mamba_cfg or get_config("jamba-v0.1-52b")
+    xlstm_cfg = xlstm_cfg or get_config("xlstm-125m")
+    with f32_activations():
+        moe_out = {}
+        for i, cfg in enumerate(moe_cfgs):
+            moe_out[cfg.name] = moe_equations(seed + 80 + i, cfg)
+            torch.cuda.empty_cache()
+        mamba_out = mamba_equations(seed + 82, mamba_cfg)
+    emit({"phase": "8a", "nvidia_smi": smi, "tolerance": F32_CARD_TOL, "moe_block": moe_out,
+          "mamba_sublayer": {mamba_cfg.name: mamba_out},
+          "xlstm": {xlstm_cfg.name: lm_equations(seed + 83, xlstm_cfg, tol=F32_DEEP_TOL)}})
+
+
+def phase8_serving(seed, api, mods, smi, cfgs=None, n_seqs=(256, 32, 32), new=(32, 16, 16)):
+    """8b, qwen2-moe-a2.7b's CONFIG at full width and depth (24 layers),
+    and 8c, jamba-v0.1-52b at full width with its depth cut to one period
+    (8 of 32 layers: 103 GB of bf16 weights do not fit one card) and
+    xlstm-125m whole, each through `lm_serving` (or `cfgs`, three
+    configs); 8c also times the selective scan's and the sLSTM loop's
+    share of one prefill.  The two MoE models' prefill / decode
+    consistency is held in float32 too, every row: in bf16 a router's
+    near-tie can flip between the forward's and the prefill's rounding,
+    and only the rows free of flips are held there.  Returns the counted
+    runs' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba, xlstm
+
+    jamba = get_config("jamba-v0.1-52b")
+    cfgs = cfgs or [get_config("qwen2-moe-a2.7b"),
+                    dataclasses.replace(jamba, n_layers=jamba.block_period),
+                    get_config("xlstm-125m")]
+    runs = lm_serving(
+        seed + 84, api, mods, smi, cfgs[0], "8b",
+        "qwen2-moe-a2.7b CONFIG (24 layers, d_model 2048, 16 heads of 128, 60 routed experts "
+        "padded to 64 at top-4 of d_expert 1408, a shared MLP of 5632, vocab 151,936), bf16, "
+        "random weights", n_seqs=n_seqs[0], new=new[0], f32_consistency=True)
+    runs += lm_serving(
+        seed + 86, api, mods, smi, cfgs[1], "8c",
+        "jamba-v0.1-52b CONFIG at full width (d_model 4096, Mamba d_inner 8192, 32 heads over "
+        "8 KV heads, 16 experts of 14,336 at top-2, vocab 65,536), bf16, random weights",
+        n_seqs=n_seqs[1], new=new[1], regions=[(mamba, "mamba_scan")], f32_consistency=True,
+        reduced=f"n_layers {jamba.n_layers} -> {cfgs[1].n_layers} (one period: 7 Mamba, 1 "
+                "attention, 4 MoE layers; 103 GB of bf16 weights at 32 layers do not fit one card)")
+    runs += lm_serving(
+        seed + 88, api, mods, smi, cfgs[2], "8c",
+        "xlstm-125m CONFIG (12 layers: 10 mLSTM, 2 sLSTM; d_model 768, 4 heads, vocab 50,304), "
+        "bf16, random weights", n_seqs=n_seqs[2], new=new[2],
+        regions=[(xlstm, "_slstm_scan")])
+    return runs
 
 
 # -------------------------------------------------------------------- main ---
@@ -3038,6 +3410,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase7_equations(seed, smi)
     runs += phase7_serving(seed, api, mods, smi)
+    torch.cuda.empty_cache()
+    phase8_equations(seed, smi)
+    runs += phase8_serving(seed, api, mods, smi)
     launches = {name: sum(r[name] for r in runs) for name in KERNELS}
     emit(kernels_line(max_err, timings, launches))
     print(smi, flush=True)

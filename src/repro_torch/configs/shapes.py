@@ -11,8 +11,7 @@ Port of `repro/configs/shapes.py`.  Four shapes per LM architecture:
 Where the reference returns `jax.ShapeDtypeStruct`s, the port returns
 tensors on the "meta" device: shapes and dtypes, no memory, so the full
 configs never allocate.  `decode_specs` builds its caches with the port's
-`init_caches`, which raises NotImplementedError for the layer kinds the
-port does not compute yet (ROADMAP A6.2).
+`init_caches`, every layer kind's states in the reference's dtypes.
 """
 
 from __future__ import annotations

@@ -23,9 +23,8 @@ from repro_torch.core import distributed as dist
 from repro_torch.core import mutable as mut
 from repro_torch.core.grid import GridConfig, GridIndex, as_tensor, resolve_device
 from repro_torch.core.projection import Projection
-from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import DecoderLM
+from repro_torch.models.model import DecoderLM, cache_dtype
 
 
 def projection_from_numpy(matrix, lo, hi, device=None) -> Projection:
@@ -109,41 +108,50 @@ def model_from_numpy(tree: Mapping, cfg: ModelConfig, device=None) -> DecoderLM:
     """The port's DecoderLM from the reference's `init_params` tree as numpy
     arrays (`jax.tree.map(np.asarray, params)`): `embed`, `final_norm`,
     `lm_head` (unless the embeddings are tied) and `blocks`, a list over
-    period positions whose leaves carry a leading (n_repeat,) axis.  Layer i
-    takes repeat i // period of position i % period.  Matrices are rounded
-    to `ACT_DTYPE` as the reference rounds them at use; on `device` (None =
-    the card)."""
+    period positions whose nested dicts of leaves carry a leading
+    (n_repeat,) axis (an MoE layer's `ffn.shared` too, and its padded
+    experts' weights).  Layer i takes repeat i // period of position i %
+    period.  Each weight is stored in the model's dtype for it (a matrix
+    rounded to `ACT_DTYPE` as the reference rounds it at use, the weights
+    it uses in float32 kept so); on `device` (None = the card)."""
     dev = resolve_device(device)
     model = DecoderLM(cfg, device="meta").to_empty(device=dev)
     f32 = lambda a: torch.from_numpy(np.array(a, np.float32))  # noqa: E731
     state = {"embed": f32(tree["embed"]), "final_norm": f32(tree["final_norm"])}
     if not cfg.tie_embeddings:
         state["lm_head"] = f32(tree["lm_head"])
+
+    def add(prefix: str, node, r: int) -> None:
+        if isinstance(node, Mapping):
+            for key, child in node.items():
+                add(f"{prefix}.{key}", child, r)
+        else:
+            state[prefix] = f32(node[r])
+
     period = cfg.block_period
     for i in range(cfg.n_layers):
-        blk, r = tree["blocks"][i % period], i // period
-        for key, leaf in blk.items():
-            if isinstance(leaf, Mapping):
-                state.update({f"layers.{i}.{key}.{k}": f32(v[r]) for k, v in leaf.items()})
-            else:
-                state[f"layers.{i}.{key}"] = f32(leaf[r])
+        add(f"layers.{i}", tree["blocks"][i % period], i // period)
     model.load_state_dict(state, strict=True)
     return model
 
 
 def caches_from_numpy(caches: Sequence[Mapping[str, np.ndarray]], device=None) -> list:
-    """The port's decode caches from the reference's (a list over period
-    positions of {"k", "v"}, each (n_repeat, B, T, Hkv, hd)), in
-    `ACT_DTYPE`, on `device` (None = the card)."""
+    """The port's decode caches from the reference's: a list over period
+    positions of the kind's states (attention k, v; Mamba conv, ssm;
+    mLSTM c, n; sLSTM h, c, n, m), each with a leading (n_repeat,) axis.
+    Every state is carried in the reference's dtype for it
+    (`model.cache_dtype`: k, v and conv in `ACT_DTYPE`, the recurrent
+    states in float32), on `device` (None = the card)."""
     dev = resolve_device(device)
-    return [{key: torch.from_numpy(np.array(c[key], np.float32)).to(dev, L.ACT_DTYPE)
-             for key in ("k", "v")} for c in caches]
+    return [{key: torch.from_numpy(np.array(a, np.float32)).to(dev, cache_dtype(key))
+             for key, a in c.items()} for c in caches]
 
 
 def caches_to_numpy(caches: Sequence[Mapping[str, torch.Tensor]]) -> list:
     """The port's decode caches as the reference's structure of float32
-    numpy arrays (every bf16 value is exactly a float32 one)."""
-    return [{key: c[key].detach().to("cpu", torch.float32).numpy() for key in ("k", "v")}
+    numpy arrays (every bf16 value is exactly a float32 one;
+    `caches_from_numpy` rounds nothing on the way back)."""
+    return [{key: a.detach().to("cpu", torch.float32).numpy() for key, a in c.items()}
             for c in caches]
 
 

@@ -18,8 +18,7 @@ mesh; `DynamicBatcher` queues datastore searches and online growth.
 
 `--device` defaults to "cuda", with no fallback to the CPU.  The model is
 the arch's SMOKE config with random weights (seed 0), as the reference's
-CLI serves it; archs with Mamba, xLSTM or MoE layers raise
-NotImplementedError (ROADMAP A6.2).
+CLI serves it; every one of the ten archs serves (`--arch`).
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import math
 import time
 from concurrent.futures import Future
 
@@ -41,7 +41,8 @@ from repro_torch.core.distributed import _pow2
 from repro_torch.core.grid import GridIndex, resolve_device
 from repro_torch.models.model import DecoderLM
 
-# sequences per forward in build_datastore_from_model
+# sequences per forward in build_datastore_from_model (at least; see
+# harvest_bounds for an MoE model)
 HARVEST_BATCH = 16
 
 
@@ -303,6 +304,35 @@ class Engine:
         return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
 
 
+def harvest_bounds(cfg, b: int, s: int) -> list[int]:
+    """Where `build_datastore_from_model` cuts a corpus of b sequences of s
+    tokens: every HARVEST_BATCH sequences, or for an MoE model at the
+    fewest sequences past that which fill whole GShard groups.  The
+    reference runs the corpus in one forward, whose MoE layers group its
+    b * s flattened tokens into runs of g = min(group_size, b * s) (the
+    last padded), each with its own capacity; cutting only at multiples of
+    g tokens leaves every group, and so every capacity drop, as it is.  A
+    last batch of fewer than g tokens would form a smaller group than the
+    reference's padded one (another capacity), so it joins the batch before
+    it.  Where s shares too few factors with g (s = 1025 against g = 512
+    needs 512 sequences a batch), a batch of more than 4 * HARVEST_BATCH
+    sequences would lift the memory bound, and that raises."""
+    if cfg.moe is None:
+        return [*range(0, b, HARVEST_BATCH), b]
+    g = min(cfg.moe.group_size, b * s)
+    step = g // math.gcd(s, g)                     # sequences whose tokens fill whole groups
+    bounds = [*range(0, b, -(-HARVEST_BATCH // step) * step), b]
+    if len(bounds) > 2 and (bounds[-1] - bounds[-2]) * s < g:
+        del bounds[-2]
+    widest = max(hi - lo for lo, hi in zip(bounds, bounds[1:]))
+    if widest > 4 * HARVEST_BATCH:
+        raise ValueError(f"harvest of {b} sequences of {s} tokens: whole MoE groups of {g} "
+                         f"tokens take batches of {widest} sequences, over 4 * HARVEST_BATCH "
+                         f"= {4 * HARVEST_BATCH}; choose a sequence length with more factors "
+                         f"of {g}")
+    return bounds
+
+
 def build_datastore_from_model(cfg, model: DecoderLM, corpus, knn_cfg) -> GridIndex:
     """Harvest (hidden_t -> token_{t+1}) pairs from the model's training
     forward over `corpus` (B, S) and build the active-search datastore on
@@ -310,18 +340,18 @@ def build_datastore_from_model(cfg, model: DecoderLM, corpus, knn_cfg) -> GridIn
 
     As in the reference, the forward runs over all S tokens and the last
     position's hidden, which predicts no token of the corpus, is dropped.
-    It runs HARVEST_BATCH sequences at a time, to bound the activations'
-    memory on the card; only the float32 keys of the whole corpus are
-    held."""
+    It runs a batch of sequences at a time (`harvest_bounds`), to bound the
+    activations' memory on the card, with the reference's MoE groups; only
+    the float32 keys of the whole corpus are held."""
     if cfg != model.cfg:
         raise ValueError(f"the model was built for {model.cfg.name}, not {cfg.name}")
     dev = model.device
     corpus = torch.as_tensor(corpus).to(device=dev, dtype=torch.int32)
     b, s = corpus.shape
     keys = torch.empty((b, s - 1, cfg.d_model), dtype=torch.float32, device=dev)
+    bounds = harvest_bounds(cfg, b, s)
     with torch.no_grad():
-        for lo in range(0, b, HARVEST_BATCH):
-            hi = min(b, lo + HARVEST_BATCH)
+        for lo, hi in zip(bounds, bounds[1:]):
             keys[lo:hi] = model.hidden_states({"tokens": corpus[lo:hi]})[:, :-1]
     vals = corpus[:, 1:].reshape(-1)
     return knn_lm.build_datastore(keys.reshape(-1, cfg.d_model), vals, knn_cfg)

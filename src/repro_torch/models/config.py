@@ -1,8 +1,7 @@
 """Model/architecture configuration — one frozen dataclass per assigned arch.
 
 A copy of `repro/models/config.py` (the port never imports the reference
-package); every field stays, so every architecture's config loads, though
-the port's model computes only attention layers with a dense MLP.
+package); every field stays.
 
 The same decoder composition serves all 10 assigned architectures via a
 per-layer `block_pattern` ("attn" | "mamba" | "mlstm" | "slstm"), an optional

@@ -2,8 +2,9 @@
 with and without the kNN-LM head, `build_datastore_from_model`, the online
 queue -> drain -> grown datastore, and the `serve` CLI.
 
-internlm2-1.8b's SMOKE config with the reference's weights carried across
-(`convert.model_from_numpy`), in float32 mode (both packages'
+internlm2-1.8b's SMOKE config (and, for the generate test of every layer
+kind, qwen2-moe's, jamba's and xlstm's) with the reference's weights
+carried across (`convert.model_from_numpy`), in float32 mode (both packages'
 `ACT_DTYPE` switched with monkeypatch, as in test_torch_models.py), where
 the greedy tokens must be equal.  The head's datastore is the reference's,
 carried across with `convert.index_from_numpy`, so both search the same
@@ -31,7 +32,7 @@ from repro.core import knn_lm as jknn
 from repro.launch import serve as jserve
 from repro.launch.mesh import make_host_mesh
 from repro.models import model as JM
-from repro_torch.configs import get_smoke
+from repro_torch.configs import get_config, get_smoke
 from repro_torch.convert import index_from_numpy, model_from_numpy
 from repro_torch.core import knn_lm as tknn
 from repro_torch.launch import serve as tserve
@@ -43,26 +44,37 @@ F32_TOL = dict(rtol=1e-4, atol=1e-4)
 K = 4
 
 
+def _make_lm(arch: str) -> dict:
+    """The reference's weights in both packages (float32 mode must be on),
+    and a datastore the reference harvested from its model (8 sequences of
+    33 tokens: 256 pairs)."""
+    jcfg, tcfg = jget_smoke(arch), get_smoke(arch)
+    params = jax.jit(JM.init_params, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
+    model = model_from_numpy(jax.tree.map(np.asarray, params), tcfg, device="cpu")
+    corpus = np.random.default_rng(0).integers(0, jcfg.vocab_size, size=(8, 33),
+                                               dtype=np.int32)
+    jknn_cfg, tknn_cfg = jknn.KNNLMConfig(k=K), tknn.KNNLMConfig(k=K)
+    jstore = jserve.build_datastore_from_model(jcfg, params, corpus, jknn_cfg)
+    tstore = index_from_numpy(jax.tree.map(np.asarray, jstore)._asdict(), tknn_cfg.grid,
+                              device="cpu")
+    return dict(jcfg=jcfg, tcfg=tcfg, params=params, model=model, corpus=corpus,
+                jknn=jknn_cfg, tknn=tknn_cfg, jstore=jstore, tstore=tstore,
+                mesh=make_host_mesh(1, 1))
+
+
+@pytest.fixture
+def f32_mode(monkeypatch):
+    monkeypatch.setattr(JL, "ACT_DTYPE", jnp.float32)
+    monkeypatch.setattr(TL, "ACT_DTYPE", torch.float32)
+
+
 @pytest.fixture(scope="module")
 def lm():
-    """Both packages in float32 mode for the module, the reference's
-    weights in both, and a datastore the reference harvested from its
-    model (8 sequences of 33 tokens: 256 pairs)."""
+    """Both packages in float32 mode for the module; internlm2's SMOKE."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(JL, "ACT_DTYPE", jnp.float32)
         mp.setattr(TL, "ACT_DTYPE", torch.float32)
-        jcfg, tcfg = jget_smoke(ARCH), get_smoke(ARCH)
-        params = JM.init_params(jax.random.PRNGKey(0), jcfg)
-        model = model_from_numpy(jax.tree.map(np.asarray, params), tcfg, device="cpu")
-        corpus = np.random.default_rng(0).integers(0, jcfg.vocab_size, size=(8, 33),
-                                                   dtype=np.int32)
-        jknn_cfg, tknn_cfg = jknn.KNNLMConfig(k=K), tknn.KNNLMConfig(k=K)
-        jstore = jserve.build_datastore_from_model(jcfg, params, corpus, jknn_cfg)
-        tstore = index_from_numpy(jax.tree.map(np.asarray, jstore)._asdict(), tknn_cfg.grid,
-                                  device="cpu")
-        yield dict(jcfg=jcfg, tcfg=tcfg, params=params, model=model, corpus=corpus,
-                   jknn=jknn_cfg, tknn=tknn_cfg, jstore=jstore, tstore=tstore,
-                   mesh=make_host_mesh(1, 1))
+        yield _make_lm(ARCH)
 
 
 def _prompts(seed, cfg, b=2, s=8):
@@ -204,8 +216,7 @@ def test_serve_cli_on_the_cpu():
 
 def test_serve_refuses_what_it_cannot_run(lm):
     """No card and no --device: Engine and main raise rather than run on
-    the CPU.  Bad flags exit before any model is built; an arch with
-    layers the port does not compute raises NotImplementedError."""
+    the CPU.  Bad flags exit before any model is built."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tserve.Engine(lm["tcfg"], lm["model"], tserve.ServeConfig())
@@ -217,8 +228,82 @@ def test_serve_refuses_what_it_cannot_run(lm):
         tserve.main(["--knn", "--knn-backend", "hopper_stacked", "--device", "cpu"])
     with pytest.raises(SystemExit, match="unknown backend"):
         tserve.main(["--knn", "--knn-backend", "pallas", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A6.2"):
-        tserve.main(["--arch", "jamba-v0.1-52b", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-v0.1-52b", "xlstm-125m"])
+def test_generate_with_the_head_matches_reference_every_layer_kind(arch, f32_mode):
+    """MoE (qwen2-moe: padded and shared experts), Mamba + attention + MoE
+    (jamba) and mLSTM + sLSTM (xlstm): the datastore the reference
+    harvests, then Engine.generate with the kNN-LM head, greedy tokens
+    equal to the reference's and the hiddens within F32_TOL; the port's own
+    harvest equal to the reference's in corpus order."""
+    lm = _make_lm(arch)
+    w_keys, w_labels = _in_corpus_order(lm["jstore"])
+    g_keys, g_labels = _in_corpus_order(tserve.build_datastore_from_model(
+        lm["tcfg"], lm["model"], lm["corpus"], lm["tknn"]))
+    np.testing.assert_allclose(g_keys, w_keys, **F32_TOL)
+    np.testing.assert_array_equal(g_labels, w_labels)
+    je, te = _engines(lm, knn=True)
+    prompts = _prompts(5, lm["jcfg"])
+    _same_generation(te.generate(prompts), je.generate(prompts))
+
+
+@pytest.mark.parametrize("b, s, bounds", [(10, 32, [0, 4, 8, 10]), (9, 32, [0, 4, 9]),
+                                          (12, 33, [0, 12])],
+                         ids=["whole_groups", "short_tail_joins", "s_coprime_to_g"])
+def test_moe_harvest_cuts_only_between_groups(b, s, bounds, f32_mode, monkeypatch):
+    """An MoE model's harvest cuts the corpus only at multiples of the
+    reference's group (g = 64 tokens at qwen2-moe's SMOKE), so every GShard
+    group and its capacity drops are the reference's one-forward groups:
+    with a capacity factor of 0.5 (drops in every group) and HARVEST_BATCH
+    3, the keys equal the reference's.  S * HARVEST_BATCH = 99 and, for
+    the default 16, 16 * 33 = 528 are not multiples of 64: cut there, the
+    groups (and the keys) would differ."""
+    base = jget_smoke("qwen2-moe-a2.7b")
+    jcfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, capacity_factor=0.5))
+    tcfg = dataclasses.replace(get_smoke("qwen2-moe-a2.7b"), moe=dataclasses.replace(
+        get_smoke("qwen2-moe-a2.7b").moe, capacity_factor=0.5))
+    params = jax.jit(JM.init_params, static_argnums=1)(jax.random.PRNGKey(1), jcfg)
+    model = model_from_numpy(jax.tree.map(np.asarray, params), tcfg, device="cpu")
+    corpus = np.random.default_rng(6).integers(0, jcfg.vocab_size, size=(b, s), dtype=np.int32)
+    knn = tknn.KNNLMConfig(k=K)
+    monkeypatch.setattr(tserve, "HARVEST_BATCH", 3)
+    assert tserve.harvest_bounds(tcfg, b, s) == bounds
+    w_keys, w_labels = _in_corpus_order(
+        jserve.build_datastore_from_model(jcfg, params, corpus, jknn.KNNLMConfig(k=K)))
+    g_keys, g_labels = _in_corpus_order(tserve.build_datastore_from_model(
+        tcfg, model, corpus, knn))
+    np.testing.assert_allclose(g_keys, w_keys, **F32_TOL)
+    np.testing.assert_array_equal(g_labels, w_labels)
+    # the cuts matter: 3 sequences (96 or 99 tokens) re-form the groups
+    with torch.no_grad():
+        cut = model.hidden_states({"tokens": torch.from_numpy(corpus[:3])})[:, :-1]
+    assert not np.allclose(np_(cut).reshape(-1, tcfg.d_model), w_keys[:3 * (s - 1)], atol=1e-3)
+    monkeypatch.setattr(tserve, "HARVEST_BATCH", 16)
+    assert tserve.harvest_bounds(tcfg, 40, 33) == [0, 40]           # 528 = 8.25 groups
+    assert tserve.harvest_bounds(tcfg, 40, 32) == [0, 16, 32, 40]   # 512 = 8 groups
+    assert tserve.harvest_bounds(get_smoke("jamba-v0.1-52b"), 40, 33) == [0, 40]
+    assert tserve.harvest_bounds(get_smoke("xlstm-125m"), 40, 33) == [0, 16, 32, 40]
+    # a batch of whole groups wider than 4 * HARVEST_BATCH sequences raises
+    with pytest.raises(ValueError, match="65 sequences of 33 tokens"):
+        tserve.harvest_bounds(tcfg, 65, 33)                         # one batch of 65
+    with pytest.raises(ValueError, match="of 1025 tokens: whole MoE groups of 512"):
+        tserve.harvest_bounds(get_config("qwen2-moe-a2.7b"), 256, 1025)
+    assert tserve.harvest_bounds(get_config("qwen2-moe-a2.7b"), 256, 1024) == [
+        *range(0, 256, 16), 256]
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "dbrx-132b", "jamba-v0.1-52b",
+                                  "xlstm-125m"])
+def test_serve_cli_serves_every_layer_kind(arch):
+    """`--arch` with MoE, Mamba and xLSTM layers serves on the CPU with the
+    head and online growth."""
+    out = _serve("--device", "cpu", "--arch", arch, "--knn", "--knn-online", "--batch", "2",
+                 "--prompt-len", "8", "--max-new", "4", "--datastore-size", "512")
+    assert out.returncode == 0, out.stderr
+    assert "datastore: 512 keys" in out.stdout
+    assert "grew online: +6 pairs -> 518 keys" in out.stdout
+    assert "generated (2, 4) tokens" in out.stdout
 
 
 @pytest.mark.gpu

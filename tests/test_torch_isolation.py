@@ -45,7 +45,9 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.core.retrieval_memory", "repro_torch.checkpoint.store",
             "repro_torch.launch.serve", "repro_torch.models.config",
             "repro_torch.models.layers", "repro_torch.models.attention",
-            "repro_torch.models.model", "repro_torch.configs.shapes",
+            "repro_torch.models.model", "repro_torch.models.moe",
+            "repro_torch.models.mamba", "repro_torch.models.xlstm",
+            "repro_torch.configs.shapes",
             "repro_torch.configs.minitron_8b", "repro_torch.configs.xlstm_125m",
             "repro_torch.utils.scan"} <= set(mods)
 
