@@ -175,8 +175,8 @@ per phase:
      forward held in float32 with the same weights, alone on the card, at
      a drop-free capacity factor (n_experts / top_k: every group's
      capacity its size; the bf16 gaps, there and at the real 1.25,
-     printed); a harvest of 256 x 1,024 tokens cut only between whole
-     GShard groups; two counted generates of 8 x 512 prompts and 32
+     printed); a harvest of 256 x 1,024 tokens (layer-major: an MoE
+     layer runs whole GShard groups at a time); two counted generates of 8 x 512 prompts and 32
      tokens, `hopper` equal to `torch` at every pick, the online flow, a
      traced decode run with its cudaLaunchKernel calls per step; 8c the
      same for jamba-v0.1-52b at
@@ -184,7 +184,33 @@ per phase:
      `reduced` in its line; consistency in float32 as 8b) and for
      xlstm-125m whole (consistency in bf16 as 7b), with 32 sequences and
      16 new tokens, and the selective scan's and the sLSTM loop's share of
-     one prefill (CUDA events around each call).
+     one prefill (CUDA events around each call);
+  9  the training path (optim/, data/pipeline.py, launch/steps.py,
+     launch/train.py) and the retrieval serve step: 9a internlm2-1.8b's
+     widths at depth 2 in float32, card against CPU, 3 steps of
+     make_train_step (bf16_compute_copy off, accum 2) on the same
+     synthetic batches: loss, grad_norm, lr, moments and parameters within
+     rtol / atol 1e-4 (the parameters but for the few whose gradient sits
+     at float32's noise floor, which AdamW's per-element normalisation
+     turns into updates of up to the learning rate), and remat "full"
+     against "none"; 9b internlm2-1.8b's CONFIG at full width and depth
+     (1.89 B parameters, float32 masters and moments) through
+     launch/train.py's `run`: the bf16 compute copy, remat full, accum 4,
+     20 steps of 8 x 1,024 synthetic tokens, the loss falling, with one
+     checkpoint (step 12; each is 22.7 GB, and a call may write 45 GiB to
+     the machine's disk) under build/ (removed after); then a fresh run
+     from that checkpoint with a fault injected at step 15, restarted by
+     the supervisor to step 20, its losses held against the uninterrupted
+     run's; step ms, tokens/s, peak memory and 6·N·tokens a step as a
+     share of the bf16 peak; 9c make_retrieval_serve_step at minitron-8b's
+     CONFIG with a cache of 262,144 positions (random K/V from the seed)
+     and the memory index over layer 0's key summaries: 16 counted steps,
+     one radius_search_loop and one csr_candidate_topk each, `hopper`
+     equal to `torch` on each step's query (ids up to counted near-ties),
+     the logits against decode_step given the same positions; 9d
+     qwen2-moe-a2.7b's CONFIG harvested over 256 x 1,023 tokens (512
+     groups of 512, the last padded, which no batch of whole sequences
+     holds) against one forward over the whole corpus on the card.
 
 Kernel times: `ms` is the median of 10 timed wrapper calls (CUDA events
 around the call, the L2 flushed before each), so a launch-bound kernel's
@@ -197,7 +223,7 @@ Each path runs with every launch counter set to 0 just before it and read
 just after (phase 5: before the first insert, and after the mutated
 handle's searches; phase 6b: before the decode stream and after it, the
 checks of each batch's requests taken off again; phases 7b, 8b and 8c:
-around each counted generate); a kernel of the path that was never
+around each counted generate; 9c: around its counted steps); a kernel of the path that was never
 launched fails the run.
 Then one {"kernels": [...]} line (per kernel: launches on the paths,
 largest error against the plain version, kernel time (and device_ms where
@@ -220,6 +246,7 @@ import hashlib
 import importlib
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -257,11 +284,12 @@ KERNELS = {
 SOURCES = tuple(src for src, _ in KERNELS.values())
 FUSED_PATH = ("radius_search_loop", "csr_candidate_topk")  # the kernels `hopper` searches on
 NO_PATH = ("flash_attention",)  # no path of the system calls it: phase 4 only
-# the kernels phases 6-8 launch besides phases 2, 3 and 5: the kNN-LM
-# head's and retrieval memory's `hopper` searches, and `exact` as their
-# recall reference (the `sharded` backend launches none: its shards search
-# on `torch`)
-PATHS = {name: "phases 2, 3, 5, 6, 7, 8" for name in FUSED_PATH + ("brute_knn",)}
+# the kernels phases 6-9 launch besides phases 2, 3 and 5: the kNN-LM
+# head's and retrieval memory's `hopper` searches (9c: the retrieval serve
+# step's), and `exact` as their recall reference (the `sharded` backend
+# launches none: its shards search on `torch`)
+PATHS = {name: "phases 2, 3, 5, 6, 7, 8, 9" for name in FUSED_PATH}
+PATHS["brute_knn"] = "phases 2, 3, 5, 6, 7, 8"
 F32_EPS = float(np.finfo(np.float32).eps)
 LOOP_STATS = ("radius", "count", "iters", "converged", "tile_dmas_skipped")
 
@@ -2660,6 +2688,8 @@ def phase6_checkpoint(seed, state, cfg, smi, extra=1024) -> None:
 
 # the reference model's own prefill/decode tolerance (tests/test_models.py)
 MODEL_TOL = dict(rtol=0.15, atol=0.15)
+# each serving phase's harvest seconds, for 9d's line
+HARVEST_S: dict = {}
 # float32 on the card (cuBLAS, TF32 off) against the CPU's sums
 F32_CARD_TOL = dict(rtol=1e-4, atol=1e-4)
 # the same for a whole 12-layer model (xlstm-125m): its residual stream's
@@ -2905,26 +2935,36 @@ def drop_free(cfg):
         mo, capacity_factor=mo.n_experts / mo.top_k))
 
 
-def routed_run(model, toks, prompt: int):
-    """lm_run(model, toks, prompt, 1) with a spy on moe.route, and the
-    rows whose router choices all agree between the forward and the
-    prefill (B,) and between the forward and the prefill and decode (B,)
-    bool, and the count of (layer, token) choices of k experts that
-    differ (all rows agree for a model without MoE)."""
+def routed(fn):
+    """fn() with a spy on moe.route -> (its result, (top_i, keep)): the
+    router's choices (uint8) and kept masks of every call in call order,
+    each (groups, g, k)."""
     from repro_torch.models import moe
 
-    real, ids = moe.route, []
+    real, top_i, keep = moe.route, [], []
 
     def spy(*args):
         r = real(*args)
-        ids.append(torch.sort(r.top_i.reshape(-1, r.top_i.shape[-1]), dim=-1).values)
+        top_i.append(r.top_i.to(torch.uint8))
+        keep.append(r.keep)
         return r
 
     moe.route = spy
     try:
-        out = lm_run(model, toks, prompt, 1)
+        out = fn()
     finally:
         moe.route = real
+    return out, (top_i, keep)
+
+
+def routed_run(model, toks, prompt: int):
+    """lm_run(model, toks, prompt, 1) with a spy on moe.route (`routed`),
+    and the rows whose router choices all agree between the forward and
+    the prefill (B,) and between the forward and the prefill and decode
+    (B,) bool, and the count of (layer, token) choices of k experts that
+    differ (all rows agree for a model without MoE)."""
+    out, (top_i, _) = routed(lambda: lm_run(model, toks, prompt, 1))
+    ids = [torch.sort(t.reshape(-1, t.shape[-1]).long(), dim=-1).values for t in top_i]
     b, n = toks.shape[0], len(ids) // 3           # calls: prefill, decode, forward per layer
     flip_pre = torch.zeros(b, prompt, dtype=torch.bool, device=toks.device)
     flip_dec = torch.zeros(b, 1, dtype=torch.bool, device=toks.device)
@@ -3041,7 +3081,7 @@ def lm_serving(seed, api, mods, smi, cfg, phase: str, label: str, n_seqs=256, ne
                                                   corpus[:, 1:].reshape(-1)),
           f"phase {phase}: the datastore's labels are not corpus[:, 1:] in order")
     harvest_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    bounds = serve.harvest_bounds(cfg, n_seqs, seq_len)
+    HARVEST_S[phase] = harvest_ms / 1e3
     del corpus, order
 
     engine = serve.Engine(cfg, model, serve.ServeConfig(max_new_tokens=new, knn=knn_cfg), index,
@@ -3137,8 +3177,7 @@ def lm_serving(seed, api, mods, smi, cfg, phase: str, label: str, n_seqs=256, ne
         "nvidia_smi": smi, "params": n_params, "param_bytes": n_bytes, "init_ms": init_ms,
         "consistency": consistency,
         "harvest": {"sequences": n_seqs, "seq_len": seq_len, "pairs": pairs,
-                    "batches": len(bounds) - 1, "batch_size": bounds[1] - bounds[0],
-                    "s": harvest_ms / 1e3, "tokens_per_s": 1e3 * n_seqs * seq_len / harvest_ms,
+                    "batch_size": serve.HARVEST_BATCH, "s": harvest_ms / 1e3, "tokens_per_s": 1e3 * n_seqs * seq_len / harvest_ms,
                     "peak_mem_gb": harvest_peak_gb},
         "knn": {"k": knn_cfg.k, "lam": knn_cfg.lam, "plan": knn_cfg.plan.backend,
                 "grid_size": knn_cfg.grid.grid_size, "window": knn_cfg.grid.window,
@@ -3320,6 +3359,367 @@ def phase8_serving(seed, api, mods, smi, cfgs=None, n_seqs=(256, 32, 32), new=(3
     return runs
 
 
+# ----------------------------------------------------------------- phase 9 ---
+
+# the H100 SXM's dense bf16 tensor-core peak (NVIDIA's data sheet), for the
+# train step's model-FLOPs share
+BF16_TENSOR_OPS_PER_S = 989e12
+# float32 on the card against the CPU for a train step's state (9a): the
+# parameters as tests/test_torch_steps.py holds them against the
+# reference's (an element whose gradient sits at float32's noise floor can
+# take an update of up to the learning rate: at most 1e-4 of them, each
+# within 2.5 learning rates)
+NOISE_FLOOR_SHARE = 1e-4
+
+
+def hold_state(got: dict, want: dict, lr: float, tol: dict, what: str) -> dict:
+    """A train state against another: step and count equal, moments within
+    `tol`, parameters within `tol` but for noise-floor elements.  Returns
+    the largest errors and the noise-floor count."""
+    from repro_torch.utils import tree
+
+    check(int(got["step"]) == int(want["step"]) and
+          int(got["opt"].count) == int(want["opt"].count), f"{what}: step counters differ")
+
+    def diffs(part):
+        """(path, |got - want|, want) per leaf, on got's device."""
+        for (k, a), (_, b) in zip(tree.leaves_with_path(part(got)), tree.leaves_with_path(
+                part(want))):
+            b = b.to(a.device)
+            yield k, (a - b).abs(), b
+
+    errs = {}
+    for name, part in (("mu", lambda s: s["opt"].mu), ("nu", lambda s: s["opt"].nu)):
+        errs[name] = 0.0
+        for k, d, b in diffs(part):
+            errs[name] = max(errs[name], float(d.max()))
+            check(bool((d <= tol["atol"] + tol["rtol"] * b.abs()).all()),
+                  f"{what}: {name} {k} off by {float(d.max())} beyond {tol}")
+    off = total = 0
+    worst = 0.0
+    for k, d, b in diffs(lambda s: s["params"]):
+        worst = max(worst, float(d.max()))
+        check(worst <= 2.5 * lr + tol["atol"], f"{what}: params {k} off by {float(d.max())}")
+        off += int((d > tol["atol"] + tol["rtol"] * b.abs()).sum())
+        total += d.numel()
+    check(off <= NOISE_FLOOR_SHARE * total, f"{what}: {off} of {total} parameters off")
+    return {**errs, "params": worst, "params_at_noise_floor": off}
+
+
+def phase9_train_equations(seed, smi, cfg=None) -> None:
+    """9a, the train step's equations at internlm2-1.8b's widths at depth 2
+    (or `cfg`) in float32 (the port's ACT_DTYPE switched for the phase):
+    the state drawn on the card from generator `seed` and copied to the
+    CPU, 3 steps of make_train_step (bf16_compute_copy=False, accum 2,
+    2 x 64 tokens) on the same synthetic batches on both: loss, grad_norm
+    and lr, and
+    the moments and parameters after each step within rtol / atol 1e-4
+    (the parameters but for noise-floor elements); then one step with
+    remat="full" against remat="none" on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.launch import steps as st
+    from repro_torch.optim import adamw
+    from repro_torch.utils import tree
+
+    cfg = cfg or dataclasses.replace(get_config("internlm2-1.8b"), n_layers=2)
+    steps, batch, seq, accum = 3, 2, 64, 2
+    opt_cfg = adamw.AdamWConfig(warmup_steps=1, total_steps=10)
+    step_cfg = st.StepConfig(accum=accum, bf16_compute_copy=False)
+    dc = DataConfig(global_batch=batch, seq_len=seq, vocab_size=cfg.vocab_size, seed=seed)
+    rows, card_ms, cpu_ms = [], [], []
+    with f32_activations():
+        card = st.init_train_state(torch.Generator(device=DEV).manual_seed(seed + 90), cfg,
+                                   opt_cfg, step_cfg, DEV)
+        cpu = tree.map(lambda t: t.cpu(), card)
+        start = tree.map(torch.clone, card)
+        step = st.make_train_step(cfg, opt_cfg, step_cfg)
+        for i in range(steps):
+            hb = synth_batch(dc, i)
+            (card, mc), ms = host_ms(lambda: step(card, {k: torch.from_numpy(v).to(DEV)
+                                                         for k, v in hb.items()}))
+            card_ms.append(ms)
+            t0 = time.perf_counter()
+            cpu, mh = step(cpu, {k: torch.from_numpy(v) for k, v in hb.items()})
+            cpu_ms.append(1e3 * (time.perf_counter() - t0))
+            row = {"step": i, **{k: float(mc[k]) for k in ("loss", "grad_norm", "lr")}}
+            for k in ("loss", "grad_norm", "lr"):
+                row[f"{k}_err"] = close(mc[k], mh[k], F32_CARD_TOL, f"9a step {i} {k}")
+            row["max_abs_err"] = hold_state(card, cpu, float(mc["lr"]), F32_CARD_TOL,
+                                            f"9a step {i}")
+            rows.append(row)
+        del cpu
+        # remat changes no number: one step from the same state, both ways
+        hb = {k: torch.from_numpy(v).to(DEV) for k, v in synth_batch(dc, 0).items()}
+        outs = {}
+        for remat in ("none", "full"):
+            rcfg = dataclasses.replace(cfg, policy=dataclasses.replace(cfg.policy, remat=remat))
+            torch.cuda.reset_peak_memory_stats()
+            (state, m), ms = host_ms(lambda: st.make_train_step(rcfg, opt_cfg, step_cfg)(
+                tree.map(torch.clone, start), hb))
+            outs[remat] = (state, m, ms, torch.cuda.max_memory_allocated() / 1e9)
+        (sn, mn, msn, pkn), (sf, mf, msf, pkf) = outs["none"], outs["full"]
+        remat_err = hold_state(sf, sn, float(mn["lr"]), F32_CARD_TOL, "9a remat full vs none")
+        bit_equal = all(torch.equal(a, b) for a, b in zip(tree.leaves(sf), tree.leaves(sn)))
+        loss_equal = float(mf["loss"]) == float(mn["loss"])
+    n_params = sum(p.numel() for p in tree.leaves(start["params"]))
+    emit({"phase": "9a", "config": f"internlm2-1.8b widths at depth {cfg.n_layers}, float32, "
+                                   f"bf16_compute_copy False, accum {accum}",
+          "nvidia_smi": smi, "params": n_params, "batch": batch, "seq": seq, "steps": rows,
+          "tolerance": F32_CARD_TOL, "card_ms": card_ms, "cpu_ms": cpu_ms,
+          "remat_full_vs_none": {"loss_equal": loss_equal, "state_bit_equal": bit_equal,
+                                 "max_abs_err": remat_err, "ms": {"none": msn, "full": msf},
+                                 "peak_mem_gb": {"none": pkn, "full": pkf}}})
+
+
+def phase9_training(seed, smi, cfg=None) -> None:
+    """9b, training at internlm2-1.8b's CONFIG (24 layers, full width; or
+    `cfg`) through launch/train.py: `run` with bf16_compute_copy=True,
+    remat "full" and accum 4 (the config's), 20 steps of 8 x 1,024
+    synthetic tokens, a checkpoint every 12 steps under build/ (removed
+    after): the loss must fall.  A checkpoint of the full state is 22.7 GB
+    and a call may write 45 GiB to the machine's disk, so the run writes
+    one (at step 12).  Then a fresh directory holding a hard link of that
+    checkpoint and `run` again with a fault injected at step 15: the first
+    attempt resumes there and fails, the supervisor restarts from that
+    checkpoint to the same final step, and the restarted train_loop's
+    losses from the checkpoint on are held against the uninterrupted
+    run's within rel 1e-6 (room for a few float32 ulps of the loss should
+    the card sum in another order; bit-equality reported).
+    Step ms (median past the first step), tokens/s, peak memory and
+    6·N·tokens a step over the step time as a share of the card's dense
+    bf16 peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.utils import tree
+
+    cfg = cfg or get_config("internlm2-1.8b")
+    steps, batch, seq, every, fail_at = 20, 8, 1024, 12, 15
+    root = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    log: list = []
+    try:
+        tc = train.TrainConfig(steps=steps, batch=batch, seq=seq, ckpt_dir=str(root / "whole"),
+                               ckpt_every=every, log_every=1, seed=seed)
+        torch.cuda.reset_peak_memory_stats()
+        whole, whole_ms = host_ms(lambda: train.run(cfg, tc, device=DEV, log=log.append))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = whole["losses"]
+        check(whole["final_step"] == steps and len(losses) == steps,
+              f"9b: the uninterrupted run ended at {whole['final_step']}")
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"9b: the loss did not fall: {losses[0]} -> {losses[-1]}")
+        n_params = sum(p.numel() for p in tree.leaves(whole["state"]["params"]))
+        state_gb = sum(t.numel() * t.element_size() for t in tree.leaves(whole["state"])) / 1e9
+        del whole["state"]
+        torch.cuda.empty_cache()
+        # the recovery: a fresh directory with only the step-`every` checkpoint
+        resumed = root / "resumed"
+        resumed.mkdir()
+        shutil.copytree(root / "whole" / f"step_{every}", resumed / f"step_{every}",
+                        copy_function=os.link)     # links: a checkpoint is tens of GB
+        shutil.rmtree(root / "whole")
+        tc2 = dataclasses.replace(tc, ckpt_dir=str(resumed), fail_at=fail_at)
+        log2: list = []
+        again, again_ms = host_ms(lambda: train.run(cfg, tc2, device=DEV, log=log2.append))
+        check(again["final_step"] == steps, f"9b: the recovered run ended at {again['final_step']}")
+        check(tc2.fail_at == -1 and sum("restart 1 after" in x for x in log2) == 1
+              and sum(f"resumed from checkpoint step {every}" in x for x in log2) == 2,
+              f"9b: the fault and the restart did not happen as expected: {log2}")
+        tail = losses[every:]
+        check(len(again["losses"]) == len(tail) and all(
+            math.isclose(a, b, rel_tol=1e-6) for a, b in zip(again["losses"], tail)),
+            f"9b: the resumed losses {again['losses']} differ from {tail}")
+        secs = whole["seconds"][1:]
+        step_s = float(np.median(secs))
+        tokens = batch * seq
+        emit({
+            "phase": "9b", "config": "internlm2-1.8b CONFIG (24 layers, d_model 2048, 16 heads "
+                                     "over 8 KV heads of 128, d_ff 8192, vocab 92,544), float32 "
+                                     "masters, bf16 compute copy, remat full, accum 4, random "
+                                     "init from the seed",
+            "reduced": f"batch {batch} x seq {seq} tokens a step (train_4k: 256 x 4,096), "
+                       f"{steps} steps, one checkpoint (at step {every}: each is "
+                       f"{state_gb:.1f} GB, and a call may write 45 GiB to disk)",
+            "nvidia_smi": smi, "params": n_params, "state_gb": state_gb,
+            "steps": steps, "batch": batch, "seq": seq, "accum": cfg.policy.accum,
+            "losses": losses,
+            "step_ms": {"median": 1e3 * step_s, "min": 1e3 * min(secs), "max": 1e3 * max(secs),
+                        "first": 1e3 * whole["seconds"][0]},
+            "tokens_per_s": tokens / step_s,
+            "model_flops_share_of_bf16_peak":
+                6 * n_params * tokens / step_s / BF16_TENSOR_OPS_PER_S,
+            "peak_mem_gb": peak_gb, "run_s": whole_ms / 1e3,
+            "recovery": {"fail_at": fail_at, "resumed_from": every, "rel_tol": 1e-6,
+                         "final_step": again["final_step"],
+                         "run_s": again_ms / 1e3, "losses": again["losses"],
+                         "bit_equal_to_uninterrupted": again["losses"] == tail,
+                         "max_rel_loss_err": max(abs(a - b) / abs(b) for a, b in
+                                                 zip(again["losses"], tail))},
+            "checkpoints_every": every,
+        })
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase9_retrieval_step(seed, api, mods, smi, cfg=None, positions=262_144) -> list:
+    """9c, make_retrieval_serve_step at minitron-8b's CONFIG (32 layers,
+    9.88 B parameters in bf16, random weights; or `cfg`), batch 1, a cache
+    of `positions` filled with random K/V from the seed, the memory index
+    over layer 0's key summaries (RetrievalMemoryConfig's defaults):
+    16 decode steps at the cache's last positions, each one
+    radius_search_loop and one csr_candidate_topk (counted); then at every
+    step the retrieved positions held against the same search on `torch`
+    (ids equal up to counted near-ties) and the logits against decode_step
+    called with those positions.  Returns the counted launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import retrieval_memory as rm
+    from repro_torch.launch import steps as st
+    from repro_torch.models.model import DecoderLM, init_caches
+
+    cfg = cfg or get_config("minitron-8b")
+    steps = 16
+    mem = rm.RetrievalMemoryConfig()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 95)
+    model = DecoderLM(cfg, device=DEV, generator=gen)
+    n_params, n_bytes = model_size(model)
+    caches = init_caches(cfg, 1, positions, device=DEV)
+    for c in caches:
+        for state in c.values():
+            state.normal_(generator=gen)
+    keys = rm.key_summary(caches[0]["k"][0, 0])                        # layer 0: (T, hd)
+    index, build_ms = host_ms(lambda: rm.build_memory_index(
+        keys, mem, rm.make_projection(gen, cfg.head_dim)))
+    tokens = torch.randint(0, cfg.vocab_size, (steps, 1), generator=gen, device=DEV)
+    pos0 = positions - steps
+    step = st.make_retrieval_serve_step(cfg, mem)
+    step(model, caches, index, tokens[0], pos0)                        # warm-up, not counted
+    torch.cuda.synchronize()
+    reset(mods)
+    outs, step_ms = [], []
+    for i in range(steps):
+        out, ms = host_ms(lambda: step(model, caches, index, tokens[i], pos0 + i))
+        outs.append(out)
+        step_ms.append(ms)
+    launches = counts(mods)
+    check(launches["radius_search_loop"] == steps and launches["csr_candidate_topk"] == steps,
+          f"phase 9c: {steps} steps launched {launches}")
+    # afterwards: `hopper` against `torch` on each step's query, and the
+    # logits against decode_step given the same positions
+    hopper = api.ActiveSearcher.from_index(index, mem.grid, device=DEV)
+    plain = hopper.with_plan(backend="torch")
+    err, swaps, logit_err, bit_equal, valid = 0.0, 0, 0.0, True, []
+    for i in range(steps):
+        q = st.retrieval_query(model, tokens[i])
+        rh, rt = hopper.search(q, mem.n_retrieved), plain.search(q, mem.n_retrieved)
+        e, s = compare_topk((rh.dists, rh.ids), (rt.dists, rt.ids), keys, q, "l2", 1e-5)
+        err, swaps = max(err, e), swaps + s
+        got_pos, ok = st.retrieve(model, index, tokens[i], pos0 + i, mem)
+        check(torch.equal(got_pos, torch.clamp_min(rh.ids, 0)), f"9c step {i}: positions differ")
+        valid.append(float(ok.float().mean()))
+        with torch.no_grad():
+            want, _, _ = model.decode_step(caches, tokens[i], pos0 + i,
+                                           retrieved=(got_pos, ok, mem.local_window))
+        logit_err = max(logit_err, close(outs[i][0], want, MODEL_TOL, f"9c step {i} logits"))
+        bit_equal = bit_equal and torch.equal(outs[i][0], want)
+        check(bool(torch.isfinite(outs[i][0]).all()), f"9c step {i}: logits not finite")
+    check(max(valid) > 0, "9c: no step retrieved a valid position")
+    emit({
+        "phase": "9c", "config": "make_retrieval_serve_step, minitron-8b CONFIG (32 layers, "
+                                 "d_model 4096, 32 heads over 8 KV heads of 128, vocab 256,000), "
+                                 "bf16, random weights; RetrievalMemoryConfig's defaults",
+        "reduced": f"cache of {positions} positions (long_500k: 524,288), batch 1",
+        "nvidia_smi": smi, "params": n_params, "param_bytes": n_bytes,
+        "cache_gb": sum(nbytes(c.values()) for c in caches) / 1e9,
+        "positions": positions, "n_retrieved": mem.n_retrieved, "local_window": mem.local_window,
+        "index_build_ms": build_ms, "steps": steps,
+        "ms_per_step": {"median": float(np.median(step_ms)), "min": min(step_ms),
+                        "max": max(step_ms)},
+        "hopper_vs_torch": {"max_abs_dist_err": err, "tie_swaps": swaps},
+        "logits_vs_decode_step": {"max_abs_err": logit_err, "bit_equal": bit_equal},
+        "valid_frac": valid, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches,
+    })
+    return [launches]
+
+
+def phase9_moe_harvest(seed, smi, cfg=None, n_seqs=256) -> None:
+    """9d, the harvest of an MoE model whose GShard groups no batch of
+    whole sequences holds: qwen2-moe-a2.7b's CONFIG at full width and
+    depth (bf16, random weights; or `cfg`) over `n_seqs` x 1,023 random
+    tokens (g = 512 and S = 1023 share no factor: 511.5 groups a layer at
+    256 sequences, the last padded).  build_datastore_from_model runs
+    layer-major; with a spy on moe.route in both runs, its router's choices
+    and kept masks must equal, group by group in every MoE layer, those of
+    one forward over the whole corpus on the card (the reference's
+    harvest), so every group boundary and capacity drop is the
+    reference's; its keys (in corpus order) are held against that
+    forward's hidden states at the model tolerance, with the share of
+    bit-equal rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import knn_lm
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.models.model import DecoderLM
+
+    cfg = cfg or get_config("qwen2-moe-a2.7b")
+    seq_len = 1023
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 97)
+    model = DecoderLM(cfg, device=DEV, generator=gen)
+    corpus = torch.randint(0, cfg.vocab_size, (n_seqs, seq_len), generator=gen, device=DEV)
+    # the reference's harvest first, while nothing else is held: one
+    # forward over the whole corpus (every MoE layer over all its groups
+    # at once: ~40 GB of dispatch tensors beside 30 GB of weights)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        (one, want_route), forward_ms = host_ms(lambda: routed(
+            lambda: model.hidden_states({"tokens": corpus})))
+    want = one[:, :-1].reshape(-1, cfg.d_model).clone()
+    del one
+    forward_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (index, got_route), harvest_ms = host_ms(lambda: routed(
+        lambda: serve.build_datastore_from_model(cfg, model, corpus, knn_lm.KNNLMConfig())))
+    harvest_peak = torch.cuda.max_memory_allocated() / 1e9
+    order = torch.argsort(index.ids_sorted.long())
+    check(torch.equal(index.labels_sorted[order], corpus[:, 1:].reshape(-1)),
+          "9d: the datastore's labels are not corpus[:, 1:] in order")
+    keys = index.points_sorted[order]
+    del index, order
+    ng, g, cap = moe.group_shape(cfg, n_seqs * seq_len)
+    n_moe = sum(cfg.is_moe_layer(i % cfg.block_period) for i in range(cfg.n_layers))
+    shapes = {tuple(t.shape[1:]) for t in got_route[0] + want_route[0]}
+    check(shapes == {(g, cfg.moe.top_k)}, f"9d: the router ran on groups of {shapes}, not "
+                                          f"of {g} tokens")
+    got_route, want_route = [[torch.cat(ts) for ts in r] for r in (got_route, want_route)]
+    check(got_route[0].shape[0] == want_route[0].shape[0] == n_moe * ng,
+          f"9d: {got_route[0].shape[0]} and {want_route[0].shape[0]} groups routed, "
+          f"not {n_moe * ng}")
+    groups_differ = int(((got_route[0] != want_route[0]) | (got_route[1] != want_route[1]))
+                        .flatten(1).any(1).sum())
+    check(groups_differ == 0, f"9d: the router chose or kept other experts in {groups_differ} "
+                              f"of {n_moe * ng} groups than the one forward")
+    err = close(keys, want, MODEL_TOL, "9d: layer-major harvest against one forward")
+    rows_equal = float((keys == want.float()).all(dim=1).float().mean())
+    emit({
+        "phase": "9d", "config": "qwen2-moe-a2.7b CONFIG (24 layers, 60 routed experts padded "
+                                 "to 64, top-4, a shared MLP of 5632), bf16, random weights",
+        "nvidia_smi": smi, "sequences": n_seqs, "seq_len": seq_len,
+        "pairs": n_seqs * (seq_len - 1), "groups": ng, "group_tokens": g, "capacity": cap,
+        "harvest_s": harvest_ms / 1e3, "phase_8b_harvest_s": HARVEST_S.get("8b"),
+        "one_forward_s": forward_ms / 1e3,
+        "vs_one_forward": {"router_groups_compared": n_moe * ng,
+                           "router_groups_differing": groups_differ,
+                           "max_abs_err": err, "rows_bit_equal": rows_equal,
+                           "tolerance": MODEL_TOL},
+        "peak_mem_gb": {"harvest": harvest_peak, "one_forward": forward_peak},
+    })
+
+
 # -------------------------------------------------------------------- main ---
 
 
@@ -3353,6 +3753,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     seed = parser.parse_args().seed
+    # read at the card's first allocation: 9d's one forward holds tensors of
+    # many sizes at once, and the default cached blocks fragment past 80 GB
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -3413,6 +3816,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase8_equations(seed, smi)
     runs += phase8_serving(seed, api, mods, smi)
+    torch.cuda.empty_cache()
+    phase9_train_equations(seed, smi)
+    phase9_training(seed, smi)
+    runs += phase9_retrieval_step(seed, api, mods, smi)
+    phase9_moe_harvest(seed, smi)
     launches = {name: sum(r[name] for r in runs) for name in KERNELS}
     emit(kernels_line(max_err, timings, launches))
     print(smi, flush=True)

@@ -21,33 +21,16 @@ import os
 import shutil
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, Iterator
+from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.core import mutable as mut
 from repro_torch.core.grid import resolve_device
+from repro_torch.utils.tree import leaves_with_path, unflatten
 
 _SEP = "/"
-
-
-def _leaves_with_path(tree: Any, path: tuple = ()) -> Iterator[tuple[tuple, Any]]:
-    """(path, leaf) pairs in the reference's pytree order: dict keys sorted,
-    sequences and named tuples in order, None as an empty subtree."""
-    if tree is None:
-        return
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves_with_path(tree[k], path + (k,))
-    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        for name in tree._fields:
-            yield from _leaves_with_path(getattr(tree, name), path + (name,))
-    elif isinstance(tree, (list, tuple)):
-        for i, sub in enumerate(tree):
-            yield from _leaves_with_path(sub, path + (i,))
-    else:
-        yield path, tree
 
 
 def _key(path: tuple) -> str:
@@ -61,22 +44,7 @@ def _to_numpy(leaf: Any) -> np.ndarray:
 
 
 def _flatten(tree: Any) -> dict[str, np.ndarray]:
-    return {_key(p): _to_numpy(leaf) for p, leaf in _leaves_with_path(tree)}
-
-
-def _unflatten(like: Any, leaves: Iterator[Any]) -> Any:
-    """`like`'s structure with its leaves replaced, in `_leaves_with_path`
-    order."""
-    if like is None:
-        return None
-    if isinstance(like, dict):
-        out = {k: _unflatten(like[k], leaves) for k in sorted(like)}
-        return {k: out[k] for k in like}
-    if isinstance(like, tuple) and hasattr(like, "_fields"):
-        return type(like)(*(_unflatten(getattr(like, n), leaves) for n in like._fields))
-    if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(sub, leaves) for sub in like)
-    return next(leaves)
+    return {_key(p): _to_numpy(leaf) for p, leaf in leaves_with_path(tree)}
 
 
 class CheckpointManager:
@@ -174,11 +142,11 @@ class CheckpointManager:
         dev = resolve_device(device)
         flat = self.restore_arrays(step)
         leaves = []
-        for p, leaf in _leaves_with_path(like):
+        for p, leaf in leaves_with_path(like):
             key = _key(p)
             arr = flat[key]
             expect = tuple(leaf.shape) if hasattr(leaf, "shape") else np.shape(leaf)
             if tuple(arr.shape) != expect:
                 raise ValueError(f"checkpoint shape mismatch at {key}: {arr.shape} vs {expect}")
             leaves.append(torch.from_numpy(np.array(arr)).to(dev))
-        return _unflatten(like, iter(leaves))
+        return unflatten(like, iter(leaves))

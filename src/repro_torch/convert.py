@@ -8,8 +8,9 @@ mutable state travels as the reference's `mutable.state_to_tree` dict; a
 sharded index as the stacked index's arrays, and a sharded mutation state
 as one such dict per shard plus the global `next_id`.  A model travels as
 the reference's `init_params` tree (layers stacked by period position) and
-its decode caches as the reference's period-stacked list.  Nothing here
-imports the reference: it takes plain arrays.
+its decode caches as the reference's period-stacked list, both ways; a
+train state as the reference's {"params", "opt", "step"[, "err"]} tree,
+both ways.  Nothing here imports the reference: it takes plain arrays.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from repro_torch.core.grid import GridConfig, GridIndex, as_tensor, resolve_devi
 from repro_torch.core.projection import Projection
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import DecoderLM, cache_dtype
+from repro_torch.optim import adamw
+from repro_torch.utils import tree as tree_util
 
 
 def projection_from_numpy(matrix, lo, hi, device=None) -> Projection:
@@ -133,6 +136,71 @@ def model_from_numpy(tree: Mapping, cfg: ModelConfig, device=None) -> DecoderLM:
         add(f"layers.{i}", tree["blocks"][i % period], i // period)
     model.load_state_dict(state, strict=True)
     return model
+
+
+def model_to_numpy(model: DecoderLM) -> dict:
+    """The reference's `init_params` tree of the model's weights as float32
+    numpy arrays, the inverse of `model_from_numpy` (a weight stored in
+    bf16 comes back as the float32 value it rounds to, exactly)."""
+    cfg = model.cfg
+    f32 = lambda t: t.detach().to("cpu", torch.float32).numpy()  # noqa: E731
+
+    def nested(layer) -> dict:
+        out: dict = {}
+        for name, param in layer.named_parameters():
+            *path, leaf = name.split(".")
+            node = out
+            for key in path:
+                node = node.setdefault(key, {})
+            node[leaf] = f32(param)
+        return out
+
+    period = cfg.block_period
+    blocks = []
+    for p in range(period):
+        per_repeat = [nested(model.layers[r * period + p]) for r in range(cfg.n_repeat)]
+        blocks.append(_stack(per_repeat))
+    tree = {"embed": f32(model.embed), "final_norm": f32(model.final_norm), "blocks": blocks}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = f32(model.lm_head)
+    return tree
+
+
+def _stack(trees: list) -> dict:
+    if isinstance(trees[0], Mapping):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def _tensors(node, dev: torch.device):
+    """Nested dicts / lists of arrays as tensors on `dev`, dtypes kept."""
+    if isinstance(node, Mapping):
+        return {k: _tensors(v, dev) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_tensors(v, dev) for v in node]
+    return torch.from_numpy(np.array(node)).to(dev)
+
+
+def train_state_from_numpy(state: Mapping, device=None) -> dict:
+    """The port's train state (`launch/steps.py`) from the reference's as
+    numpy arrays (`jax.tree.map(np.asarray, state)`): "params", "opt" (any
+    (mu, nu, count) triple, such as the reference's OptState), "step" and,
+    with compressed gradients, "err"; dtypes kept (float32 masters and
+    moments, int32 counters), on `device` (None = the card)."""
+    dev = resolve_device(device)
+    mu, nu, count = state["opt"]
+    out = {"params": _tensors(state["params"], dev),
+           "opt": adamw.OptState(_tensors(mu, dev), _tensors(nu, dev), _tensors(count, dev)),
+           "step": _tensors(state["step"], dev)}
+    if "err" in state:
+        out["err"] = _tensors(state["err"], dev)
+    return out
+
+
+def train_state_to_numpy(state: Mapping) -> dict:
+    """The port's train state as the same structure of numpy arrays (the
+    reference's leaves, path for path: `utils.tree.leaves_with_path`)."""
+    return tree_util.map(lambda t: t.detach().cpu().numpy(), dict(state))
 
 
 def caches_from_numpy(caches: Sequence[Mapping[str, np.ndarray]], device=None) -> list:

@@ -26,7 +26,6 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
-import math
 import time
 from concurrent.futures import Future
 
@@ -39,10 +38,12 @@ from repro_torch.core import knn_lm
 from repro_torch.core.active_search import SearchResult
 from repro_torch.core.distributed import _pow2
 from repro_torch.core.grid import GridIndex, resolve_device
-from repro_torch.models.model import DecoderLM
+from repro_torch.models import layers as L
+from repro_torch.models import moe
+from repro_torch.models.model import DecoderLM, core_residual, mlp_residual
 
-# sequences per forward in build_datastore_from_model (at least; see
-# harvest_bounds for an MoE model)
+# sequences per batch of harvest_keys' layer-major forward (an MoE layer
+# takes whole groups of about as many tokens)
 HARVEST_BATCH = 16
 
 
@@ -304,55 +305,63 @@ class Engine:
         return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
 
 
-def harvest_bounds(cfg, b: int, s: int) -> list[int]:
-    """Where `build_datastore_from_model` cuts a corpus of b sequences of s
-    tokens: every HARVEST_BATCH sequences, or for an MoE model at the
-    fewest sequences past that which fill whole GShard groups.  The
-    reference runs the corpus in one forward, whose MoE layers group its
-    b * s flattened tokens into runs of g = min(group_size, b * s) (the
-    last padded), each with its own capacity; cutting only at multiples of
-    g tokens leaves every group, and so every capacity drop, as it is.  A
-    last batch of fewer than g tokens would form a smaller group than the
-    reference's padded one (another capacity), so it joins the batch before
-    it.  Where s shares too few factors with g (s = 1025 against g = 512
-    needs 512 sequences a batch), a batch of more than 4 * HARVEST_BATCH
-    sequences would lift the memory bound, and that raises."""
-    if cfg.moe is None:
-        return [*range(0, b, HARVEST_BATCH), b]
-    g = min(cfg.moe.group_size, b * s)
-    step = g // math.gcd(s, g)                     # sequences whose tokens fill whole groups
-    bounds = [*range(0, b, -(-HARVEST_BATCH // step) * step), b]
-    if len(bounds) > 2 and (bounds[-1] - bounds[-2]) * s < g:
-        del bounds[-2]
-    widest = max(hi - lo for lo, hi in zip(bounds, bounds[1:]))
-    if widest > 4 * HARVEST_BATCH:
-        raise ValueError(f"harvest of {b} sequences of {s} tokens: whole MoE groups of {g} "
-                         f"tokens take batches of {widest} sequences, over 4 * HARVEST_BATCH "
-                         f"= {4 * HARVEST_BATCH}; choose a sequence length with more factors "
-                         f"of {g}")
-    return bounds
+def harvest_keys(model: DecoderLM, corpus: torch.Tensor) -> torch.Tensor:
+    """The final-normed hidden states (B, S - 1, d), float32, of the
+    training forward over `corpus` (B, S) on the model's device, as the
+    reference's one forward over the whole corpus gives them.
+
+    The forward runs layer-major: the (B, S, d) activations of the whole
+    corpus are held between layers, and each layer runs over them in
+    batches.  A core (attention, Mamba, mLSTM, sLSTM) and a dense MLP take
+    HARVEST_BATCH whole sequences at a time.  An MoE layer groups the B·S
+    flattened tokens as the reference's one forward does (g = min(group
+    size, B·S) tokens a group, the last padded with zero rows) and runs
+    whole groups at a time; each group has its own capacity, so its drops
+    are the reference's whatever the batch.  The last position's hidden,
+    which predicts no token of the corpus, is dropped."""
+    cfg = model.cfg
+    b, s = corpus.shape
+    d = cfg.d_model
+    keys = torch.empty((b, s - 1, d), dtype=torch.float32, device=model.device)
+    with torch.no_grad():
+        x = model.embed_inputs({"tokens": corpus})
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)
+        seqs = [(lo, min(b, lo + HARVEST_BATCH)) for lo in range(0, b, HARVEST_BATCH)]
+        for layer in model.layers:
+            is_moe = cfg.is_moe_layer(layer.p)
+            for lo, hi in seqs:
+                xb = core_residual(cfg, layer.p, layer, x[lo:hi], positions)
+                x[lo:hi] = xb if is_moe else mlp_residual(cfg, layer.p, layer, xb)[0]
+            if is_moe:
+                _moe_layer_grouped(cfg, layer, x.view(b * s, d), HARVEST_BATCH * s)
+        for lo, hi in seqs:
+            keys[lo:hi] = L.rms_norm(x[lo:hi, :-1], model.final_norm, cfg.norm_eps)
+    return keys
+
+
+def _moe_layer_grouped(cfg, layer, x: torch.Tensor, batch_tokens: int) -> None:
+    """x (T, d) += the MoE MLP of `layer` on it, in place: the reference's
+    groups of the T tokens, run about `batch_tokens` tokens (whole groups)
+    at a time."""
+    t = x.shape[0]
+    ng, g, cap = moe.group_shape(cfg, t)
+    per = max(1, batch_tokens // g)
+    for first in range(0, ng, per):
+        lo, hi = first * g, min(t, (first + per) * g)
+        h = L.rms_norm(x[lo:hi], layer.norm2, cfg.norm_eps)
+        n = min(per, ng - first)
+        y, _ = moe.moe_groups(layer.ffn, cfg, moe.group_tokens(h, n, g), cap)
+        x[lo:hi] += y.reshape(n * g, -1)[:hi - lo]
 
 
 def build_datastore_from_model(cfg, model: DecoderLM, corpus, knn_cfg) -> GridIndex:
     """Harvest (hidden_t -> token_{t+1}) pairs from the model's training
-    forward over `corpus` (B, S) and build the active-search datastore on
-    the model's device.
-
-    As in the reference, the forward runs over all S tokens and the last
-    position's hidden, which predicts no token of the corpus, is dropped.
-    It runs a batch of sequences at a time (`harvest_bounds`), to bound the
-    activations' memory on the card, with the reference's MoE groups; only
-    the float32 keys of the whole corpus are held."""
+    forward over `corpus` (B, S) (`harvest_keys`) and build the
+    active-search datastore on the model's device."""
     if cfg != model.cfg:
         raise ValueError(f"the model was built for {model.cfg.name}, not {cfg.name}")
-    dev = model.device
-    corpus = torch.as_tensor(corpus).to(device=dev, dtype=torch.int32)
-    b, s = corpus.shape
-    keys = torch.empty((b, s - 1, cfg.d_model), dtype=torch.float32, device=dev)
-    bounds = harvest_bounds(cfg, b, s)
-    with torch.no_grad():
-        for lo, hi in zip(bounds, bounds[1:]):
-            keys[lo:hi] = model.hidden_states({"tokens": corpus[lo:hi]})[:, :-1]
+    corpus = torch.as_tensor(corpus).to(device=model.device, dtype=torch.int32)
+    keys = harvest_keys(model, corpus)
     vals = corpus[:, 1:].reshape(-1)
     return knn_lm.build_datastore(keys.reshape(-1, cfg.d_model), vals, knn_cfg)
 

@@ -112,10 +112,18 @@ def mamba_scan(params, cfg: ModelConfig, x_in: torch.Tensor, h0: torch.Tensor,
         hi = min(s, lo + q)
         a = torch.exp(dt[:, lo:hi, :, None] * a_mat)                     # (B, Q, din, ds)
         bx = xb[:, lo:hi, :, None] * b_ssm[:, lo:hi, None, :]             # (B, Q, din, ds)
-        for i in range(hi - lo):
-            h = torch.addcmul(bx[:, i], a[:, i], h, out=bx[:, i])         # bx[:, i] := h_i
+        if bx.requires_grad or h.requires_grad:
+            # training: the same sums, each state a new tensor for autograd
+            states = []
+            for i in range(hi - lo):
+                h = torch.addcmul(bx[:, i], a[:, i], h)
+                states.append(h)
+            bx = torch.stack(states, dim=1)
+        else:
+            for i in range(hi - lo):
+                h = torch.addcmul(bx[:, i], a[:, i], h, out=bx[:, i])     # bx[:, i] := h_i
+            h = h.clone()                                                 # frees the chunk
         ys.append(torch.einsum("bqds,bqs->bqd", bx, c_ssm[:, lo:hi]))
-        h = h.clone()                                                     # frees the chunk
         del a, bx
     y = torch.cat(ys, dim=1) + xf * params["D"]
     return y.to(x_in.dtype), h

@@ -17,20 +17,33 @@ Weights are stored in the dtype the reference casts them to where it uses
 them: matrices in `layers.ACT_DTYPE` (read when the model is built), the
 norms' scales, the vectors and the few matrices the reference uses in
 float32 (`mamba.F32_WEIGHTS`, `xlstm.SLSTM_F32_WEIGHTS`) in float32.
-Modes: `forward` for training (logits and the sum of the MoE layers' aux
-losses), `prefill` -> caches, `decode_step` for serving (with `retrieved`
-for the active-search long-context path on attention layers).  Decode
-caches are the reference's layout, a list over period positions of dicts
-keyed by the kind's state names (attention "k", "v"; Mamba "conv", "ssm";
-mLSTM "c", "n"; sLSTM "h", "c", "n", "m"), each (n_repeat, B, ...), and
-`decode_step` updates them IN PLACE (the reference donates them to its
-step): a caller who reuses a cache clones it first.
+Modes: `forward` (logits and the sum of the MoE layers' aux losses; the
+module form of the training forward, kept as the serving model's own
+reference for its prefill and decode), `prefill` -> caches, `decode_step`
+for serving (with `retrieved` for the
+active-search long-context path on attention layers).  Training runs on
+the reference's parameter tree instead of a module (`init_params`,
+`compute_copy`, `forward_params`, `loss_params`, at the end of this
+file): float32 masters stacked by period position, through the same
+per-layer functions (`layer_train`), each period-repeat of layers under
+the config's remat policy.
+
+Decode caches are the reference's layout, a list over period positions
+of dicts keyed by the kind's state names (attention "k", "v"; Mamba
+"conv", "ssm"; mLSTM "c", "n"; sLSTM "h", "c", "n", "m"), each
+(n_repeat, B, ...), and `decode_step` updates them IN PLACE (the
+reference donates them to its step): a caller who reuses a cache clones
+it first.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                   create_selective_checkpoint_contexts)
 
 from repro_torch.core.grid import resolve_device
 from repro_torch.models import attention as attn
@@ -39,11 +52,24 @@ from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import xlstm as xl
 from repro_torch.models.config import ModelConfig
+from repro_torch.utils import tree
 
 # the cores' weights stored in float32 though they have two or more dims
 _F32_CORE = {"mamba": mam.F32_WEIGHTS, "slstm": xl.SLSTM_F32_WEIGHTS}
 # the decode caches' states in ACT_DTYPE; every other state is float32
 ACT_CACHE_KEYS = ("k", "v", "conv")
+
+
+def _generator(dev: torch.device, generator: torch.Generator | None):
+    """The generator weights are drawn from on `dev`: none on a "meta"
+    device, seed 0 on `dev` by default."""
+    if dev.type == "meta":
+        return None
+    if generator is None:
+        return torch.Generator(device=dev).manual_seed(0)
+    if generator.device.type != dev.type:
+        raise ValueError(f"a generator on {generator.device} draws no weights on {dev}")
+    return generator
 
 
 def _device(device) -> torch.device:
@@ -91,39 +117,58 @@ _CORE = {  # kind -> (training form, prefill, decode step)
 }
 
 
+def core_residual(cfg: ModelConfig, p: int, w, x, positions) -> torch.Tensor:
+    """x + the core (attention, Mamba, mLSTM or sLSTM) of the layer at
+    period position `p` with weights `w` (a mapping keyed as the
+    reference's layer dict: "norm1", "core", and "norm2" / "ffn" where the
+    layer has an MLP), in its training form."""
+    kind = cfg.pattern[p]
+    h = L.rms_norm(x, w["norm1"], cfg.norm_eps)
+    if kind == "attn":
+        return x + attn.attention_block(w["core"], cfg, h, positions, chunk=cfg.policy.attn_chunk)
+    return x + _CORE[kind][0](w["core"], cfg, h)
+
+
+def mlp_residual(cfg: ModelConfig, p: int, w, x):
+    """x + the MLP (MoE or dense SwiGLU) of the layer at period position
+    `p`, and the MoE aux loss (None without one); x as it is where the
+    layer has no MLP."""
+    if "ffn" not in w:
+        return x, None
+    h2 = L.rms_norm(x, w["norm2"], cfg.norm_eps)
+    f = w["ffn"]
+    if cfg.is_moe_layer(p):
+        y, aux = moe_lib.moe_block(f, cfg, h2)
+        return x + y, aux
+    return x + L.swiglu(h2, f["wi"], f["wg"], f["wo"]), None
+
+
+def layer_train(cfg: ModelConfig, p: int, w, x, positions):
+    """One layer of the training forward -> (x, its MoE aux loss or None)."""
+    return mlp_residual(cfg, p, w, core_residual(cfg, p, w, x, positions))
+
+
 class Layer(nn.Module):
     """One decoder layer: RMSNorm, the core (attention, Mamba, mLSTM or
     sLSTM), residual; then, where the layer has one, RMSNorm, the MLP (MoE
     or dense SwiGLU), residual.  `core` and `ffn` are ParamTrees keyed as
-    the reference's param dicts."""
+    the reference's param dicts, and the layer is indexed like the
+    reference's layer dict (`layer["norm1"]`, `"ffn" in layer`)."""
 
     def __init__(self, cfg: ModelConfig, p: int, weights: dict):
         super().__init__()
+        self.p = p
         self.kind = cfg.pattern[p]
-        self.moe = cfg.is_moe_layer(p)
         self.norm1 = _param(weights["norm1"])
         self.core = ParamTree(weights["core"], _F32_CORE.get(self.kind, ()))
         self.norm2 = _param(weights["norm2"]) if "ffn" in weights else None
         self.ffn = ParamTree(weights["ffn"]) if "ffn" in weights else None
 
-    def _mlp(self, cfg, x):
-        """x + the MLP's output, and the MoE aux loss (None without one)."""
-        if self.ffn is None:
-            return x, None
-        h2 = L.rms_norm(x, self.norm2, cfg.norm_eps)
-        if self.moe:
-            y, aux = moe_lib.moe_block(self.ffn, cfg, h2)
-            return x + y, aux
-        return x + L.swiglu(h2, self.ffn["wi"], self.ffn["wg"], self.ffn["wo"]), None
+    def __getitem__(self, key: str):
+        return getattr(self, key)
 
-    def forward_train(self, cfg, x, positions):
-        """-> (x, this layer's MoE aux loss or None)."""
-        h = L.rms_norm(x, self.norm1, cfg.norm_eps)
-        if self.kind == "attn":
-            core = attn.attention_block(self.core, cfg, h, positions, chunk=cfg.policy.attn_chunk)
-        else:
-            core = _CORE[self.kind][0](self.core, cfg, h)
-        return self._mlp(cfg, x + core)
+    def __contains__(self, key: str) -> bool:
+        return getattr(self, key, None) is not None
 
     def prefill(self, cfg, x, positions, cache_len):
         h = L.rms_norm(x, self.norm1, cfg.norm_eps)
@@ -131,7 +176,7 @@ class Layer(nn.Module):
             core, cache = attn.prefill_cache(self.core, cfg, h, positions, cache_len)
         else:
             core, cache = _CORE[self.kind][1](self.core, cfg, h)
-        return self._mlp(cfg, x + core)[0], cache
+        return mlp_residual(cfg, self.p, self, x + core)[0], cache
 
     def decode(self, cfg, x, cache: dict, pos, retrieved=None):
         """One token; `cache` holds this layer's views of the stacked
@@ -145,7 +190,7 @@ class Layer(nn.Module):
             core, _ = attn.decode_attention_retrieved(self.core, cfg, h, cache, pos, *retrieved)
         else:
             core, _ = attn.decode_attention(self.core, cfg, h, cache, pos)
-        return self._mlp(cfg, x + core)[0]
+        return mlp_residual(cfg, self.p, self, x + core)[0]
 
 
 def _layer_weights(cfg: ModelConfig, p: int, gen: torch.Generator | None,
@@ -174,6 +219,27 @@ def _mask_pad_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
     return torch.where(col, logits, -1e30)
 
 
+def head_logits(cfg: ModelConfig, embed, lm_head, x: torch.Tensor) -> torch.Tensor:
+    """The LM head's logits of final-normed x: x @ lm_head, or x @ embed.T
+    with tied embeddings; padded vocab rows masked."""
+    head = embed.T if cfg.tie_embeddings else lm_head
+    return _mask_pad_vocab(cfg, torch.matmul(x, head.to(x.dtype)))
+
+
+def embed_inputs(cfg: ModelConfig, embed, batch: dict) -> torch.Tensor:
+    """Token embedding + modality frontend stubs, on `embed`'s device."""
+    dev = embed.device
+    if cfg.frontend == "audio":
+        # EnCodec frame embeddings arrive precomputed: (B, S, d)
+        return batch["frame_embeds"].to(device=dev, dtype=L.ACT_DTYPE)
+    x = embed[batch["tokens"].to(dev)].to(L.ACT_DTYPE)
+    if cfg.frontend == "vision" and "vision_embeds" in batch:
+        # patch embeddings occupy the first n_frontend_tokens positions
+        ve = batch["vision_embeds"]
+        x[:, :ve.shape[1]] = ve.to(device=dev, dtype=L.ACT_DTYPE)
+    return x
+
+
 class DecoderLM(nn.Module):
     """The decoder LM of `cfg` on `device` (None = the card).
 
@@ -185,12 +251,7 @@ class DecoderLM(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None, generator: torch.Generator | None = None):
         super().__init__()
         dev = _device(device)
-        if dev.type == "meta":
-            generator = None
-        elif generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        elif generator.device.type != dev.type:
-            raise ValueError(f"a generator on {generator.device} draws no weights on {dev}")
+        generator = _generator(dev, generator)
         self.cfg = cfg
         period = cfg.block_period
         self.layers = nn.ModuleList(
@@ -208,32 +269,18 @@ class DecoderLM(nn.Module):
         return self.embed.device
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return _mask_pad_vocab(self.cfg, torch.matmul(x, head.to(x.dtype)))
+        return head_logits(self.cfg, self.embed, self.lm_head, x)
 
     def embed_inputs(self, batch: dict) -> torch.Tensor:
         """Token embedding + modality frontend stubs."""
-        cfg = self.cfg
-        if cfg.frontend == "audio":
-            # EnCodec frame embeddings arrive precomputed: (B, S, d)
-            return batch["frame_embeds"].to(device=self.device, dtype=L.ACT_DTYPE)
-        x = self.embed[batch["tokens"].to(self.device)].to(L.ACT_DTYPE)
-        if cfg.frontend == "vision" and "vision_embeds" in batch:
-            # patch embeddings occupy the first n_frontend_tokens positions
-            ve = batch["vision_embeds"]
-            x[:, :ve.shape[1]] = ve.to(device=self.device, dtype=L.ACT_DTYPE)
-        return x
+        return embed_inputs(self.cfg, self.embed, batch)
 
     def _trunk(self, batch: dict):
         """The training forward up to the final norm: (hidden states (B, S,
         d), the sum of the MoE layers' aux losses, float32)."""
-        x = self.embed_inputs(batch)
-        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for layer in self.layers:
-            x, a = layer.forward_train(self.cfg, x, positions)
-            if a is not None:
-                aux = aux + a
+        period = self.cfg.block_period
+        repeats = [self.layers[r * period:(r + 1) * period] for r in range(self.cfg.n_repeat)]
+        x, aux = _trunk(self.cfg, self.embed_inputs(batch), repeats, "none")
         return L.rms_norm(x, self.final_norm, self.cfg.norm_eps), aux
 
     def hidden_states(self, batch: dict) -> torch.Tensor:
@@ -245,14 +292,6 @@ class DecoderLM(nn.Module):
         aux: the sum of the MoE layers' load-balancing losses)."""
         x, aux = self._trunk(batch)
         return self._logits(x), aux
-
-    def loss_fn(self, batch: dict, aux_weight: float = 0.01):
-        logits, aux = self(batch)
-        mask = batch.get("mask")
-        nll = L.softmax_cross_entropy(logits, batch["labels"].to(logits.device),
-                                      None if mask is None else mask.to(logits.device))
-        loss = nll + aux_weight * aux
-        return loss, {"nll": nll, "aux": aux}
 
     # ------------------------------------------------------------ serving ---
 
@@ -309,3 +348,143 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, device=None) -> li
         caches.append({key: state.expand(cfg.n_repeat, *state.shape).clone()
                        for key, state in c.items()})
     return caches
+
+
+# ------------------------------------------------------------- training ---
+#
+# The train step works on the reference's parameter tree, not on a
+# DecoderLM: {"embed", "final_norm", "blocks", "lm_head"} with
+# `blocks[p]` the nested dict of period position p's weights, every leaf
+# with a leading (n_repeat,) axis, all float32 (the optimizer's masters).
+# The per-layer functions above run on a repeat's slice of it, so the
+# training forward is the serving model's forward, layer for layer.
+
+
+def _loss(out, batch: dict, aux_weight: float):
+    logits, aux = out
+    mask = batch.get("mask")
+    nll = L.softmax_cross_entropy(logits, batch["labels"].to(logits.device),
+                                  None if mask is None else mask.to(logits.device))
+    loss = nll + aux_weight * aux
+    return loss, {"nll": nll, "aux": aux}
+
+
+def init_params(cfg: ModelConfig, device=None, generator: torch.Generator | None = None) -> dict:
+    """The reference's `init_params` tree in float32 on `device` (None =
+    the card; "meta" for shapes only), layers stacked by period position.
+    The weights are drawn from `generator` (default: seed 0 on `device`)
+    in DecoderLM's order, so a DecoderLM built from the same generator
+    holds the same numbers (rounded to its storage dtypes)."""
+    dev = _device(device)
+    gen = _generator(dev, generator)
+    period, n_rep = cfg.block_period, cfg.n_repeat
+    blocks: list = [None] * period
+    for i in range(cfg.n_layers):
+        p, r = i % period, i // period
+        w = _layer_weights(cfg, p, gen, dev)
+        if blocks[p] is None:
+            blocks[p] = tree.map(lambda a: torch.empty((n_rep, *a.shape), dtype=a.dtype,
+                                                       device=dev), w)
+        tree.map(lambda stack, a: stack[r].copy_(a), blocks[p], w)
+        del w
+    v, d = cfg.vocab_eff, cfg.d_model
+    params = {"embed": L.embed_init(gen, (v, d), dev),
+              "final_norm": torch.ones((d,), device=dev), "blocks": blocks}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(gen, (d, v), device=dev)
+    return params
+
+
+def compute_copy(params: dict) -> dict:
+    """The reference's compute copy: every float32 leaf of two or more
+    dims in bf16, the rest as it is.  On the stacked tree every block leaf
+    has the (n_repeat,) axis, so every one of them (norms, biases, `A_log`
+    and `D` too) is rounded, with `embed` and `lm_head`; only `final_norm`
+    stays float32.  Differentiable: the gradient of a master comes back
+    through the cast, rounded to bf16 as the reference's does."""
+    return tree.map(lambda p: p.to(torch.bfloat16)
+                    if p.dtype == torch.float32 and p.dim() >= 2 else p, params)
+
+
+def _mm_saveable(ctx, op, *args, **kwargs):
+    """"dots": keep the outputs of the unbatched matrix products (a 2-D
+    `mm`: the projections and MLPs, which `torch.matmul` folds to 2-D),
+    recompute the rest (the batched attention and expert products too)."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str):
+    """The reference's `_remat` on a period-repeat of layers: "none" runs
+    `fn` as it is; "full" keeps only its inputs and recomputes the rest in
+    the backward; "dots" keeps the unbatched matrix products' outputs (the
+    reference's `dots_with_no_batch_dims_saveable`) through a selective
+    checkpoint.  No mode changes a number."""
+    if remat == "none":
+        return fn
+    kwargs = {"use_reentrant": False}
+    if remat == "dots":
+        kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _mm_saveable)
+    elif remat != "full":
+        raise ValueError(f"remat must be 'none', 'full' or 'dots', not {remat!r}")
+    return lambda *args: checkpoint(fn, *args, **kwargs)
+
+
+def _repeats(block: dict, n_repeat: int) -> list:
+    """A stacked block's n_repeat slices (one `unbind` per leaf, so the
+    backward stacks each leaf's gradient once)."""
+    parts = _unbind(block)
+    return [_pick(parts, r) for r in range(n_repeat)]
+
+
+def _unbind(block: dict) -> dict:
+    return {k: _unbind(v) if isinstance(v, dict) else v.unbind(0) for k, v in block.items()}
+
+
+def _pick(parts: dict, r: int) -> dict:
+    return {k: _pick(v, r) if isinstance(v, dict) else v[r] for k, v in parts.items()}
+
+
+def _trunk(cfg: ModelConfig, x: torch.Tensor, repeats: list, remat: str):
+    """The training forward's layers over the embedded x: `repeats` holds
+    each period-repeat's layer weights (a list over period positions of
+    mappings keyed as the reference's layer dict), each repeat run under
+    `_remat` -> (x, the sum of the MoE layers' aux losses, float32)."""
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+
+    def body(x, blk):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for p, w in enumerate(blk):
+            x, a = layer_train(cfg, p, w, x, positions)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    run = _remat(body, remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk in repeats:
+        x, a = run(x, blk)
+        aux = aux + a
+    return x, aux
+
+
+def forward_params(cfg: ModelConfig, params: dict, batch: dict, remat: str | None = None):
+    """The reference's training `forward` on its parameter tree: batch
+    {tokens (B, S), ...} -> (logits (B, S, V), the MoE layers' aux loss).
+    Each period-repeat of layers runs under `_remat` (`remat`, default
+    `cfg.policy.remat`)."""
+    remat = cfg.policy.remat if remat is None else remat
+    period = cfg.block_period
+    slices = [_repeats(params["blocks"][p], cfg.n_repeat) for p in range(period)]
+    repeats = [[slices[p][r] for p in range(period)] for r in range(cfg.n_repeat)]
+    x, aux = _trunk(cfg, embed_inputs(cfg, params["embed"], batch), repeats, remat)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return head_logits(cfg, params["embed"], params.get("lm_head"), x), aux
+
+
+def loss_params(cfg: ModelConfig, params: dict, batch: dict, aux_weight: float = 0.01,
+                remat: str | None = None):
+    """The reference's `loss_fn`: (nll + aux_weight * aux, {"nll", "aux"})."""
+    return _loss(forward_params(cfg, params, batch, remat), batch, aux_weight)

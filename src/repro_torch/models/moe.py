@@ -93,16 +93,30 @@ def route(params, cfg: ModelConfig, xt: torch.Tensor, cap: int) -> Routing:
 def moe_block(params, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y (B, S, d), the Switch aux loss ()).  Token order
     preserved."""
-    mo = cfg.moe
     b, s, d = x.shape
     t = b * s
     ng, g, cap = group_shape(cfg, t)
-    e, k = mo.n_total, mo.top_k
+    y, aux = moe_groups(params, cfg, group_tokens(x.reshape(t, d), ng, g), cap)
+    return y.reshape(ng * g, d)[:t].reshape(b, s, d), aux
 
-    xt = x.reshape(t, d)
+
+def group_tokens(xt: torch.Tensor, ng: int, g: int) -> torch.Tensor:
+    """Flattened tokens (T, d) -> (ng, g, d) in `ACT_DTYPE`, the last group
+    padded with zero rows."""
+    t, d = xt.shape
     if ng * g != t:
         xt = F.pad(xt, (0, 0, 0, ng * g - t))
-    xt = xt.reshape(ng, g, d).to(L.ACT_DTYPE)
+    return xt.reshape(ng, g, d).to(L.ACT_DTYPE)
+
+
+def moe_groups(params, cfg: ModelConfig, xt: torch.Tensor,
+               cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE layer on grouped tokens xt (G, g, d), `cap` slots per expert
+    in each group -> (y (G, g, d), the Switch aux loss over these groups).
+    Groups are independent (each has its own capacity), so a run of whole
+    groups gives the same rows as the call over all of them."""
+    mo = cfg.moe
+    e, k = mo.n_total, mo.top_k
     r = route(params, cfg, xt, cap)
 
     # load-balancing auxiliary loss (Switch-style)
@@ -127,6 +141,4 @@ def moe_block(params, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tensor, 
     if "shared" in params:
         sh = params["shared"]
         y = y + L.swiglu(xt, sh["wi"], sh["wg"], sh["wo"])
-
-    y = y.reshape(ng * g, d)[:t]
-    return y.reshape(b, s, d), aux
+    return y, aux

@@ -1,0 +1,1 @@
+"""AdamW and gradient compression (port of `repro/optim/`)."""

@@ -32,7 +32,7 @@ from repro.core import knn_lm as jknn
 from repro.launch import serve as jserve
 from repro.launch.mesh import make_host_mesh
 from repro.models import model as JM
-from repro_torch.configs import get_config, get_smoke
+from repro_torch.configs import get_smoke
 from repro_torch.convert import index_from_numpy, model_from_numpy
 from repro_torch.core import knn_lm as tknn
 from repro_torch.launch import serve as tserve
@@ -248,17 +248,17 @@ def test_generate_with_the_head_matches_reference_every_layer_kind(arch, f32_mod
     _same_generation(te.generate(prompts), je.generate(prompts))
 
 
-@pytest.mark.parametrize("b, s, bounds", [(10, 32, [0, 4, 8, 10]), (9, 32, [0, 4, 9]),
-                                          (12, 33, [0, 12])],
-                         ids=["whole_groups", "short_tail_joins", "s_coprime_to_g"])
-def test_moe_harvest_cuts_only_between_groups(b, s, bounds, f32_mode, monkeypatch):
-    """An MoE model's harvest cuts the corpus only at multiples of the
-    reference's group (g = 64 tokens at qwen2-moe's SMOKE), so every GShard
-    group and its capacity drops are the reference's one-forward groups:
-    with a capacity factor of 0.5 (drops in every group) and HARVEST_BATCH
-    3, the keys equal the reference's.  S * HARVEST_BATCH = 99 and, for
-    the default 16, 16 * 33 = 528 are not multiples of 64: cut there, the
-    groups (and the keys) would differ."""
+@pytest.mark.parametrize("b, s, batch", [(10, 32, 3), (9, 32, 3), (12, 33, 3), (65, 33, 16)],
+                         ids=["whole_groups", "short_tail_joins", "s_coprime_to_g", "wide_65x33"])
+def test_moe_harvest_cuts_only_between_groups(b, s, batch, f32_mode, monkeypatch):
+    """An MoE model's harvest runs layer-major and cuts its MoE layers'
+    tokens only between the reference's groups (g = 64 tokens at
+    qwen2-moe's SMOKE), so every GShard group and its capacity drops are
+    the reference's one-forward groups: with a capacity factor of 0.5
+    (drops in every group) and HARVEST_BATCH `batch`, the keys equal the
+    reference's.  S * 3 = 96 or 99 tokens a batch are not whole groups,
+    and 65 x 33 (2,145 tokens, the last group padded) is a corpus whose
+    whole groups no batch of fewer than 64 whole sequences holds."""
     base = jget_smoke("qwen2-moe-a2.7b")
     jcfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, capacity_factor=0.5))
     tcfg = dataclasses.replace(get_smoke("qwen2-moe-a2.7b"), moe=dataclasses.replace(
@@ -267,30 +267,17 @@ def test_moe_harvest_cuts_only_between_groups(b, s, bounds, f32_mode, monkeypatc
     model = model_from_numpy(jax.tree.map(np.asarray, params), tcfg, device="cpu")
     corpus = np.random.default_rng(6).integers(0, jcfg.vocab_size, size=(b, s), dtype=np.int32)
     knn = tknn.KNNLMConfig(k=K)
-    monkeypatch.setattr(tserve, "HARVEST_BATCH", 3)
-    assert tserve.harvest_bounds(tcfg, b, s) == bounds
+    monkeypatch.setattr(tserve, "HARVEST_BATCH", batch)
     w_keys, w_labels = _in_corpus_order(
         jserve.build_datastore_from_model(jcfg, params, corpus, jknn.KNNLMConfig(k=K)))
     g_keys, g_labels = _in_corpus_order(tserve.build_datastore_from_model(
         tcfg, model, corpus, knn))
     np.testing.assert_allclose(g_keys, w_keys, **F32_TOL)
     np.testing.assert_array_equal(g_labels, w_labels)
-    # the cuts matter: 3 sequences (96 or 99 tokens) re-form the groups
+    # the cuts matter: 3 sequences (96 or 99 tokens) alone re-form the groups
     with torch.no_grad():
         cut = model.hidden_states({"tokens": torch.from_numpy(corpus[:3])})[:, :-1]
     assert not np.allclose(np_(cut).reshape(-1, tcfg.d_model), w_keys[:3 * (s - 1)], atol=1e-3)
-    monkeypatch.setattr(tserve, "HARVEST_BATCH", 16)
-    assert tserve.harvest_bounds(tcfg, 40, 33) == [0, 40]           # 528 = 8.25 groups
-    assert tserve.harvest_bounds(tcfg, 40, 32) == [0, 16, 32, 40]   # 512 = 8 groups
-    assert tserve.harvest_bounds(get_smoke("jamba-v0.1-52b"), 40, 33) == [0, 40]
-    assert tserve.harvest_bounds(get_smoke("xlstm-125m"), 40, 33) == [0, 16, 32, 40]
-    # a batch of whole groups wider than 4 * HARVEST_BATCH sequences raises
-    with pytest.raises(ValueError, match="65 sequences of 33 tokens"):
-        tserve.harvest_bounds(tcfg, 65, 33)                         # one batch of 65
-    with pytest.raises(ValueError, match="of 1025 tokens: whole MoE groups of 512"):
-        tserve.harvest_bounds(get_config("qwen2-moe-a2.7b"), 256, 1025)
-    assert tserve.harvest_bounds(get_config("qwen2-moe-a2.7b"), 256, 1024) == [
-        *range(0, 256, 16), 256]
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "dbrx-132b", "jamba-v0.1-52b",

@@ -46,10 +46,12 @@ from repro.models import attention as JA
 from repro.models import model as JM
 from repro_torch import configs as tconfigs
 from repro_torch.configs import shapes as tshapes
-from repro_torch.convert import caches_from_numpy, caches_to_numpy, model_from_numpy
+from repro_torch.convert import (caches_from_numpy, caches_to_numpy, model_from_numpy,
+                                 model_to_numpy)
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
+from repro_torch.utils import tree as ttree
 
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_TOL = dict(rtol=2.0 ** -7, atol=2.0 ** -4)
@@ -429,6 +431,13 @@ def test_padded_vocab_masked(f32_mode):
     assert (_f32(got).argmax(-1) < 512).all()
 
 
+def _loss_params(model, tb):
+    """The port's training loss (`loss_params`) on the model's weights as
+    the reference's parameter tree (`model_to_numpy`)."""
+    params = ttree.map(torch.from_numpy, model_to_numpy(model))
+    return TM.loss_params(model.cfg, params, tb)
+
+
 def test_loss_matches_reference(f32_mode):
     jcfg = jconfigs.get_smoke("stablelm-3b")
     params, model = _models(jcfg, seed=4)
@@ -439,7 +448,7 @@ def test_loss_matches_reference(f32_mode):
     jb, tb = _both(batch)
     want, _ = JM.loss_fn(params, jcfg, jb)
     with torch.no_grad():
-        got, parts = model.loss_fn(tb)
+        got, parts = _loss_params(model, tb)
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
     assert float(parts["aux"]) == 0.0
 
@@ -472,7 +481,7 @@ def test_moe_loss_carries_the_aux_loss(f32_mode):
     jb, tb = _both(batch)
     want, wparts = jax.jit(functools.partial(JM.loss_fn, cfg=unrolled(jcfg)))(params, batch=jb)
     with torch.no_grad():
-        got, parts = model.loss_fn(tb)
+        got, parts = _loss_params(model, tb)
     assert float(parts["aux"]) > 1.0
     np.testing.assert_allclose(float(parts["aux"]), float(wparts["aux"]), rtol=1e-5)
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
