@@ -198,7 +198,8 @@ per phase:
      launch/train.py's `run`: the bf16 compute copy, remat full, accum 4,
      20 steps of 8 x 1,024 synthetic tokens, the loss falling, with one
      checkpoint (step 12; each is 22.7 GB, and a call may write 45 GiB to
-     the machine's disk) under build/ (removed after); then a fresh run
+     the machine's disk) under build/ (kept for phase 10, removed after
+     it); then a fresh run
      from that checkpoint with a fault injected at step 15, restarted by
      the supervisor to step 20, its losses held against the uninterrupted
      run's; step ms, tokens/s, peak memory and 6·N·tokens a step as a
@@ -210,7 +211,32 @@ per phase:
      the logits against decode_step given the same positions; 9d
      qwen2-moe-a2.7b's CONFIG harvested over 256 x 1,023 tokens (512
      groups of 512, the last padded, which no batch of whole sequences
-     holds) against one forward over the whole corpus on the card.
+     holds) against one forward over the whole corpus on the card;
+ 10  the device mesh, four ranks spawned on the one card over gloo (CUDA
+     tensors, each on cuda:0; NCCL refuses two ranks a device): 10a which
+     c10d collectives gloo takes CUDA tensors in (those the mesh path
+     needs must all work); 10b phase 6a's datastore on a 4-rank ("data",)
+     mesh, each rank building only its shard: the merged search and the
+     search after 6a's inserts and delete equal 6a's in every field, no
+     kernel launched, search ms and index bytes a rank; 10c 9b's step-12
+     checkpoint restored onto a 2 x 2 (data, model) mesh, each rank's
+     shards equal to the same slices of the checkpoint's arrays, then 9b's
+     next two steps with its settings, their losses within 1e-4 of 9b's
+     and every parameter shard moved, step ms and each rank's peak
+     memory, then 9b's checkpoint removed and the mesh's state saved
+     (each leaf gathered, rank 0 writing it) and every rank's shards
+     checked against the file, save ms and the host memory each rank
+     added while saving;
+     10d make_serve_step and make_retrieval_serve_step on that mesh with
+     the restored weights (8 x 4,096 random cached positions, 8 decode
+     steps): in float32 the logits against one rank's within 1e-3
+     (MESH_F32_TOL) and the retrieved positions
+     equal, every rank launching both path kernels (counted per rank),
+     then in bf16 the mesh's logits no further (1.5x) from float32's than
+     one rank's; 10e compressed_psum over the ranks against the same
+     formula on the host, bit for bit; 10f one nccl rank: 9a's
+     configuration on a 1 x 1 mesh, three steps bit-equal to no mesh;
+     the phase's seconds.
 
 Kernel times: `ms` is the median of 10 timed wrapper calls (CUDA events
 around the call, the L2 flushed before each), so a launch-bound kernel's
@@ -223,8 +249,9 @@ Each path runs with every launch counter set to 0 just before it and read
 just after (phase 5: before the first insert, and after the mutated
 handle's searches; phase 6b: before the decode stream and after it, the
 checks of each batch's requests taken off again; phases 7b, 8b and 8c:
-around each counted generate; 9c: around its counted steps); a kernel of the path that was never
-launched fails the run.
+around each counted generate; 9c: around its counted steps; 10d: on each
+rank, around its float32 retrieval serve steps); a kernel of the path
+that was never launched fails the run.
 Then one {"kernels": [...]} line (per kernel: launches on the paths,
 largest error against the plain version, kernel time (and device_ms where
 taken) and plain time, the bound
@@ -288,7 +315,7 @@ NO_PATH = ("flash_attention",)  # no path of the system calls it: phase 4 only
 # head's and retrieval memory's `hopper` searches (9c: the retrieval serve
 # step's), and `exact` as their recall reference (the `sharded` backend
 # launches none: its shards search on `torch`)
-PATHS = {name: "phases 2, 3, 5, 6, 7, 8, 9" for name in FUSED_PATH}
+PATHS = {name: "phases 2, 3, 5, 6, 7, 8, 9, 10" for name in FUSED_PATH}
 PATHS["brute_knn"] = "phases 2, 3, 5, 6, 7, 8"
 F32_EPS = float(np.finfo(np.float32).eps)
 LOOP_STATS = ("radius", "count", "iters", "converged", "tile_dmas_skipped")
@@ -2325,6 +2352,12 @@ def phase6_sharded(seed, api, cfg, k, mods, smi, n=1_000_000, b=4096, n_shards=4
     check(st["n_points"] == keep.numel() and sum(st["shard_points"]) == keep.numel(),
           f"phase 6a: stats {st['n_points']} points, {st['shard_points']}")
     mutated_ms = search_wall_ms(s, q, k, reps=3)
+    # phase 10b holds the same datastore on a mesh of ranks to these
+    mutated = s.search(q, k)
+    PHASE10.mkdir(parents=True, exist_ok=True)
+    np.savez(PHASE10 / "sharded_6a.npz",
+             **{f"search/{f}": to_np(getattr(res, f)) for f in res._fields},
+             **{f"mutated/{f}": to_np(getattr(mutated, f)) for f in mutated._fields})
 
     # the merge to one dense handle, against build_index in arrival order
     snap, snapshot_ms = host_ms(s.snapshot)
@@ -3472,7 +3505,10 @@ def phase9_train_equations(seed, smi, cfg=None) -> None:
                                  "peak_mem_gb": {"none": pkn, "full": pkf}}})
 
 
-def phase9_training(seed, smi, cfg=None) -> None:
+TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
+
+
+def phase9_training(seed, smi, cfg=None) -> tuple:
     """9b, training at internlm2-1.8b's CONFIG (24 layers, full width; or
     `cfg`) through launch/train.py: `run` with bf16_compute_copy=True,
     remat "full" and accum 4 (the config's), 20 steps of 8 x 1,024
@@ -3488,14 +3524,16 @@ def phase9_training(seed, smi, cfg=None) -> None:
     the card sum in another order; bit-equality reported).
     Step ms (median past the first step), tokens/s, peak memory and
     6·N·tokens a step over the step time as a share of the card's dense
-    bf16 peak."""
+    bf16 peak.  Returns the directory holding the step-12 checkpoint
+    (phase 10c restores it onto a mesh; the caller removes TRAIN_DIR), the
+    step, and the uninterrupted run's losses."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     from repro_torch.utils import tree
 
     cfg = cfg or get_config("internlm2-1.8b")
     steps, batch, seq, every, fail_at = 20, 8, 1024, 12, 15
-    root = ROOT / "build" / "chip_smoke_train"
+    root = TRAIN_DIR
     shutil.rmtree(root, ignore_errors=True)
     log: list = []
     try:
@@ -3558,8 +3596,10 @@ def phase9_training(seed, smi, cfg=None) -> None:
                                                  zip(again["losses"], tail))},
             "checkpoints_every": every,
         })
-    finally:
+    except BaseException:
         shutil.rmtree(root, ignore_errors=True)
+        raise
+    return str(resumed), every, losses
 
 
 def phase9_retrieval_step(seed, api, mods, smi, cfg=None, positions=262_144) -> list:
@@ -3723,6 +3763,529 @@ def phase9_moe_harvest(seed, smi, cfg=None, n_seqs=256) -> None:
 # -------------------------------------------------------------------- main ---
 
 
+# ---------------------------------------------------------------- phase 10 ----
+#
+# The device mesh: four ranks on the one card (gloo, CUDA tensors, each on
+# cuda:0), spawned by this script, and a one-rank nccl mesh.  Each rank
+# writes its result as JSON (or its traceback) under build/phase10/; the
+# parent prints the phase's lines.
+
+MESH_RANKS = 4
+PHASE10 = ROOT / "build" / "phase10"
+MESH_COLLECTIVES = ("all_gather", "all_gather_into_tensor", "all_reduce", "reduce_scatter_tensor",
+                    "broadcast")
+RANKS_TIMEOUT_S = 900.0
+
+
+def _rank_entry(fn_name: str, rank: int, world: int, backend: str, args: tuple) -> None:
+    """One rank: the process group over a FileStore under PHASE10, the
+    card, then fn_name(rank, world, *args)'s JSON result to a file."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, store=dist.FileStore(str(PHASE10 / f"store_{fn_name}"), world),
+                            rank=rank, world_size=world, timeout=datetime.timedelta(seconds=600))
+    try:
+        out = globals()[fn_name](rank, world, *args)
+        (PHASE10 / f"{fn_name}_{rank}.json").write_text(json.dumps(out))
+    except BaseException:
+        (PHASE10 / f"{fn_name}_{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn_name: str, world: int, args: tuple, backend: str) -> list:
+    """fn_name on `world` spawned ranks over `backend`; every rank's
+    result, or an error with their tracebacks (every rank is stopped when
+    one fails or the ranks outlast RANKS_TIMEOUT_S)."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_entry, args=(fn_name, r, world, backend, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + RANKS_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    errors = "".join(f.read_text() for f in sorted(PHASE10.glob(f"{fn_name}_*.err")))
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * world, f"phase 10 {fn_name}: exit codes {codes}\n{errors or 'timed out'}")
+    return [json.loads((PHASE10 / f"{fn_name}_{r}.json").read_text()) for r in range(world)]
+
+
+def np_slice(arr: np.ndarray, mesh, spec) -> np.ndarray:
+    """This rank's slice of a whole leaf under `spec`, by index
+    arithmetic on the host (each mesh axis in order splits its dim's
+    current range evenly)."""
+    start, size = [0] * arr.ndim, list(arr.shape)
+    for j, e in enumerate(spec):
+        for axis in (() if e is None else (e,) if isinstance(e, str) else e):
+            size[j] //= mesh.shape[axis]
+            start[j] += mesh.coordinate(axis) * size[j]
+    return arr[tuple(slice(a, a + n) for a, n in zip(start, size))]
+
+
+def p10_collectives(rank: int, world: int) -> dict:
+    """10a: which c10d collectives gloo runs on CUDA tensors (each on a
+    group of its own, so a refusal leaves the others' groups whole)."""
+    import torch.distributed as dist
+
+    x = torch.full((8,), float(rank + 1), device=DEV)
+    calls = {
+        "all_gather": lambda g: dist.all_gather([torch.empty_like(x) for _ in range(world)], x,
+                                                group=g),
+        "all_gather_into_tensor": lambda g: dist.all_gather_into_tensor(
+            torch.empty(8 * world, device=DEV), x, group=g),
+        "all_reduce": lambda g: dist.all_reduce(x.clone(), group=g),
+        "all_reduce_max_int32": lambda g: dist.all_reduce(x.to(torch.int32), dist.ReduceOp.MAX,
+                                                          group=g),
+        "reduce_scatter_tensor": lambda g: dist.reduce_scatter_tensor(
+            torch.empty(8 // world, device=DEV), x, group=g),
+        "broadcast": lambda g: dist.broadcast(x.clone(), 0, group=g),
+        "reduce": lambda g: dist.reduce(x.clone(), 0, group=g),
+        "gather": lambda g: dist.gather(x, [torch.empty_like(x) for _ in range(world)]
+                                        if rank == 0 else None, 0, group=g),
+        "scatter": lambda g: dist.scatter(torch.empty_like(x), [x.clone() for _ in range(world)]
+                                          if rank == 0 else None, 0, group=g),
+        "all_to_all_single": lambda g: dist.all_to_all_single(torch.empty_like(x), x, group=g),
+        "barrier": lambda g: dist.barrier(group=g),
+    }
+    took = {}
+    for name, call in calls.items():
+        group = dist.new_group(list(range(world)))
+        try:
+            call(group)
+            torch.cuda.synchronize()
+            took[name] = "ok"
+        except RuntimeError as e:       # the probe's answer: gloo refused CUDA tensors here
+            took[name] = f"refused: {str(e).splitlines()[0][:120]}"
+    check(all(took[n] == "ok" for n in MESH_COLLECTIVES if n in took),
+          f"10a: a collective the mesh path needs was refused: {took}")
+    return took
+
+
+def p10_sharded(rank: int, world: int, seed: int, mods: dict, want: dict) -> dict:
+    """10b: phase 6a's datastore (PAPER_GRID, the same points, queries and
+    mutations from the same generator; 6a's sizes) on a ("data",) mesh of
+    the ranks."""
+    from repro_torch import api
+    from repro_torch.configs.paper_active_search import K, PAPER_GRID
+    from repro_torch.core import distributed, grid, projection
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg, k = PAPER_GRID, K
+    n, b, batch = 1_000_000, 4096, 2048
+    mesh = make_mesh({"data": world}, device=DEV.type)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 60)
+    pts = torch.randn((n, 2), generator=gen, device=DEV)
+    labels = torch.randint(0, cfg.n_classes, (n,), generator=gen, device=DEV, dtype=torch.int32)
+    q = torch.randn((b, 2), generator=gen, device=DEV)
+    proj = projection.identity_projection(pts)
+    n0 = n - 2 * batch
+    s, build_ms = host_ms(lambda: api.ActiveSearcher.build_sharded(
+        pts[:n0], mesh=mesh, axis="data", labels=labels[:n0], cfg=cfg, proj=proj))
+    owner = distributed.shard_of_points(pts[:n0], cfg, proj, world)
+    sel = torch.nonzero(owner == rank).flatten()
+    same_index(distributed.live_shard(s.index, None),
+               grid.build_index(pts[sel], cfg, proj, labels=labels[sel], ids=sel.to(torch.int32)),
+               f"10b rank {rank}: its shard")
+    q = distributed.replicate_queries(q, mesh)
+    s.search(q, k)
+    torch.cuda.synchronize()
+    reset(mods)
+    res = s.search(q, k)
+    torch.cuda.synchronize()
+    launches = counts(mods)
+    check(sum(launches.values()) == 0, f"10b: the mesh search launched {launches}")
+    for f in res._fields:
+        check(np.array_equal(to_np(getattr(res, f)), want[f"search/{f}"]),
+              f"10b rank {rank}: {f} differs from phase 6a's one-card sharded search")
+    search_ms = search_wall_ms(s, q, k, reps=3)
+    for i in range(2):
+        lo, hi = n0 + i * batch, n0 + (i + 1) * batch
+        s = s.insert(pts[lo:hi], labels=labels[lo:hi])
+    dead = mixed_ids(gen, n0, n, batch)
+    s = s.delete(dead)
+    mutated = s.search(q, k)
+    for f in mutated._fields:
+        check(np.array_equal(to_np(getattr(mutated, f)), want[f"mutated/{f}"]),
+              f"10b rank {rank}: mutated {f} differs from phase 6a's (a sharded rebuild's)")
+    st = s.stats()
+    check(st["n_points"] == n - batch, f"10b: {st['n_points']} live points")
+    return {"build_ms": build_ms, "search_ms": search_ms,
+            "search_ms_after_mutation": search_wall_ms(s, q, k, reps=3),
+            "shard_bytes": nbytes(index_tensors(s.index)),
+            "shard_rows": int(s.index.points_sorted.shape[0]),
+            "shard_points": st["shard_points"], "launches": launches}
+
+
+def p10_psum(rank: int, world: int, seed: int) -> dict:
+    """10e: compressed_psum over the ranks on (2048, 8192) gradients (one
+    internlm2 MLP matrix) against the same formula on the host."""
+    from repro_torch.optim.compression import compressed_psum
+    from repro_torch.utils.quantize import dequantize, quantize_symmetric, quantize_with_scale
+
+    shape = (2048, 8192)
+
+    def draw(r):
+        gen = torch.Generator(device=DEV).manual_seed(seed + 110 + r)
+        return (torch.randn(shape, generator=gen, device=DEV),
+                0.01 * torch.randn(shape, generator=gen, device=DEV))
+
+    g, err = draw(rank)
+    (mean, new_err), ms = host_ms(lambda: compressed_psum(g, err))
+    host = [tuple(t.cpu() for t in draw(r)) for r in range(world)]
+    gfs = [a.to(torch.float32) + e for a, e in host]
+    scale = torch.stack([quantize_symmetric(gf)[1] for gf in gfs]).max()
+    codes = [quantize_with_scale(gf, scale) for gf in gfs]
+    total = torch.stack([c.to(torch.int32) for c in codes]).sum(0)
+    want_mean = total.to(torch.float32) * scale / torch.tensor(float(world))
+    want_err = gfs[rank] - dequantize(codes[rank], scale)
+    check(torch.equal(mean.cpu(), want_mean) and torch.equal(new_err.cpu(), want_err),
+          f"10e rank {rank}: compressed_psum differs from the host formula")
+    return {"ms": ms, "elements": g.numel(), "bit_equal": True}
+
+
+def same_slices(state, path: str, specs: dict, mesh, what: str) -> float:
+    """Every leaf of this rank's `state` equal to its slice of the
+    checkpoint file `path`; returns the seconds the check took."""
+    from repro_torch.checkpoint.store import stored_array
+    from repro_torch.utils import tree
+
+    t0 = time.perf_counter()
+    for p, leaf in tree.leaves_with_path(state):
+        key = "/".join(map(str, p))
+        local = leaf.to_local() if hasattr(leaf, "to_local") else leaf
+        check(np.array_equal(to_np(local), np_slice(stored_array(path, key), mesh, specs[p])),
+              f"{what}: {key} is not its slice of the checkpoint")
+    return time.perf_counter() - t0
+
+
+def host_rss_gb() -> float:
+    """This process's resident host memory now."""
+    return int(Path("/proc/self/statm").read_text().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+def host_peak_during(fn) -> tuple:
+    """(fn(), resident host GB just before, the most sampled while fn ran):
+    a thread reads the resident size every 20 ms."""
+    import threading
+
+    before = host_rss_gb()
+    peak, done = [before], threading.Event()
+
+    def watch():
+        while not done.wait(0.02):
+            peak[0] = max(peak[0], host_rss_gb())
+
+    watcher = threading.Thread(target=watch)
+    watcher.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        watcher.join()
+    return out, before, max(peak[0], host_rss_gb())
+
+
+def p10_model(rank: int, world: int, seed: int, mods: dict, ckpt: str, step: int,
+              want_losses: list) -> dict:
+    """10c and 10d on a 2 x 2 mesh of the ranks: 9b's checkpoint restored
+    onto it and checked slice by slice; the serve and retrieval serve steps
+    with its weights against one rank's; then 9b's next two steps, and the
+    mesh's state saved (9b's checkpoint removed first: two do not fit the
+    disk) and checked slice by slice against what was written."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.store import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import retrieval_memory as rm
+    from repro_torch.data.pipeline import DataConfig, Prefetcher
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.utils import tree
+
+    cfg, t_len = get_config("internlm2-1.8b"), 4096
+    mesh = make_host_mesh(2, 2, device=DEV.type)
+    tc = train.TrainConfig(steps=20, batch=8, seq=1024, seed=seed)          # 9b's
+    opt_cfg = adamw.AdamWConfig(lr=tc.lr, total_steps=tc.steps,
+                                warmup_steps=max(tc.steps // 20, 1))
+    step_cfg = st.StepConfig(accum=tc.accum, compress_grads=tc.compress_grads)
+    like = st.train_state_shapes(cfg, opt_cfg, step_cfg)
+    mgr = CheckpointManager(ckpt)
+    torch.cuda.reset_peak_memory_stats()
+    state, restore_ms = host_ms(lambda: mgr.restore(
+        step, like, placements=st.train_state_shardings(like, cfg, mesh)))
+    specs = dict(tree.leaves_with_path(st.train_state_specs(like, cfg, mesh)))
+    check_s = same_slices(state, mgr.arrays_path(step), specs, mesh, f"10c rank {rank}")
+    restore_peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # 10d: serving with the restored weights, in float32 (the mesh held
+    # against one rank) and in bf16 (each held against float32)
+    out = {"restore_ms": restore_ms, "slice_check_s": check_s, "restore_peak_gb": restore_peak}
+    mem = rm.RetrievalMemoryConfig()
+    b, steps = 8, 8
+    gen = torch.Generator(device=DEV).manual_seed(seed + 100)
+    caches = M.init_caches(cfg, b, t_len, device=DEV)
+    for c in caches:
+        for s_ in c.values():
+            s_.normal_(generator=gen)
+    index = rm.build_memory_index(rm.key_summary(caches[0]["k"][0, 0]), mem,
+                                  rm.make_projection(gen, cfg.head_dim))
+    tokens = torch.randint(0, cfg.vocab_size, (steps, b), generator=gen, device=DEV)
+    pos0 = t_len - steps
+    whole = caches if rank == 0 else None            # the one-rank steps' caches
+    caches = sh.distribute_tree(caches, sh.cache_specs(caches, cfg, mesh, b), mesh)
+    clone = lambda cs: [{k: v.clone() for k, v in c.items()} for c in cs]  # noqa: E731
+
+    def decode(fn, m, cs, with_index: bool):
+        cs, logits, ms = clone(cs), [], []
+        extra = (index,) if with_index else ()
+        for i in range(steps):
+            (lg, cs, _), t = host_ms(lambda: fn(m, cs, *extra, tokens[i], pos0 + i))
+            logits.append(sh.gather(lg).float().cpu())
+            ms.append(t)
+        return logits, ms
+
+    def as_float(cs):
+        return [{k: v.float() for k, v in c.items()} for c in cs]
+
+    one = {}
+    with f32_activations():
+        if rank == 0:      # the one-rank steps: the same float32 weights on one device
+            m1 = M.model_from_params(cfg, mgr.restore(step, {"params": like["params"]},
+                                                      device=DEV)["params"])
+            w32 = as_float(whole)
+            one["serve"], _ = decode(st.make_serve_step(cfg), m1, w32, False)
+            one["retrieval"], _ = decode(st.make_retrieval_serve_step(cfg, mem), m1, w32, True)
+            one["positions"] = [st.retrieve(m1, index, tokens[i], pos0 + i, mem)[0].cpu()
+                                for i in range(steps)]
+            del m1, w32
+            torch.cuda.empty_cache()
+        model = M.model_from_params(cfg, state["params"])
+        c32 = as_float(caches)
+        serve_logits, serve_ms = decode(st.make_serve_step(cfg, mesh=mesh), model, c32, False)
+        torch.cuda.synchronize()
+        reset(mods)
+        retrieval_logits, retrieval_ms = decode(st.make_retrieval_serve_step(cfg, mem, mesh=mesh),
+                                                model, c32, True)
+        launches = counts(mods)
+        check(launches["radius_search_loop"] >= 1 and launches["csr_candidate_topk"] >= 1,
+              f"10d rank {rank}: the retrieval serve step launched {launches}")
+        positions = []
+        for i in range(steps):
+            with st.on_mesh(mesh, cfg, b):
+                got = st.retrieve(model, index, tokens[i], pos0 + i, mem)[0]
+            positions.append(sh.gather(got).cpu())
+        del model, c32
+    # bf16, the serving dtype: the mesh's and one rank's logits against float32
+    model = M.model_from_params(cfg, state["params"])
+    bf16_logits, bf16_ms = decode(st.make_serve_step(cfg, mesh=mesh), model, caches, False)
+    del model, caches
+    torch.cuda.empty_cache()
+    if rank == 0:
+        errs = {name: max(close(g, w, MESH_F32_TOL, f"10d {name} step {i}")
+                          for i, (g, w) in enumerate(zip(got, one[name])))
+                for name, got in (("serve", serve_logits), ("retrieval", retrieval_logits))}
+        for i, (g, w) in enumerate(zip(positions, one["positions"])):
+            check(torch.equal(g, w), f"10d step {i}: the mesh retrieved other positions")
+        m1 = M.model_from_params(cfg, mgr.restore(step, {"params": like["params"]},
+                                                  device=DEV)["params"])
+        one_bf16, _ = decode(st.make_serve_step(cfg), m1, whole, False)
+        del m1, whole
+        torch.cuda.empty_cache()
+        gap = lambda got: max(float((g - w).abs().max())          # noqa: E731
+                              for g, w in zip(got, one["serve"]))
+        bf16 = {"mesh_vs_float32": gap(bf16_logits), "one_rank_vs_float32": gap(one_bf16),
+                "mesh_vs_one_rank": max(float((g - w).abs().max())
+                                        for g, w in zip(bf16_logits, one_bf16)),
+                "max_abs_logit": max(float(w.abs().max()) for w in one["serve"])}
+        check(bf16["mesh_vs_float32"] <= BF16_MESH_SLACK * bf16["one_rank_vs_float32"],
+              f"10d: the bf16 mesh is further from float32 than one rank: {bf16}")
+        out["float32_logits_max_abs_err"] = errs
+        out["bf16"] = bf16
+    out.update({"serve_ms": serve_ms, "retrieval_ms": retrieval_ms, "bf16_serve_ms": bf16_ms,
+                "launches": launches, "serve_peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    torch.cuda.empty_cache()
+
+    # 10c: 9b's next two steps on the mesh; a sample of every parameter
+    # shard first, to see each one move
+    sample = [leaf.to_local().flatten()[:1024].clone() for leaf in tree.leaves(state["params"])]
+    train_step = st.make_train_step(cfg, opt_cfg, step_cfg, mesh=mesh)
+    pf = Prefetcher(DataConfig(global_batch=tc.batch, seq_len=tc.seq, vocab_size=cfg.vocab_size,
+                               seed=tc.seed), model_cfg=cfg, start_step=step)
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for _ in range(len(want_losses)):
+            _, hb = next(pf)
+            batch = {k: torch.from_numpy(v).to(DEV) for k, v in hb.items()}
+            (state, metrics), ms = host_ms(lambda: train_step(state, batch))
+            losses.append(float(metrics["loss"]))
+            step_ms.append(ms)
+    finally:
+        pf.close()
+    gaps = [abs(a - w) / abs(w) for a, w in zip(losses, want_losses)]
+    check(max(gaps) <= MESH_LOSS_RTOL, f"10c: losses {losses} against 9b's {want_losses}")
+    moved = [not torch.equal(leaf.to_local().flatten()[:1024], old)
+             for leaf, old in zip(tree.leaves(state["params"]), sample)]
+    check(all(moved), f"10c rank {rank}: {moved.count(False)} parameter shards did not move")
+    out.update({"losses": losses, "loss_rel_gap": gaps, "step_ms": step_ms,
+                "train_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "params_moved": f"{len(moved)} of {len(moved)} shards"})
+    del sample
+
+    # the mesh's state saved: each leaf gathered, rank 0 writes it
+    dist.barrier()                     # every rank is done with 9b's checkpoint
+    if rank == 0:
+        shutil.rmtree(ckpt)
+    saver = CheckpointManager(str(TRAIN_DIR / "mesh"))
+    (_, save_ms), rss, rss_peak = host_peak_during(
+        lambda: host_ms(lambda: saver.save(step + len(losses), state, blocking=True)))
+    out["mesh_save"] = {
+        "save_ms": save_ms, "host_rss_gb_before": rss, "host_rss_peak_gb": rss_peak,
+        "host_rss_added_gb": rss_peak - rss,
+        "bytes": os.path.getsize(saver.arrays_path(step + len(losses))),
+        "slice_check_s": same_slices(state, saver.arrays_path(step + len(losses)), specs, mesh,
+                                     f"10c rank {rank}: the mesh's save")}
+    return out
+
+
+# a loss's relative gap to 9b's on one device.  Sound runs read 7.0e-6 and
+# 9.7e-6 (H100 80GB HBM3, 700.00 W); a step moves the loss ~1e-3 relative
+MESH_LOSS_RTOL = 1e-4
+# 10d's float32 logits on the mesh against one rank's.  Sound runs read
+# 2.3e-5 and 2.7e-5 (max |logit| 5.25; H100 80GB HBM3, 700.00 W)
+MESH_F32_TOL = dict(rtol=1e-3, atol=1e-3)
+# bf16 logits on the mesh may be this much further from float32's than one
+# rank's bf16 logits are.  At internlm2-1.8b's width with random weights
+# and 8 x 4,096 random cached positions the two sat 0.23-0.27 and
+# 0.21-0.24 from float32 and 0.25-0.27 from each other (H100 80GB HBM3,
+# 700.00 W): bf16's own spread, beyond MODEL_TOL, so MODEL_TOL is held in
+# float32
+BF16_MESH_SLACK = 1.5
+
+
+def phase10_rank(rank: int, world: int, seed: int, ckpt: str, step: int,
+                 want_losses: list) -> dict:
+    """10a, 10b, 10c-10d and 10e on this rank, in order."""
+    mods = {name: importlib.import_module(f"repro_torch.kernels.{src}")
+            for name, (src, _) in KERNELS.items()}
+    with np.load(PHASE10 / "sharded_6a.npz") as z:
+        want = {k: z[k] for k in z.files}
+    out = {"10a": p10_collectives(rank, world)}
+    out["10b"], t = host_ms(lambda: p10_sharded(rank, world, seed, mods, want))
+    out["10b"]["phase_s"] = t / 1e3
+    out["10cd"], t = host_ms(lambda: p10_model(rank, world, seed, mods, ckpt, step, want_losses))
+    out["10cd"]["phase_s"] = t / 1e3
+    out["10e"] = p10_psum(rank, world, seed)
+    return out
+
+
+def phase10_nccl(rank: int, world: int, seed: int) -> dict:
+    """10f: a 1 x 1 mesh over nccl, three float32 steps of 9a's
+    configuration against the same steps with no mesh, bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.utils import tree
+
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=2)
+    opt_cfg = adamw.AdamWConfig(warmup_steps=1, total_steps=10)
+    step_cfg = st.StepConfig(accum=2, bf16_compute_copy=False)
+    dc = DataConfig(global_batch=2, seq_len=64, vocab_size=cfg.vocab_size, seed=seed)
+    mesh = make_host_mesh(1, 1, device=DEV.type)
+    with f32_activations():
+        plain = st.init_train_state(torch.Generator(device=DEV).manual_seed(seed + 90), cfg,
+                                    opt_cfg, step_cfg, DEV)
+        meshed = st.init_train_state(torch.Generator(device=DEV).manual_seed(seed + 90), cfg,
+                                     opt_cfg, step_cfg, mesh=mesh)
+        one, on_mesh = st.make_train_step(cfg, opt_cfg, step_cfg), st.make_train_step(
+            cfg, opt_cfg, step_cfg, mesh=mesh)
+        losses, ms = [], []
+        for i in range(3):
+            hb = {k: torch.from_numpy(v).to(DEV) for k, v in synth_batch(dc, i).items()}
+            plain, mp_ = one(plain, hb)
+            (meshed, mm), t = host_ms(lambda: on_mesh(meshed, hb))
+            ms.append(t)
+            losses.append(float(mm["loss"]))
+            check(all(torch.equal(sh.gather(a), b) for a, b in
+                      zip(tree.leaves(meshed), tree.leaves(plain))) and torch.equal(
+                mm["loss"], mp_["loss"]), f"10f step {i}: the 1 x 1 mesh differs from no mesh")
+    return {"losses": losses, "step_ms": ms, "bit_equal": True,
+            "nccl": ".".join(map(str, torch.cuda.nccl.version()))}
+
+
+def phase10(seed: int, smi: str, ckpt: str, step: int, want_losses: list) -> list:
+    """Phase 10 on the card: four spawned gloo ranks (10a-10e), then one
+    nccl rank (10f); prints one line per part and returns 10d's counted
+    launches of every rank.  10c removes 9b's checkpoint `ckpt`."""
+    t0 = time.perf_counter()
+    ranks = run_ranks("phase10_rank", MESH_RANKS, (seed, ckpt, step, want_losses), "gloo")
+    r0 = ranks[0]
+    mesh4 = f"{MESH_RANKS} ranks on one card (gloo, CUDA tensors)"
+    emit({"phase": "10a", "mesh": mesh4, "nvidia_smi": smi, "collectives_on_cuda": r0["10a"],
+          "path_needs": list(MESH_COLLECTIVES)})
+    emit({"phase": "10b", "config": "phase 6a's datastore (PAPER_GRID, 1M points, 4,096 queries, "
+                                    "k = 11) on a 4-rank ('data',) mesh", "nvidia_smi": smi,
+          "mesh": mesh4, "equal_to_6a": ["search: every field", "after 2 inserts and a delete "
+                                         "of 2,048: every field (6a: = a sharded rebuild)"],
+          "per_rank": [r["10b"] for r in ranks]})
+    cd = [r["10cd"] for r in ranks]
+    emit({"phase": "10c", "config": "internlm2-1.8b CONFIG on a 2 x 2 (data, model) mesh, "
+                                    "9b's settings (bf16 compute copy, remat full, accum 4, "
+                                    "8 x 1,024 tokens a step)", "nvidia_smi": smi, "mesh": mesh4,
+          "restored": f"9b's step-{step} checkpoint (written by one device); every rank's "
+                      "shards equal to the same slices of it",
+          "losses": r0["10cd"]["losses"], "want_9b": want_losses,
+          "loss_rel_gap": r0["10cd"]["loss_rel_gap"], "rtol": MESH_LOSS_RTOL,
+          "step_ms": r0["10cd"]["step_ms"], "params_moved": r0["10cd"]["params_moved"],
+          "mesh_save": "the state after the steps saved on the mesh (rank 0 writes each "
+                       "gathered leaf); every rank's shards equal to their slices of the file",
+          "per_rank": [{k: c[k] for k in ("restore_ms", "slice_check_s", "restore_peak_gb",
+                                          "train_peak_gb", "step_ms", "params_moved",
+                                          "mesh_save")} for c in cd]})
+    emit({"phase": "10d", "config": "make_serve_step and make_retrieval_serve_step on the 2 x 2 "
+                                    "mesh with the restored weights: 8 x 4,096 cached positions "
+                                    "(random, from the seed), 8 decode steps; float32 against "
+                                    "one rank, then bf16 (serve) against float32",
+          "nvidia_smi": smi, "mesh": mesh4, "tolerance": MESH_F32_TOL,
+          "float32_logits_max_abs_err_vs_one_rank": r0["10cd"]["float32_logits_max_abs_err"],
+          "retrieved_positions_equal": True, "bf16": r0["10cd"]["bf16"],
+          "bf16_slack": BF16_MESH_SLACK,
+          "per_rank": [{k: c[k] for k in ("serve_ms", "retrieval_ms", "bf16_serve_ms", "launches",
+                                          "serve_peak_gb")} for c in cd]})
+    emit({"phase": "10e", "nvidia_smi": smi, "mesh": mesh4,
+          "compressed_psum": [r["10e"] for r in ranks]})
+    nccl = run_ranks("phase10_nccl", 1, (seed,), "nccl")[0]
+    emit({"phase": "10f", "config": "a 1 x 1 mesh over nccl: 9a's configuration (internlm2-1.8b "
+                                    "widths at depth 2, float32, accum 2), three steps",
+          "nvidia_smi": smi, **nccl})
+    emit({"phase": 10, "nvidia_smi": smi, "seconds": time.perf_counter() - t0})
+    return [c["launches"] for c in cd]
+
+
 def kernels_line(max_err: dict, timings: dict, launches: dict) -> dict:
     """One entry per kernel: launches on the paths (phase 4's for a kernel
     on no path), largest error against the plain version over every check,
@@ -3765,6 +4328,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    shutil.rmtree(PHASE10, ignore_errors=True)
     from repro_torch import api
     from repro_torch.configs.paper_active_search import K, PAPER_GRID, PROD_GRID
     from repro_torch.kernels import _build
@@ -3818,9 +4382,14 @@ def main() -> int:
     runs += phase8_serving(seed, api, mods, smi)
     torch.cuda.empty_cache()
     phase9_train_equations(seed, smi)
-    phase9_training(seed, smi)
-    runs += phase9_retrieval_step(seed, api, mods, smi)
-    phase9_moe_harvest(seed, smi)
+    ckpt, ckpt_step, losses = phase9_training(seed, smi)
+    try:
+        runs += phase9_retrieval_step(seed, api, mods, smi)
+        phase9_moe_harvest(seed, smi)
+        torch.cuda.empty_cache()
+        runs += phase10(seed, smi, ckpt, ckpt_step, losses[ckpt_step:ckpt_step + 2])
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     launches = {name: sum(r[name] for r in runs) for name in KERNELS}
     emit(kernels_line(max_err, timings, launches))
     print(smi, flush=True)

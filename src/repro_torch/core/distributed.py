@@ -25,10 +25,16 @@ insert == rebuild invariant.  Each shard owns whole cells, so a `snapshot()`
 merge of the per-shard CSR stores reproduces the UNSHARDED `build_index`
 order exactly (`merge_to_dense`).
 
-Where the reference places one shard per device of a mesh axis and merges
-under shard_map, every shard here sits on one device, in ONE stacked
-`GridIndex` whose tensors carry a leading shard dimension, and the shards
-are searched one after another.  Mutation state is host-driven:
+Two placements.  With `n_shards` every shard sits on one device, in ONE
+stacked `GridIndex` whose tensors carry a leading shard dimension, and the
+shards are searched one after another.  With `mesh` and `axis` (a
+`launch.mesh.Mesh`; the reference's placement, `_place` + `shard_map`)
+shard s lives only on rank s of `axis`: each rank builds, searches and
+mutates its own shard (a dense `GridIndex`, padded as its slice of the
+stacked one), and explicit collectives over the axis's process group
+gather the per-shard top-k lists and reduce the statistics; every rank
+routes whole batches (routing depends only on coordinates) and applies
+only its own shard's part.  Mutation state is host-driven:
 `ShardedMutable` holds one `mutable.MutableIndex` per shard (shapes differ
 per shard, so they are not stacked).  Searches run on the stacked,
 pow2-PADDED snapshot (`stacked_snapshot`): every per-shard CSR array is
@@ -43,9 +49,10 @@ tier.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as tdist
 
 from repro_torch.core import mutable as mut
 from repro_torch.core import projection as proj_lib
@@ -157,10 +164,12 @@ def build_sharded_index(
     points,
     cfg: GridConfig,
     proj: Projection,
-    n_shards: int,
+    n_shards: int | None = None,
     labels=None,
     ids=None,
     device=None,
+    mesh=None,
+    axis: str | None = None,
 ) -> GridIndex:
     """Build one grid index per shard, points routed by cell ownership, on
     `device` (None = the card).
@@ -169,10 +178,19 @@ def build_sharded_index(
     size n_shards.  Routing preserves the caller's point order within each
     shard (arrival order is a per-shard notion), and `ids` default to the
     global arange — exactly what an unsharded `build_index` would assign.
+
+    With `mesh` and `axis` instead (every rank passing the same points),
+    one shard per rank of `axis` on the mesh's device: each rank builds
+    only its own shard and returns it, its records padded to the stacked
+    layout's common capacity (the largest shard's count is known from the
+    routing alone, so no communication).
     """
-    if n_shards <= 0:
+    if mesh is not None:
+        n_shards, dev = mesh.shape[axis], mesh.device
+    elif n_shards is None or n_shards <= 0:
         raise ValueError(f"n_shards must be positive, got {n_shards}")
-    dev = resolve_device(device)
+    else:
+        dev = resolve_device(device)
     points = as_tensor(points, torch.float32, dev)
     n = points.shape[0]
     labels = (torch.zeros((n,), dtype=_I32, device=dev) if labels is None
@@ -182,6 +200,11 @@ def build_sharded_index(
     proj = proj.to(dev)
 
     owner = shard_of_points(points, cfg, proj, n_shards)
+    if mesh is not None:
+        sel = torch.nonzero(owner == mesh.coordinate(axis)).flatten()
+        own = build_index(points[sel], cfg, proj, labels=labels[sel], ids=ids[sel])
+        largest = int(torch.bincount(owner, minlength=n_shards).max())
+        return _pad_records(own, _pow2(max(1, largest)))
     shards = []
     for s in range(n_shards):
         sel = torch.nonzero(owner == s).flatten()  # order-preserving
@@ -214,6 +237,49 @@ def merge_topk(d_flat: torch.Tensor, i_flat: torch.Tensor, l_flat: torch.Tensor,
     )
 
 
+def _gather(t: torch.Tensor, mesh, axis: str) -> list[torch.Tensor]:
+    """Every rank's `t` (same shape on each) along `axis`, in rank order."""
+    parts = [torch.empty_like(t) for _ in range(mesh.shape[axis])]
+    tdist.all_gather(parts, t.contiguous(), group=mesh.group(axis))
+    return parts
+
+
+def _reduce(t: torch.Tensor, op, mesh, axis: str) -> torch.Tensor:
+    out = t.clone()
+    tdist.all_reduce(out, op, group=mesh.group(axis))
+    return out
+
+
+def replicate_queries(queries, mesh) -> torch.Tensor:
+    """The queries of the mesh's first rank on every rank (on the mesh's
+    device), as the reference replicates them over its mesh."""
+    q = as_tensor(queries, torch.float32, mesh.device).contiguous()
+    tdist.broadcast(q, 0)
+    return q
+
+
+def _mesh_search(index, cfg, queries, k, mode, adaptive_r0, mesh, axis) -> SearchResult:
+    """This rank's shard searched on `torch`, the per-shard lists gathered
+    over `axis` and merged; the statistics reduced as the reference's
+    `shard_map` body reduces them."""
+    from repro_torch.core import engine as eng
+
+    plan = eng.ExecutionPlan(backend="torch", adaptive_r0=adaptive_r0)
+    res = eng.ActiveSearcher(index=index, cfg=cfg, plan=plan).search(queries, k, mode=mode)
+    flat = lambda t: torch.cat(_gather(t, mesh, axis), dim=1)  # noqa: E731  (B, S*k)
+    ids, dists, labels, valid = merge_topk(flat(res.dists), flat(res.ids), flat(res.labels), k)
+    red = lambda t, op: _reduce(t, op, mesh, axis)  # noqa: E731
+    op = tdist.ReduceOp
+    return SearchResult(
+        ids=ids, dists=dists, labels=labels, valid=valid,
+        radius=red(res.radius, op.MAX),
+        count=red(res.count.to(_I32), op.SUM),
+        iters=red(res.iters, op.MAX),
+        converged=red(res.converged.to(_I32), op.MIN) > 0,
+        truncated=red(res.truncated.to(_I32), op.MAX) > 0,
+    )
+
+
 def sharded_search(
     index: GridIndex,
     cfg: GridConfig,
@@ -221,6 +287,8 @@ def sharded_search(
     k: int,
     mode: str = "refined",
     adaptive_r0: bool = False,
+    mesh=None,
+    axis: str | None = None,
 ) -> SearchResult:
     """Active search over the stacked sharded index; queries (B, d).
 
@@ -237,7 +305,15 @@ def sharded_search(
     Invalid lanes (dist = +inf) sort last.  The diagnostics are reduced
     across shards: radius and iters by max, count by sum, converged by all,
     truncated by any.
+
+    With `mesh` and `axis`, `index` is this rank's shard
+    (`build_sharded_index(..., mesh=)`) and the queries are replicated
+    (`replicate_queries`): each rank searches its shard, the (B, k) lists
+    are gathered over the axis's group, merged alike on every rank, and the
+    statistics reduced over it.
     """
+    if mesh is not None:
+        return _mesh_search(index, cfg, queries, k, mode, adaptive_r0, mesh, axis)
     # function-level import: engine registers this module's search as a
     # backend, so a top-level import would be circular
     from repro_torch.core import engine as eng
@@ -286,20 +362,32 @@ class ShardedMutable(NamedTuple):
     next_id: int
     compactions: int = 0
     compact_s: float = 0.0
+    # on a mesh: `states` holds this rank's shard only, shard
+    # mesh.coordinate(axis)
+    mesh: Any = None
+    axis: str | None = None
 
     @property
     def n_shards(self) -> int:
-        return len(self.states)
+        return len(self.states) if self.mesh is None else self.mesh.shape[self.axis]
 
     @property
     def n_live(self) -> int:
+        """Live records of the shards held here (this rank's, on a mesh)."""
         return sum(int(s.n_live) for s in self.states)
 
+    def held(self) -> list[tuple[int, int]]:
+        """(shard, position in `states`) of each state held here."""
+        if self.mesh is None:
+            return [(s, s) for s in range(len(self.states))]
+        return [(self.mesh.coordinate(self.axis), 0)]
 
-def live_shard(index: GridIndex, s: int) -> GridIndex:
-    """Shard s of a stacked index cut to its live prefix (the rows before
-    offsets[-1]; the pow2 pad tail is dead by construction)."""
-    idx = shard(index, s)
+
+def live_shard(index: GridIndex, s: int | None) -> GridIndex:
+    """Shard s of a stacked index (s None: a single shard's padded index)
+    cut to its live prefix (the rows before offsets[-1]; the pow2 pad tail
+    is dead by construction)."""
+    idx = index if s is None else shard(index, s)
     n_s = int(idx.offsets[-1])
     return idx._replace(
         points_sorted=idx.points_sorted[:n_s],
@@ -310,10 +398,18 @@ def live_shard(index: GridIndex, s: int) -> GridIndex:
 
 
 def open_sharded(
-    index: GridIndex, cfg: GridConfig, spill_capacity: int | None = None
+    index: GridIndex, cfg: GridConfig, spill_capacity: int | None = None,
+    mesh=None, axis: str | None = None,
 ) -> ShardedMutable:
     """Open a STACKED sharded index for mutation: each shard's live prefix
-    becomes its own `mutable.from_index` state, on the index's device."""
+    becomes its own `mutable.from_index` state, on the index's device.
+    With `mesh`, `index` is this rank's shard and only it is opened; the
+    global next id is the largest over the axis."""
+    if mesh is not None:
+        state = mut.from_index(live_shard(index, None), cfg, spill_capacity=spill_capacity)
+        top = _reduce(torch.tensor(int(state.next_id), device=mesh.device),
+                      tdist.ReduceOp.MAX, mesh, axis)
+        return ShardedMutable(states=(state,), next_id=int(top), mesh=mesh, axis=axis)
     states = tuple(
         mut.from_index(live_shard(index, s), cfg, spill_capacity=spill_capacity)
         for s in range(n_shards_of(index))
@@ -335,7 +431,8 @@ def sharded_insert(
     arrival order — together with cell ownership this is what makes sharded
     insert bit-identical to a sharded rebuild of the union.  A shard whose
     spill log overflows compacts ALONE (`mutable.insert_tracked`); siblings
-    keep their exact state objects."""
+    keep their exact state objects.  On a mesh every rank routes the whole
+    batch and inserts its own shard's part."""
     dev = sm.states[0].device
     points = as_tensor(points, torch.float32, dev)
     mn = points.shape[0]
@@ -349,16 +446,16 @@ def sharded_insert(
     owner = shard_of_points(points, cfg, sm.states[0].proj, sm.n_shards)
     states = list(sm.states)
     compactions, compact_s = sm.compactions, sm.compact_s
-    for s in range(len(states)):
+    for s, i in sm.held():
         sel = torch.nonzero(owner == s).flatten()
         if not sel.numel():
             continue
-        states[s], report = mut.insert_tracked(
-            states[s], cfg, points[sel], labels=labels[sel], ids=ids[sel]
+        states[i], report = mut.insert_tracked(
+            states[i], cfg, points[sel], labels=labels[sel], ids=ids[sel]
         )
         compactions += report.compactions
         compact_s += report.compact_s
-    return ShardedMutable(
+    return sm._replace(
         states=tuple(states),
         next_id=max(sm.next_id, int(ids.max()) + 1),
         compactions=compactions,
@@ -374,13 +471,17 @@ def sharded_delete(
     Matching is GLOBAL: with strict=True every asked id must be live
     somewhere (same KeyError contract as the dense `mutable.delete`), but a
     given id is allowed to live on several shards (caller-supplied id
-    collisions) — every carrier dies, like the dense path."""
+    collisions) — every carrier dies, like the dense path.  On a mesh the
+    match is taken over the axis (every rank sees the same answer) and each
+    rank tombstones its own shard's carriers."""
     ids = as_tensor(ids, _I32, sm.states[0].device).reshape(-1)
     if ids.shape[0] == 0:
         return sm
     present = [mut.ids_live_mask(st, ids) for st in sm.states]
     if strict:
         matched_any = torch.stack(present).any(dim=0)
+        if sm.mesh is not None:
+            matched_any = _reduce(matched_any.to(_I32), tdist.ReduceOp.MAX, sm.mesh, sm.axis) > 0
         n_asked = torch.unique(ids).numel()
         n_matched = torch.unique(ids[matched_any]).numel()
         if n_matched != n_asked:
@@ -397,8 +498,30 @@ def sharded_delete(
 
 def stacked_snapshot(sm: ShardedMutable, cfg: GridConfig) -> GridIndex:
     """Freeze the sharded mutation state into the stacked searchable layout
-    (per-shard `mutable.snapshot`, then pow2-pad + stack)."""
-    return stack_shard_indexes([mut.snapshot(st, cfg) for st in sm.states])
+    (per-shard `mutable.snapshot`, then pow2-pad + stack).  On a mesh: this
+    rank's shard, padded to the capacity the largest shard on the axis
+    gives the stacked layout."""
+    if sm.mesh is None:
+        return stack_shard_indexes([mut.snapshot(st, cfg) for st in sm.states])
+    own = mut.snapshot(sm.states[0], cfg)
+    rows = torch.tensor(own.points_sorted.shape[0], device=own.device)
+    largest = int(_reduce(rows, tdist.ReduceOp.MAX, sm.mesh, sm.axis))
+    return _pad_records(own, _pow2(max(1, largest)))
+
+
+def gather_stacked(index: GridIndex, mesh, axis: str) -> GridIndex:
+    """The stacked layout of the shards on `axis` (each rank's padded
+    shard `index`), on every rank: what `build_sharded_index(...,
+    n_shards=)` gives on one device."""
+    def stack(a):
+        if a is None:
+            return None
+        if isinstance(a, torch.Tensor):
+            return torch.stack(_gather(a, mesh, axis))
+        parts = [stack(x) for x in a]
+        return type(a)(*parts) if hasattr(a, "_fields") else tuple(parts)
+
+    return stack(index)
 
 
 def merge_to_dense(index: GridIndex, cfg: GridConfig) -> GridIndex:
@@ -419,11 +542,30 @@ def merge_to_dense(index: GridIndex, cfg: GridConfig) -> GridIndex:
     )
 
 
+def live_points(index: GridIndex, mesh=None, axis: str | None = None) -> int:
+    """Live records of a dense or stacked index (the per-shard live
+    prefixes summed), or of every shard on a mesh's axis."""
+    n = index.offsets[..., -1].sum()
+    if mesh is not None:
+        n = _reduce(n, tdist.ReduceOp.SUM, mesh, axis)
+    return int(n)
+
+
 def sharded_stats(sm: ShardedMutable) -> dict:
-    """Serving-tier facts for ActiveSearcher.stats()."""
+    """Serving-tier facts for ActiveSearcher.stats() (on a mesh, over the
+    axis: every rank's shard, compactions summed, the slowest's seconds)."""
+    points = [int(s.n_live) for s in sm.states]
+    compactions, compact_s = sm.compactions, sm.compact_s
+    if sm.mesh is not None:
+        dev = sm.mesh.device
+        points = [int(p) for p in _gather(torch.tensor(points, device=dev), sm.mesh, sm.axis)]
+        compactions = int(_reduce(torch.tensor(compactions, device=dev),
+                                  tdist.ReduceOp.SUM, sm.mesh, sm.axis))
+        compact_s = float(_reduce(torch.tensor(compact_s, device=dev),
+                                  tdist.ReduceOp.MAX, sm.mesh, sm.axis))
     return {
         "n_shards": sm.n_shards,
-        "shard_points": [int(s.n_live) for s in sm.states],
-        "compactions": sm.compactions,
-        "compact_s": sm.compact_s,
+        "shard_points": points,
+        "compactions": compactions,
+        "compact_s": compact_s,
     }

@@ -170,7 +170,8 @@ class ActiveSearcher:
     Frozen and cheap to re-plan: `with_plan` returns a new handle sharing
     the same index tensors.  Queries are moved to the index's device.  A
     handle from `build_sharded` carries a STACKED index (a leading shard
-    dimension; `sharded` is true) and a per-shard mutation state."""
+    dimension; `sharded` is true) and a per-shard mutation state, or, built
+    on a mesh, this rank's shard with the `mesh` and `axis` it lives on."""
 
     index: GridIndex
     cfg: GridConfig
@@ -179,6 +180,9 @@ class ActiveSearcher:
     # on sharded handles): None for frozen handles; set by insert/delete so
     # successive mutations reuse the slack layout
     mutable: Any = None
+    # a sharded handle's mesh and axis (one shard per rank of `axis`)
+    mesh: Any = None
+    axis: str | None = None
 
     # -------------------------------------------------------- construction --
     @classmethod
@@ -229,7 +233,9 @@ class ActiveSearcher:
         cls,
         points,
         *,
-        n_shards: int,
+        n_shards: int | None = None,
+        mesh: Any = None,
+        axis: str | None = None,
         labels=None,
         ids=None,
         cfg: GridConfig | None = None,
@@ -237,17 +243,21 @@ class ActiveSearcher:
         proj: proj_lib.Projection | None = None,
         device=None,
     ) -> "ActiveSearcher":
-        """One grid per shard, all on `device` (None = the card), with
-        GLOBAL point ids; searches merge the per-shard top-k lists (backend
-        "sharded", core/distributed.py).  proj defaults to a PCA projection
-        of all the points, shared by every shard."""
-        dev = resolve_device(device)
+        """One grid per shard with GLOBAL point ids; searches merge the
+        per-shard top-k lists (backend "sharded", core/distributed.py).
+        With `n_shards` every shard is on `device` (None = the card); with
+        `mesh` and `axis` (every rank passing the same points) shard s is
+        built and kept only on rank s of `axis`, on the mesh's device.
+        proj defaults to a PCA projection of all the points, shared by
+        every shard."""
+        dev = mesh.device if mesh is not None else resolve_device(device)
         cfg = cfg or GridConfig()
         pts = as_tensor(points, torch.float32, dev)
         proj = proj_lib.pca_projection(pts, grid_dim=2) if proj is None else proj
-        index = dist.build_sharded_index(pts, cfg, proj, n_shards, labels, ids=ids, device=dev)
+        index = dist.build_sharded_index(pts, cfg, proj, n_shards, labels, ids=ids, device=dev,
+                                         mesh=mesh, axis=axis)
         plan = dataclasses.replace(plan or ExecutionPlan(), backend="sharded")
-        return cls(index=index, cfg=cfg, plan=plan)
+        return cls(index=index, cfg=cfg, plan=plan, mesh=mesh, axis=axis)
 
     @property
     def device(self) -> torch.device:
@@ -255,8 +265,9 @@ class ActiveSearcher:
 
     @property
     def sharded(self) -> bool:
-        """True for a `build_sharded` handle (its index is stacked)."""
-        return self.index.offsets.dim() == 2
+        """True for a `build_sharded` handle (its index stacked, or one
+        rank's shard of a mesh)."""
+        return self.mesh is not None or self.index.offsets.dim() == 2
 
     def with_plan(
         self, plan: ExecutionPlan | None = None, **overrides
@@ -303,7 +314,7 @@ class ActiveSearcher:
         if self.mutable is not None:
             return self.mutable
         if self.sharded:
-            return dist.open_sharded(self.index, self.cfg)
+            return dist.open_sharded(self.index, self.cfg, mesh=self.mesh, axis=self.axis)
         return mut.from_index(self.index, self.cfg)
 
     def _carry_mutation_stats(self, new, compactions: int, compact_s: float):
@@ -380,8 +391,11 @@ class ActiveSearcher:
         CSR order exactly (distributed.merge_to_dense)."""
         if not self.sharded:
             return dataclasses.replace(self, mutable=None)
-        dense = dist.merge_to_dense(self.index, self.cfg)
-        return dataclasses.replace(self.with_plan(backend="torch"), index=dense, mutable=None)
+        stacked = (self.index if self.mesh is None
+                   else dist.gather_stacked(self.index, self.mesh, self.axis))
+        dense = dist.merge_to_dense(stacked, self.cfg)
+        return dataclasses.replace(self.with_plan(backend="torch"), index=dense, mutable=None,
+                                   mesh=None, axis=None)
 
     # ------------------------------------------------------------- dispatch --
     def _impl(self, op: str) -> Callable:
@@ -482,7 +496,7 @@ class ActiveSearcher:
         return {
             # LIVE record count from the CSR offsets: a sharded handle sums
             # the per-shard live prefixes (its pow2 pad rows do not count)
-            "n_points": int(idx.offsets[..., -1].sum()),
+            "n_points": dist.live_points(idx, self.mesh, self.axis),
             "dim": int(idx.points_sorted.shape[-1]),
             "grid_size": cfg.grid_size,
             "padded_size": cfg.padded_size,
@@ -621,7 +635,7 @@ def _sharded_search(s: ActiveSearcher, queries, k, mode):
             "backend 'sharded' needs a handle from ActiveSearcher.build_sharded"
         )
     return dist.sharded_search(s.index, s.cfg, queries, k, mode=mode,
-                               adaptive_r0=s.plan.adaptive_r0)
+                               adaptive_r0=s.plan.adaptive_r0, mesh=s.mesh, axis=s.axis)
 
 
 def _sharded_classify(s: ActiveSearcher, queries, k, mode):

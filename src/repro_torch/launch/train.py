@@ -1,11 +1,21 @@
 """End-to-end training loop: data pipeline -> train step ->
-checkpoint/restart -> fault tolerance, on one device.
+checkpoint/restart -> fault tolerance, on one device or a (data, model)
+mesh of ranks.
 
 Port of `repro/launch/train.py`, with its flags and defaults, plus
-`--device` (default "cuda", with no fallback to the CPU):
+`--device` (default "cuda", with no fallback to the CPU) and `--backend`:
 
   python -m repro_torch.launch.train --arch internlm2-1.8b --steps 20 --ckpt-dir build/ckpt
   python -m repro_torch.launch.train --device cpu --smoke --steps 20   # no card
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --data 2 --model 2 --steps 20
+
+A mesh of `--data` x `--model` ranks needs that many processes, one per
+device, started by `torchrun` (which sets RANK / WORLD_SIZE / MASTER_ADDR
+/ MASTER_PORT; the process group is started here, `nccl` on the card and
+`gloo` on the CPU unless `--backend` says otherwise), or by a caller that
+started the process group itself.  A world size that differs from data x
+model exits with the reference's "need n devices".  Every rank reads the
+same global batches, rank 0 logs and writes the checkpoints.
 
 Fault-tolerance drills (exercised in tests):
   * SIGTERM mid-run -> checkpoint + clean exit; rerun resumes at that step.
@@ -19,9 +29,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.store import CheckpointManager
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke
@@ -29,6 +41,7 @@ from repro_torch.core.grid import resolve_device
 from repro_torch.data.pipeline import DataConfig, Prefetcher
 from repro_torch.launch import ft
 from repro_torch.launch import steps as st
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.optim import adamw
 
 
@@ -47,26 +60,30 @@ class TrainConfig:
     lr: float = 3e-4
 
 
-def train_loop(cfg, tc: TrainConfig, device=None, log=print) -> dict:
-    """One supervised run on `device` (None = the card); resumes from the
-    newest checkpoint in `tc.ckpt_dir` if there is one.  Returns the final
-    state, this run's losses and step seconds, the final step and the
-    straggler steps."""
-    dev = resolve_device(device)
+def train_loop(cfg, tc: TrainConfig, device=None, log=print, mesh=None) -> dict:
+    """One supervised run on `device` (None = the card), or on `mesh` (a
+    `launch.mesh.Mesh`; every rank calls this together and the state's
+    leaves are DTensors); resumes from the newest checkpoint in
+    `tc.ckpt_dir` if there is one (onto the mesh, whatever wrote it).
+    Returns the final state, this run's losses and step seconds, the final
+    step and the straggler steps."""
+    dev = resolve_device(device) if mesh is None else mesh.device
     opt_cfg = adamw.AdamWConfig(lr=tc.lr, total_steps=tc.steps,
                                 warmup_steps=max(tc.steps // 20, 1))
     step_cfg = st.StepConfig(accum=tc.accum, compress_grads=tc.compress_grads)
-    step_fn = st.make_train_step(cfg, opt_cfg, step_cfg)
+    step_fn = st.make_train_step(cfg, opt_cfg, step_cfg, mesh=mesh)
 
     mgr = CheckpointManager(tc.ckpt_dir) if tc.ckpt_dir else None
     start = 0
     if mgr is not None and mgr.latest_step() is not None:
         start = mgr.latest_step()
-        state = mgr.restore(start, st.train_state_shapes(cfg, opt_cfg, step_cfg), device=dev)
+        like = st.train_state_shapes(cfg, opt_cfg, step_cfg)
+        where = None if mesh is None else st.train_state_shardings(like, cfg, mesh)
+        state = mgr.restore(start, like, device=dev, placements=where)
         log(f"[train] resumed from checkpoint step {start}")
     else:
         state = st.init_train_state(torch.Generator(device=dev).manual_seed(tc.seed), cfg,
-                                    opt_cfg, step_cfg, dev)
+                                    opt_cfg, step_cfg, dev, mesh=mesh)
 
     dc = DataConfig(global_batch=tc.batch, seq_len=tc.seq, vocab_size=cfg.vocab_size,
                     seed=tc.seed)
@@ -112,14 +129,15 @@ def train_loop(cfg, tc: TrainConfig, device=None, log=print) -> dict:
             "final_step": int(state["step"]), "stragglers": timer.straggler_steps}
 
 
-def run(cfg, tc: TrainConfig, device=None, max_restarts: int = 3, log=print) -> dict:
+def run(cfg, tc: TrainConfig, device=None, max_restarts: int = 3, log=print,
+        mesh=None) -> dict:
     """Supervised training with restart-from-checkpoint on failure; the
-    injected fault fires once."""
+    injected fault fires once (on every rank of a mesh alike)."""
     out: dict = {}
 
     def attempt():
         nonlocal out
-        out = train_loop(cfg, tc, device=device, log=log)
+        out = train_loop(cfg, tc, device=device, log=log, mesh=mesh)
         return out["final_step"]
 
     ft.run_with_restarts(
@@ -153,10 +171,17 @@ def main(argv=None) -> None:
     ap.add_argument("--layers", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the card, the default) or 'cpu'; no fallback")
+    ap.add_argument("--backend", default=None,
+                    help="the process group's backend on a mesh: nccl (the card's "
+                         "default, one rank per card), gloo (the CPU's default; also "
+                         "several ranks sharing a card)")
     args = ap.parse_args(argv)
-    if args.data != 1 or args.model != 1:
-        ap.error(f"--data {args.data} --model {args.model}: the port trains on one device; "
-                 "a mesh of several is not available yet, so both take 1")
+    n = args.data * args.model
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if world != n:
+        ap.error(f"need {n} devices for mesh ({args.data}, {args.model}), have {world} "
+                 f"ranks (start one per device: torchrun --nproc-per-node {n})")
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.d_model:
@@ -175,11 +200,38 @@ def main(argv=None) -> None:
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
         compress_grads=args.compress, accum=args.accum, fail_at=args.fail_at,
     )
-    out = run(cfg, tc, device=args.device)
+    if n == 1:
+        out = run(cfg, tc, device=args.device)
+    else:
+        out = _run_on_mesh(cfg, tc, args)
+        if out is None:             # not rank 0
+            return
     print(
         f"[train] done: {out['final_step']} steps, "
         f"loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}"
     )
+
+
+def _run_on_mesh(cfg, tc: TrainConfig, args) -> dict | None:
+    """`run` on a (data, model) mesh of this process group's ranks,
+    starting the group (from torchrun's environment) when the caller has
+    not; this rank's card is LOCAL_RANK's (modulo the cards present).
+    Rank 0's result; None on the other ranks."""
+    dev = resolve_device(args.device)
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group(args.backend or ("nccl" if dev.type == "cuda" else "gloo"))
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+                              % torch.cuda.device_count())
+    try:
+        mesh = make_host_mesh(args.data, args.model, device=dev.type)
+        first = dist.get_rank() == 0
+        out = run(cfg, tc, log=print if first else (lambda *_: None), mesh=mesh)
+        return out if first else None
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

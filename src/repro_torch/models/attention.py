@@ -29,7 +29,14 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import axes
+from repro_torch.parallel.axes import constrain
 from repro_torch.utils import scan as uscan
+
+_TRAIN_HEADS = ("batch", "seq", "heads", "head_dim")
+# decode follows the KV cache's layout (kv heads, or head_dim when they do
+# not divide the model axis: parallel/sharding.cache_pspec)
+_DECODE_HEADS = ("batch", "seq", "dec_heads", "dec_hd")
 
 
 def init_attention(gen: torch.Generator | None, cfg: ModelConfig, device=None) -> dict:
@@ -74,15 +81,19 @@ def _qkv(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
     cos, sin = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     q = L.apply_rope(q, cos[None, :, None, :], sin[None, :, None, :])
     k = L.apply_rope(k, cos[None, :, None, :], sin[None, :, None, :])
+    q = constrain(q, *_TRAIN_HEADS)
+    k = constrain(k, "batch", "seq", "kv_heads", "head_dim")
+    v = constrain(v, "batch", "seq", "kv_heads", "head_dim")
     return q, k, v
 
 
-def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """(B, T, Hkv, hd) -> (B, T, Hq, hd) by repeating each kv head G times."""
+def _expand_kv(k: torch.Tensor, n_heads: int, logical: tuple = _TRAIN_HEADS) -> torch.Tensor:
+    """(B, T, Hkv, hd) -> (B, T, Hq, hd) by repeating each kv head G times,
+    pinned to `logical` (the train layout; decode passes the cache's)."""
     hkv = k.shape[2]
     if hkv == n_heads:
-        return k
-    return torch.repeat_interleave(k, n_heads // hkv, dim=2)
+        return k if logical is _TRAIN_HEADS else constrain(k, *logical)
+    return constrain(torch.repeat_interleave(k, n_heads // hkv, dim=2), *logical)
 
 
 def _sdpa(q, k, v, mask):
@@ -127,11 +138,23 @@ def causal_attention(q, k, v, chunk: int = 1024) -> torch.Tensor:
     return outs.movedim(0, 1).reshape(b, s, hq, hd)
 
 
+def _by_heads(cfg: ModelConfig, fn, q, k, v, *rest, rest_logical: tuple = ()):
+    """fn(q, k, v, *rest) on this rank's batch rows and heads.  On a mesh
+    the attention products have no DTensor rule over sharded heads, so they
+    run on the local shards (q, k, v batch-sharded, the heads over the
+    model axis where both head counts divide it, else whole); `rest` is
+    placed by `rest_logical`.  Off a mesh, fn(q, k, v, *rest)."""
+    split = axes.axis_size("heads")
+    h = "heads" if cfg.hq_eff % split == 0 and cfg.hkv_eff % split == 0 else None
+    names = ("batch", None, h, None)
+    return axes.local_map(fn, (names, names, names, *rest_logical), names, q, k, v, *rest)
+
+
 def attention_block(params, cfg: ModelConfig, x, positions, chunk: int = 1024) -> torch.Tensor:
     """Full self-attention sublayer (projections + RoPE + causal attention)."""
     q, k, v = _qkv(params, cfg, x, positions)
-    out = _head_mask(cfg, causal_attention(q, k, v, chunk=chunk))
-    return _out_proj(out, params["wo"])
+    out = _by_heads(cfg, lambda q, k, v: causal_attention(q, k, v, chunk=chunk), q, k, v)
+    return _out_proj(_head_mask(cfg, out), params["wo"])
 
 
 # ---------------------------------------------------------------- decode ----
@@ -143,25 +166,38 @@ def prefill_cache(params, cfg: ModelConfig, x, positions, cache_len: int):
     if s > cache_len:
         raise ValueError(f"a prefill of {s} tokens does not fit a cache of {cache_len}")
     q, k, v = _qkv(params, cfg, x, positions)
-    out = _head_mask(cfg, causal_attention(q, k, v, chunk=min(cfg.policy.attn_chunk, s)))
-    out = _out_proj(out, params["wo"])
-    shape = (b, cache_len, cfg.hkv_eff, cfg.head_dim)
-    kc = torch.zeros(shape, dtype=L.ACT_DTYPE, device=x.device)
-    vc = torch.zeros_like(kc)
-    kc[:, :s] = k.to(L.ACT_DTYPE)
-    vc[:, :s] = v.to(L.ACT_DTYPE)
-    return out, {"k": kc, "v": vc}
+    chunk = min(cfg.policy.attn_chunk, s)
+    out = _by_heads(cfg, lambda q, k, v: causal_attention(q, k, v, chunk=chunk), q, k, v)
+    out = _out_proj(_head_mask(cfg, out), params["wo"])
+    # the cache: the prompt's k / v, then zeros up to cache_len (on a mesh
+    # each rank builds its batch rows and kv heads)
+    names = ("batch", None, "kv_heads", None)
+
+    def cache(a):
+        c = torch.zeros((a.shape[0], cache_len, *a.shape[2:]), dtype=L.ACT_DTYPE, device=a.device)
+        c[:, :s] = a.to(L.ACT_DTYPE)
+        return c
+
+    return out, {"k": axes.local_map(cache, (names,), names, k),
+                 "v": axes.local_map(cache, (names,), names, v)}
 
 
 def _write_cache(cache: dict, k, v, pos: int) -> None:
     """k/v (B, 1, Hkv, hd) into the cache at `pos`, in place.  The
     reference's dynamic_update_slice would clamp a `pos` past the end and
-    overwrite the last slot; here that raises."""
+    overwrite the last slot; here that raises.  On a mesh each rank writes
+    its shard of the cache (k and v placed as the cache is)."""
     t = cache["k"].shape[1]
     if not 0 <= pos < t:
         raise IndexError(f"decode position {pos} is outside the cache of {t}")
-    cache["k"][:, pos] = k[:, 0].to(L.ACT_DTYPE)
-    cache["v"][:, pos] = v[:, 0].to(L.ACT_DTYPE)
+    for key, new in (("k", k), ("v", v)):
+        dst = cache[key]
+        if axes.is_distributed(dst):
+            if any(getattr(p, "dim", None) == 1 for p in dst.placements):
+                raise NotImplementedError("decode into a cache sharded over its positions")
+            new = new.redistribute(dst.device_mesh, dst.placements).to_local()
+            dst = dst.to_local()
+        dst[:, pos] = new[:, 0].to(L.ACT_DTYPE)
 
 
 def decode_attention(params, cfg: ModelConfig, x, cache: dict, pos: int):
@@ -169,11 +205,15 @@ def decode_attention(params, cfg: ModelConfig, x, cache: dict, pos: int):
     positions <= pos.  x (B, 1, d); cache {"k", "v"}: (B, T, Hkv, hd)."""
     t = cache["k"].shape[1]
     q, k, v = _qkv(params, cfg, x, torch.full((1,), pos, dtype=torch.int32, device=x.device))
+    q = constrain(q, *_DECODE_HEADS)
     _write_cache(cache, k, v, pos)
-    ke = _expand_kv(cache["k"], cfg.hq_eff)
-    ve = _expand_kv(cache["v"], cfg.hq_eff)
     mask = (torch.arange(t, dtype=torch.int32, device=x.device) <= pos)[None, :]   # (1, T)
-    out = _head_mask(cfg, _sdpa(q, ke, ve, mask))
+
+    def attend(q, kc, vc):
+        h = q.shape[2]
+        return _sdpa(q, _expand_kv(kc, h, _DECODE_HEADS), _expand_kv(vc, h, _DECODE_HEADS), mask)
+
+    out = _head_mask(cfg, _by_heads(cfg, attend, q, cache["k"], cache["v"]))
     return _out_proj(out, params["wo"]), cache
 
 
@@ -183,29 +223,35 @@ def decode_attention_retrieved(params, cfg: ModelConfig, x, cache: dict, pos: in
     """Sub-quadratic decode: attend over {local window} U {retrieved
     positions} instead of the whole cache, O(w + m) per step.
     retrieved (B, m) int positions from active search; retrieved_ok (B, m)."""
-    b = x.shape[0]
     t = cache["k"].shape[1]
     dev = x.device
     q, k, v = _qkv(params, cfg, x, torch.full((1,), pos, dtype=torch.int32, device=dev))
     _write_cache(cache, k, v, pos)
-
-    # gather the attended positions: local window (w) + retrieved (m)
     w = local_window
-    local = pos - w + 1 + torch.arange(w, dtype=torch.int64, device=dev)   # (w,), may be <0
-    local_ok = local >= 0
-    local = local.clamp(0, t - 1)
-    retrieved = retrieved.to(torch.int64)
-    idx = torch.cat([local.expand(b, w), retrieved.clamp(0, t - 1)], dim=1)   # (B, w+m)
-    ok = torch.cat([
-        local_ok.expand(b, w),
-        # retrieved entries inside the local window would be double
-        # counted by the softmax: mask them out
-        retrieved_ok & (retrieved <= pos) & (retrieved < pos - w + 1),
-    ], dim=1)
-    rows = torch.arange(b, device=dev)[:, None]
-    kg = cache["k"][rows, idx]                                   # (B, w+m, Hkv, hd)
-    vg = cache["v"][rows, idx]
-    ke = _expand_kv(kg, cfg.hq_eff)
-    ve = _expand_kv(vg, cfg.hq_eff)
-    out = _head_mask(cfg, _sdpa(q, ke, ve, ok[:, None, :]))
-    return _out_proj(out, params["wo"]), cache
+
+    def attend(q, kc, vc, retrieved, retrieved_ok):
+        # gather the attended positions: local window (w) + retrieved (m)
+        b = q.shape[0]
+        local = pos - w + 1 + torch.arange(w, dtype=torch.int64, device=dev)   # (w,), may be <0
+        local_ok = local >= 0
+        local = local.clamp(0, t - 1)
+        retrieved = retrieved.to(torch.int64)
+        idx = torch.cat([local.expand(b, w), retrieved.clamp(0, t - 1)], dim=1)   # (B, w+m)
+        ok = torch.cat([
+            local_ok.expand(b, w),
+            # retrieved entries inside the local window would be double
+            # counted by the softmax: mask them out
+            retrieved_ok & (retrieved <= pos) & (retrieved < pos - w + 1),
+        ], dim=1)
+        rows = torch.arange(b, device=dev)[:, None]
+        kg = kc[rows, idx]                                       # (B, w+m, Hkv, hd)
+        vg = vc[rows, idx]
+        h = q.shape[2]
+        ke = _expand_kv(kg, h, _DECODE_HEADS)
+        ve = _expand_kv(vg, h, _DECODE_HEADS)
+        return _sdpa(q, ke, ve, ok[:, None, :])
+
+    rows = ("batch", None)
+    out = _by_heads(cfg, attend, q, cache["k"], cache["v"], retrieved, retrieved_ok,
+                    rest_logical=(rows, rows))
+    return _out_proj(_head_mask(cfg, out), params["wo"]), cache

@@ -16,6 +16,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import axes
+
 ACT_DTYPE = torch.bfloat16
 
 
@@ -80,13 +82,29 @@ def init_mlp(gen: torch.Generator | None, d_model: int, d_ff: int, device=None) 
     }
 
 
-def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                          mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean token NLL.  logits (..., V) any float dtype; labels (...) int."""
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """embed[tokens] (..., d).  On a mesh the index has no DTensor rule, so
+    each rank looks its batch rows up in the whole table."""
+    rows = ("batch",) + (None,) * (tokens.dim() - 1)
+    return axes.local_map(lambda e, t: e[t], ((None, None), rows), rows + (None,),
+                          embed, tokens)
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    return logz - gold
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token NLL.  logits (..., V) any float dtype; labels (...) int.
+    On a mesh the gather of the gold logit has no DTensor rule over a
+    sharded vocab, so each rank takes its batch rows with the whole vocab
+    (as GSPMD would) and the mean sums across them."""
+    rows = ("batch",) + (None,) * (labels.dim() - 1)
+    nll = axes.local_map(_token_nll, (rows + (None,), rows), rows, logits, labels)
     if mask is not None:
         m = mask.to(torch.float32)
         return torch.sum(nll * m) / torch.clamp_min(torch.sum(m), 1.0)

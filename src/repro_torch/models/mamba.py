@@ -31,6 +31,8 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import axes
+from repro_torch.parallel.axes import constrain
 
 # weights the reference uses in float32 (the model stores them so)
 F32_WEIGHTS = ("dt_proj", "A_log")
@@ -136,16 +138,25 @@ def mamba_prefill(params, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tens
     din = _d_inner(cfg)
     xd = x.to(L.ACT_DTYPE)
     xz = torch.matmul(xd, params["in_proj"].to(xd.dtype))
+    xz = constrain(xz, "batch", "seq", "inner")
     x_raw, z = torch.split(xz, din, dim=-1)
     x_in = _causal_conv(x_raw, params["conv_w"], params["conv_b"])
     x_in = F.silu(x_in.to(torch.float32)).to(xd.dtype)
     h0 = torch.zeros((b, din, mc.d_state), dtype=torch.float32, device=x.device)
-    y, h_last = mamba_scan(params, cfg, x_in, h0, mc.chunk)
+    # on a mesh the token loop's `addcmul`s have no DTensor rule: the scan
+    # runs whole on every rank (its inputs gathered), then is pinned again
+    y, h_last = axes.replicated_local(
+        lambda w, xi, h: mamba_scan(w, cfg, xi, h, mc.chunk), _scan_weights(params), x_in, h0)
     y = y * F.silu(z.to(torch.float32)).to(xd.dtype)
+    y = constrain(y, "batch", "seq", "inner")
     out = torch.matmul(y, params["out_proj"].to(xd.dtype))
     cache = {"conv": x_raw[:, s - (mc.d_conv - 1):, :].to(L.ACT_DTYPE).contiguous(),
              "ssm": h_last}
     return out, cache
+
+
+def _scan_weights(params) -> dict:
+    return {k: params[k] for k in ("x_proj", "dt_proj", "dt_bias", "A_log", "D")}
 
 
 def mamba_block(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

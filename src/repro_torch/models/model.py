@@ -52,6 +52,7 @@ from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import xlstm as xl
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.axes import constrain, current_rules, restored_rules
 from repro_torch.utils import tree
 
 # the cores' weights stored in float32 though they have two or more dims
@@ -117,6 +118,12 @@ _CORE = {  # kind -> (training form, prefill, decode step)
 }
 
 
+def _residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x + y pinned batch-sharded between sublayers (the reference's
+    `constrain(x + y, "batch", "seq", "embed")`)."""
+    return constrain(x + y, "batch", "seq", "embed")
+
+
 def core_residual(cfg: ModelConfig, p: int, w, x, positions) -> torch.Tensor:
     """x + the core (attention, Mamba, mLSTM or sLSTM) of the layer at
     period position `p` with weights `w` (a mapping keyed as the
@@ -125,8 +132,9 @@ def core_residual(cfg: ModelConfig, p: int, w, x, positions) -> torch.Tensor:
     kind = cfg.pattern[p]
     h = L.rms_norm(x, w["norm1"], cfg.norm_eps)
     if kind == "attn":
-        return x + attn.attention_block(w["core"], cfg, h, positions, chunk=cfg.policy.attn_chunk)
-    return x + _CORE[kind][0](w["core"], cfg, h)
+        return _residual(x, attn.attention_block(w["core"], cfg, h, positions,
+                                                 chunk=cfg.policy.attn_chunk))
+    return _residual(x, _CORE[kind][0](w["core"], cfg, h))
 
 
 def mlp_residual(cfg: ModelConfig, p: int, w, x):
@@ -139,8 +147,8 @@ def mlp_residual(cfg: ModelConfig, p: int, w, x):
     f = w["ffn"]
     if cfg.is_moe_layer(p):
         y, aux = moe_lib.moe_block(f, cfg, h2)
-        return x + y, aux
-    return x + L.swiglu(h2, f["wi"], f["wg"], f["wo"]), None
+        return _residual(x, y), aux
+    return _residual(x, L.swiglu(h2, f["wi"], f["wg"], f["wo"])), None
 
 
 def layer_train(cfg: ModelConfig, p: int, w, x, positions):
@@ -176,7 +184,7 @@ class Layer(nn.Module):
             core, cache = attn.prefill_cache(self.core, cfg, h, positions, cache_len)
         else:
             core, cache = _CORE[self.kind][1](self.core, cfg, h)
-        return mlp_residual(cfg, self.p, self, x + core)[0], cache
+        return mlp_residual(cfg, self.p, self, _residual(x, core))[0], cache
 
     def decode(self, cfg, x, cache: dict, pos, retrieved=None):
         """One token; `cache` holds this layer's views of the stacked
@@ -190,7 +198,7 @@ class Layer(nn.Module):
             core, _ = attn.decode_attention_retrieved(self.core, cfg, h, cache, pos, *retrieved)
         else:
             core, _ = attn.decode_attention(self.core, cfg, h, cache, pos)
-        return mlp_residual(cfg, self.p, self, x + core)[0]
+        return mlp_residual(cfg, self.p, self, _residual(x, core))[0]
 
 
 def _layer_weights(cfg: ModelConfig, p: int, gen: torch.Generator | None,
@@ -231,13 +239,14 @@ def embed_inputs(cfg: ModelConfig, embed, batch: dict) -> torch.Tensor:
     dev = embed.device
     if cfg.frontend == "audio":
         # EnCodec frame embeddings arrive precomputed: (B, S, d)
-        return batch["frame_embeds"].to(device=dev, dtype=L.ACT_DTYPE)
-    x = embed[batch["tokens"].to(dev)].to(L.ACT_DTYPE)
+        return constrain(batch["frame_embeds"].to(device=dev, dtype=L.ACT_DTYPE),
+                         "batch", "seq", "embed")
+    x = L.embed_lookup(embed, batch["tokens"].to(dev)).to(L.ACT_DTYPE)
     if cfg.frontend == "vision" and "vision_embeds" in batch:
         # patch embeddings occupy the first n_frontend_tokens positions
         ve = batch["vision_embeds"]
         x[:, :ve.shape[1]] = ve.to(device=dev, dtype=L.ACT_DTYPE)
-    return x
+    return constrain(x, "batch", "seq", "embed")
 
 
 class DecoderLM(nn.Module):
@@ -313,7 +322,7 @@ class DecoderLM(nn.Module):
         del per_layer
         x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
         last = x[:, -1, :]
-        return self._logits(last), caches, last
+        return constrain(self._logits(last), "batch", "vocab"), caches, last
 
     def decode_step(self, caches: list, token: torch.Tensor, pos, retrieved: tuple | None = None):
         """One decode step -> (logits (B, V), caches, hidden (B, d)).
@@ -321,14 +330,37 @@ class DecoderLM(nn.Module):
         valid); retrieved = (positions (B, m), valid (B, m), local_window).
         `caches` is updated in place and returned."""
         pos = int(pos)
-        x = self.embed[token.to(self.device)][:, None, :].to(L.ACT_DTYPE)
+        x = L.embed_lookup(self.embed, token.to(self.device))[:, None, :].to(L.ACT_DTYPE)
         period = self.cfg.block_period
         for i, layer in enumerate(self.layers):
             cache = {key: state[i // period] for key, state in caches[i % period].items()}
             x = layer.decode(self.cfg, x, cache, pos, retrieved)
         x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
         hidden = x[:, 0, :]
-        return self._logits(hidden), caches, hidden
+        return constrain(self._logits(hidden), "batch", "vocab"), caches, hidden
+
+
+def model_from_params(cfg: ModelConfig, params: dict) -> DecoderLM:
+    """A serving DecoderLM holding the weights of a train state's params
+    (the `init_params` tree: float32 masters stacked by period position),
+    each rounded to the model's storage dtype for it.  Plain tensors or
+    DTensors: a DTensor weight stays placed as its leaf (the stack axis
+    dropped), so the model serves on that leaf's mesh."""
+    model = DecoderLM(cfg, device="meta")
+    period = cfg.block_period
+    for name, meta in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        if owner.startswith("layers."):
+            _, i, *path = name.split(".")
+            value = params["blocks"][int(i) % period]
+            for key in path:
+                value = value[key]
+            value = value[int(i) // period]
+        else:
+            value = params[name]
+        module = model.get_submodule(owner) if owner else model
+        module._parameters[leaf] = nn.Parameter(value.to(meta.dtype).clone(), requires_grad=False)
+    return model
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int, device=None) -> list:
@@ -369,29 +401,35 @@ def _loss(out, batch: dict, aux_weight: float):
     return loss, {"nll": nll, "aux": aux}
 
 
-def init_params(cfg: ModelConfig, device=None, generator: torch.Generator | None = None) -> dict:
+def init_params(cfg: ModelConfig, device=None, generator: torch.Generator | None = None,
+                local=None) -> dict:
     """The reference's `init_params` tree in float32 on `device` (None =
     the card; "meta" for shapes only), layers stacked by period position.
     The weights are drawn from `generator` (default: seed 0 on `device`)
     in DecoderLM's order, so a DecoderLM built from the same generator
-    holds the same numbers (rounded to its storage dtypes)."""
+    holds the same numbers (rounded to its storage dtypes).  `local(path,
+    leaf)`, where given, maps each drawn leaf (a layer's without its stack
+    axis, at its stacked path) to the part kept, one layer at a time (a
+    rank of a mesh keeps its shards and never holds the whole tree)."""
     dev = _device(device)
     gen = _generator(dev, generator)
+    keep = local or (lambda path, leaf: leaf)
     period, n_rep = cfg.block_period, cfg.n_repeat
     blocks: list = [None] * period
     for i in range(cfg.n_layers):
         p, r = i % period, i // period
-        w = _layer_weights(cfg, p, gen, dev)
+        w = tree.map_with_path(lambda path, a: keep(("blocks", p) + path, a),
+                               _layer_weights(cfg, p, gen, dev))
         if blocks[p] is None:
             blocks[p] = tree.map(lambda a: torch.empty((n_rep, *a.shape), dtype=a.dtype,
                                                        device=dev), w)
         tree.map(lambda stack, a: stack[r].copy_(a), blocks[p], w)
         del w
     v, d = cfg.vocab_eff, cfg.d_model
-    params = {"embed": L.embed_init(gen, (v, d), dev),
-              "final_norm": torch.ones((d,), device=dev), "blocks": blocks}
+    params = {"embed": keep(("embed",), L.embed_init(gen, (v, d), dev)),
+              "final_norm": keep(("final_norm",), torch.ones((d,), device=dev)), "blocks": blocks}
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.dense_init(gen, (d, v), device=dev)
+        params["lm_head"] = keep(("lm_head",), L.dense_init(gen, (d, v), device=dev))
     return params
 
 
@@ -429,7 +467,19 @@ def _remat(fn, remat: str):
                                                  _mm_saveable)
     elif remat != "full":
         raise ValueError(f"remat must be 'none', 'full' or 'dots', not {remat!r}")
-    return lambda *args: checkpoint(fn, *args, **kwargs)
+
+    def run(*args):
+        # the recompute runs in the backward, maybe on autograd's device
+        # thread: it takes the axis rules of the forward with it
+        rules = current_rules()
+
+        def body(*a):
+            with restored_rules(rules):
+                return fn(*a)
+
+        return checkpoint(body, *args, **kwargs)
+
+    return run
 
 
 def _repeats(block: dict, n_repeat: int) -> list:
@@ -481,7 +531,8 @@ def forward_params(cfg: ModelConfig, params: dict, batch: dict, remat: str | Non
     repeats = [[slices[p][r] for p in range(period)] for r in range(cfg.n_repeat)]
     x, aux = _trunk(cfg, embed_inputs(cfg, params["embed"], batch), repeats, remat)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return head_logits(cfg, params["embed"], params.get("lm_head"), x), aux
+    logits = head_logits(cfg, params["embed"], params.get("lm_head"), x)
+    return constrain(logits, "batch", "seq", "vocab"), aux
 
 
 def loss_params(cfg: ModelConfig, params: dict, batch: dict, aux_weight: float = 0.01,

@@ -31,6 +31,9 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import axes
+from repro_torch.parallel.axes import constrain
+from repro_torch.utils import tree
 
 
 def init_moe(gen: torch.Generator | None, cfg: ModelConfig, device=None) -> dict:
@@ -93,11 +96,54 @@ def route(params, cfg: ModelConfig, xt: torch.Tensor, cap: int) -> Routing:
 def moe_block(params, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y (B, S, d), the Switch aux loss ()).  Token order
     preserved."""
+    if axes.is_distributed(x):
+        return _moe_on_mesh(params, cfg, x)
     b, s, d = x.shape
     t = b * s
     ng, g, cap = group_shape(cfg, t)
     y, aux = moe_groups(params, cfg, group_tokens(x.reshape(t, d), ng, g), cap)
     return y.reshape(ng * g, d)[:t].reshape(b, s, d), aux
+
+
+def _moe_on_mesh(params, cfg: ModelConfig, x) -> tuple:
+    """moe_block on a mesh.  The stable sort and the one-hot dispatch have
+    no DTensor rule, so the layer runs on plain tensors with the experts'
+    weights gathered whole onto every rank (the experts axis splits no
+    compute).  Where each rank's batch rows hold whole GShard groups, each
+    rank runs its own rows, as GSPMD places a batch-sharded op, and the
+    aux loss takes the load statistics summed over the batch shards; a
+    group that spans the shards runs whole on every rank instead, each
+    keeping its rows."""
+    x = constrain(x, "batch", "seq", "embed")
+    b, s, _ = x.shape
+    _, g, _ = group_shape(cfg, b * s)
+    rows = x.to_local().shape[0]
+    w = _weights(params)
+    if rows != b and rows * s % g:
+        y, aux = axes.replicated_local(lambda w_, h: moe_block(w_, cfg, h), w, x)
+        return constrain(y, "batch", "seq", "embed"), aux
+    ws = tree.leaves(w)
+
+    def local(h, *leaves):
+        r, sq, d = h.shape
+        ng, g_, cap = group_shape(cfg, r * sq)
+        y, me, ce = _groups(tree.unflatten(w, iter(leaves)), cfg,
+                            group_tokens(h.reshape(r * sq, d), ng, g_), cap)
+        return y.reshape(ng * g_, d)[:r * sq].reshape(r, sq, d), me[None], ce[None]
+
+    names = ("batch", "seq", "embed")
+    y, me, ce = axes.local_map(local, (names, *((None,) * t.dim() for t in ws)),
+                               [names, ("batch", None), ("batch", None)], x, *ws)
+    shards = b // rows
+    return y, aux_loss(cfg, me.sum(0) / shards, ce.sum(0) / shards)
+
+
+def _weights(params) -> dict:
+    """The layer's weights as a dict tree (from a dict or a ParamTree)."""
+    out = {k: params[k] for k in ("router", "wi", "wg", "wo")}
+    if "shared" in params:
+        out["shared"] = {k: params["shared"][k] for k in ("wi", "wg", "wo")}
+    return out
 
 
 def group_tokens(xt: torch.Tensor, ng: int, g: int) -> torch.Tensor:
@@ -115,15 +161,26 @@ def moe_groups(params, cfg: ModelConfig, xt: torch.Tensor,
     in each group -> (y (G, g, d), the Switch aux loss over these groups).
     Groups are independent (each has its own capacity), so a run of whole
     groups gives the same rows as the call over all of them."""
+    y, me, ce = _groups(params, cfg, xt, cap)
+    return y, aux_loss(cfg, me, ce)
+
+
+def aux_loss(cfg: ModelConfig, me: torch.Tensor, ce: torch.Tensor) -> torch.Tensor:
+    """The Switch load-balancing loss from the mean router probability
+    `me` (E,) and the mean number of picks `ce` (E,) of each expert."""
     mo = cfg.moe
-    e, k = mo.n_total, mo.top_k
+    return torch.sum(me * ce) * (mo.n_experts ** 2) / max(mo.top_k, 1)
+
+
+def _groups(params, cfg: ModelConfig, xt: torch.Tensor, cap: int) -> tuple:
+    """moe_groups' y and the aux loss's statistics over these groups."""
+    mo = cfg.moe
+    e = mo.n_total
     r = route(params, cfg, xt, cap)
 
-    # load-balancing auxiliary loss (Switch-style)
     mask = F.one_hot(r.top_i, e).to(torch.float32)               # (G, g, k, E)
     me = torch.mean(r.probs, dim=(0, 1))                         # (E,)
     ce = torch.mean(torch.sum(mask, dim=2), dim=(0, 1))
-    aux = torch.sum(me * ce) * (mo.n_experts ** 2) / max(k, 1)
 
     # dispatch / combine: the k slots merged (a token's experts are distinct)
     rank_i = torch.where(r.keep, r.rank, float(cap)).to(torch.int64)   # cap -> dropped
@@ -141,4 +198,4 @@ def moe_groups(params, cfg: ModelConfig, xt: torch.Tensor,
     if "shared" in params:
         sh = params["shared"]
         y = y + L.swiglu(xt, sh["wi"], sh["wg"], sh["wo"])
-    return y, aux
+    return y, me, ce

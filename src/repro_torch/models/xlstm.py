@@ -24,6 +24,8 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import axes
+from repro_torch.parallel.axes import constrain
 from repro_torch.utils import scan as uscan
 
 # weights the reference uses in float32 (the model stores them so)
@@ -73,13 +75,14 @@ def _mlstm_gates(params, xm: torch.Tensor):
     v = _heads(xm, params["wv"])
     gates = _heads(xm, params["wif"]).to(torch.float32)
     i = torch.sigmoid(gates[..., 0])
-    log_f = F.logsigmoid(gates[..., 1] + params["fgate_bias"])
+    # logsigmoid's backward has no DTensor rule: on a mesh it runs whole
+    log_f = axes.replicated_local(F.logsigmoid, gates[..., 1] + params["fgate_bias"])
     return q, k, v, log_f, i
 
 
 def _up(params, x: torch.Tensor):
     xd = x.to(L.ACT_DTYPE)
-    xz = torch.matmul(xd, params["up"].to(xd.dtype))
+    xz = constrain(torch.matmul(xd, params["up"].to(xd.dtype)), "batch", "seq", "inner")
     xm, z = torch.chunk(xz, 2, dim=-1)
     return xd, xm, z
 

@@ -6,7 +6,10 @@ structure (`utils/tree.py`: nested dicts and lists, visited in the
 reference's order), so a path here is the reference's path and its
 checkpoint keys are the reference's.  `update` is functional, as the
 reference's: it returns new params and a new state and leaves its inputs
-as they are.
+as they are.  On a mesh the leaves are DTensors (the moments placed as
+their params): every update is elementwise on each rank's shards, and the
+global norm adds each leaf's whole sum of squares, across its shards, in
+the reference's leaf order.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.parallel import axes
+from repro_torch.parallel.sharding import gather
 from repro_torch.utils import tree
 
 
@@ -40,8 +45,8 @@ class OptState(NamedTuple):
 
 
 def init(params: Any) -> OptState:
-    """Zero moments in float32 beside each leaf, count 0 on the params'
-    device."""
+    """Zero moments in float32 beside each leaf (DTensors placed as their
+    leaves on a mesh), count 0 on the params' device."""
     zeros = tree.map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
     dev = tree.leaves(params)[0].device
     return OptState(mu=zeros, nu=tree.map(torch.clone, zeros),
@@ -67,10 +72,10 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def global_norm(grads: Any) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares, in float32, leaves
-    added in the reference's order."""
+    added in the reference's order (a sharded leaf's sum over its shards)."""
     total = None
     for g in tree.leaves(grads):
-        sq = torch.sum(torch.square(g.to(torch.float32)))
+        sq = gather(torch.sum(torch.square(g.to(torch.float32))))
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -98,7 +103,7 @@ def update(cfg: AdamWConfig, grads: Any, state: OptState,
     """One AdamW step -> (new params, new state, {"grad_norm", "lr"}).
     The gradients are clipped first, then the count goes up by one, and
     the schedule is read at the new count."""
-    with torch.no_grad():
+    with torch.no_grad(), axes.mixing(params):
         grads = tree.map(lambda g: g.to(torch.float32), grads)
         grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
         count = state.count + 1

@@ -6,7 +6,9 @@ in sorted order, sequences and named tuples in order, and treats None as
 an empty subtree.  The port keeps its parameter, optimizer and checkpoint
 trees in the same structures, and these helpers visit them in the same
 order, so a path here is the reference's path (dict keys, sequence
-indices and field names) and a sum over leaves adds in its order.
+indices and field names) and a sum over leaves adds in its order.  A
+tuple whose class sets `tree_leaf` (`parallel.sharding.PartitionSpec`)
+is a leaf, as the reference's spec trees treat a PartitionSpec.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ def leaves_with_path(tree: Any, path: tuple = ()) -> Iterator[tuple[tuple, Any]]
     """(path, leaf) pairs in the reference's pytree order."""
     if tree is None:
         return
-    if isinstance(tree, dict):
+    if getattr(tree, "tree_leaf", False):
+        yield path, tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
             yield from leaves_with_path(tree[k], path + (k,))
     elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
@@ -40,6 +44,8 @@ def unflatten(like: Any, new_leaves: Iterator[Any]) -> Any:
     order (dicts keep `like`'s key order)."""
     if like is None:
         return None
+    if getattr(like, "tree_leaf", False):
+        return next(new_leaves)
     if isinstance(like, dict):
         out = {k: unflatten(like[k], new_leaves) for k in sorted(like)}
         return {k: out[k] for k in like}

@@ -40,7 +40,7 @@ def test_port_imports_neither_jax_nor_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(mods) >= 53 and "repro_torch.core.mutable" in mods
+    assert len(mods) >= 57 and "repro_torch.core.mutable" in mods
     assert {"repro_torch.core.distributed", "repro_torch.core.knn_lm",
             "repro_torch.core.retrieval_memory", "repro_torch.checkpoint.store",
             "repro_torch.launch.serve", "repro_torch.models.config",
@@ -49,7 +49,9 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.models.mamba", "repro_torch.models.xlstm",
             "repro_torch.configs.shapes",
             "repro_torch.configs.minitron_8b", "repro_torch.configs.xlstm_125m",
-            "repro_torch.utils.scan"} <= set(mods)
+            "repro_torch.utils.scan", "repro_torch.launch.mesh", "repro_torch.parallel.sharding",
+            "repro_torch.parallel.axes", "repro_torch.launch.steps",
+            "repro_torch.optim.compression"} <= set(mods)
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():
@@ -91,6 +93,31 @@ def test_entry_points_default_to_the_card():
     assert {t.device.type for t in mutable.state_to_tree(grown.mutable).values()} == {"cpu"}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.ActiveSearcher.build(pts).insert(pts[:5])
+
+
+def test_mesh_defaults_to_the_card(tmp_path):
+    """A mesh needs a started process group of its size, and its device
+    defaults to the card: without one it raises rather than settling on
+    the CPU."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: device=None resolves to it")
+    with pytest.raises(RuntimeError, match="process group"):
+        make_host_mesh(2, 2)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_host_mesh(1, 1)
+        with pytest.raises(RuntimeError, match="need 4 devices for mesh"):
+            make_host_mesh(2, 2, device="cpu")
+        mesh = make_host_mesh(1, 1, device="cpu")
+        assert mesh.shape == {"data": 1, "model": 1} and mesh.device.type == "cpu"
+    finally:
+        dist.destroy_process_group()
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

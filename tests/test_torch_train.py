@@ -163,7 +163,7 @@ def test_cli_trains_and_refuses_a_mesh(tmp_path, capsys):
     assert CheckpointManager(str(tmp_path)).list_steps() == [1, 2]
     with pytest.raises(SystemExit):
         TT.main(["--device", "cpu", "--smoke", "--data", "2"])
-    assert "a mesh of several is not available yet" in capsys.readouterr().err
+    assert "need 2 devices for mesh (2, 1), have 1 ranks" in capsys.readouterr().err
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TT.main(["--smoke", "--steps", "1"])
