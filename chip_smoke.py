@@ -236,7 +236,27 @@ per phase:
      one rank's; 10e compressed_psum over the ranks against the same
      formula on the host, bit for bit; 10f one nccl rank: 9a's
      configuration on a 1 x 1 mesh, three steps bit-equal to no mesh;
-     the phase's seconds.
+     the phase's seconds;
+ 11  the dry run (launch/dryrun.py, launch/roofline.py, steps.lower_cell):
+     after every other phase, 11a, the five cells at once, each in a
+     child process of its own (a fake process group is process-global),
+     run_cell on fake CUDA tensors over fake
+     groups of 256 ranks (16 x 16) for internlm2-1.8b's train_4k,
+     prefill_32k and decode_32k and minitron-8b's long_500k (the
+     retrieval cell: one traced call of each search kernel's op), and of
+     512 (2 x 16 x 16) for internlm2-1.8b's decode_32k: each OK, with its
+     compute / memory / collective ms on the H100 data sheet, bottleneck,
+     6·N·D ratio, temp bytes a rank and trace seconds; then in a child of
+     its own 11b internlm2-1.8b's CONFIG at 9b's one-card cut (8 x 1,024,
+     accum 4) traced by lower_cell and run for real: the traced FLOPs equal
+     FlopCounterMode's over a real step, the traced peak within 10% of
+     max_memory_allocated over one, the measured step time beside the
+     roofline's; 11c the retrieval serve step at 9c's shape traced (one
+     call of each kernel's op) and run (exactly one launch of each under
+     torch.profiler; counted), each kernel's credited FLOPs and bytes
+     beside its device ms, and the host microseconds of a launch through
+     its operator against a direct call of the function registered as its
+     CUDA kernel.
 
 Kernel times: `ms` is the median of 10 timed wrapper calls (CUDA events
 around the call, the L2 flushed before each), so a launch-bound kernel's
@@ -250,8 +270,8 @@ just after (phase 5: before the first insert, and after the mutated
 handle's searches; phase 6b: before the decode stream and after it, the
 checks of each batch's requests taken off again; phases 7b, 8b and 8c:
 around each counted generate; 9c: around its counted steps; 10d: on each
-rank, around its float32 retrieval serve steps); a kernel of the path
-that was never launched fails the run.
+rank, around its float32 retrieval serve steps; 11c: around its profiled
+step); a kernel of the path that was never launched fails the run.
 Then one {"kernels": [...]} line (per kernel: launches on the paths,
 largest error against the plain version, kernel time (and device_ms where
 taken) and plain time, the bound
@@ -315,7 +335,7 @@ NO_PATH = ("flash_attention",)  # no path of the system calls it: phase 4 only
 # head's and retrieval memory's `hopper` searches (9c: the retrieval serve
 # step's), and `exact` as their recall reference (the `sharded` backend
 # launches none: its shards search on `torch`)
-PATHS = {name: "phases 2, 3, 5, 6, 7, 8, 9, 10" for name in FUSED_PATH}
+PATHS = {name: "phases 2, 3, 5, 6, 7, 8, 9, 10, 11" for name in FUSED_PATH}
 PATHS["brute_knn"] = "phases 2, 3, 5, 6, 7, 8"
 F32_EPS = float(np.finfo(np.float32).eps)
 LOOP_STATS = ("radius", "count", "iters", "converged", "tile_dmas_skipped")
@@ -4286,6 +4306,245 @@ def phase10(seed: int, smi: str, ckpt: str, step: int, want_losses: list) -> lis
     return [c["launches"] for c in cd]
 
 
+# ---------------------------------------------------------------- phase 11 --
+# 11a: (arch, shape, multi_pod) cells of the dry run on the fake production
+# meshes; the minitron-8b long_500k cell traces the retrieval search
+DRYRUN_CELLS = (("internlm2-1.8b", "train_4k", False), ("internlm2-1.8b", "prefill_32k", False),
+                ("internlm2-1.8b", "decode_32k", False), ("minitron-8b", "long_500k", False),
+                ("internlm2-1.8b", "decode_32k", True))
+PEAK_RTOL = 0.10        # 11b: the traced peak against max_memory_allocated
+P11_KERNELS = ("radius_search_loop", "csr_candidate_topk")
+
+
+def p11_cell(arch: str, shape: str, multi_pod: bool) -> dict:
+    """One 11a cell, in a child process of its own (a fake process group is
+    process-global): the dry run's run_cell on fake CUDA tensors over a
+    fake group of the production mesh's size; nothing is allocated on the
+    card.  Returns the record."""
+    import logging
+
+    sys.path.insert(0, str(ROOT / "src"))
+    logging.disable(logging.WARNING)     # DTensor's notes on mesh-dim redistributions
+    from repro_torch.launch import dryrun
+
+    return dryrun.run_cell(arch, shape, multi_pod, verbose=False)
+
+
+def p11_profile(fn, names) -> dict:
+    """{kernel: [device ms of each launch]} of `names` in one traced call
+    of `fn`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pats = {n: re.compile(rf"\b{n}_kernel\b") for n in names}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    recs = kernel_records(prof)
+    return {n: [ms for kname, ms in recs if pat.search(kname)] for n, pat in pats.items()}
+
+
+def p11_dispatch(mods: dict, args: dict, reps: int = 200) -> dict:
+    """Host microseconds of one launch of each kernel through its operator
+    (`torch.ops.repro_torch.<name>`, the dispatcher: what the wrapper
+    calls) against a direct call of the function registered as its CUDA
+    kernel (the same allocations and ctypes launch), on the arguments
+    `args[name]` the step passed: `reps` calls timed on the host's clock
+    with no sync inside, in the order op, direct, direct, op.  These
+    launches are comparisons, not the path's."""
+    def host_us(fn, call_args) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(*call_args)
+        us = (time.perf_counter() - t0) * 1e6 / reps
+        torch.cuda.synchronize()
+        return us
+
+    out = {}
+    for n in P11_KERNELS:
+        op, direct = mods[n]._OP, mods[n]._launch
+        op_a, direct_a, direct_b, op_b = (host_us(f, args[n]) for f in (op, direct, direct, op))
+        out[n] = {"op_us": [op_a, op_b], "direct_us": [direct_a, direct_b],
+                  "dispatch_us": (op_a + op_b - direct_a - direct_b) / 2, "reps": reps}
+    return out
+
+
+def p11_step(seed: int) -> dict:
+    """11b: internlm2-1.8b's CONFIG at 9b's one-card cut (8 x 1,024 tokens,
+    its accum 4, remat full, the bf16 compute copy) traced on fake CUDA
+    tensors by lower_cell, then run for real: the traced FLOPs equal
+    FlopCounterMode's over a real step, and the traced peak is within
+    PEAK_RTOL of max_memory_allocated over a real step (counted from a
+    reset with the state and the batch on the card).  The measured step
+    time is printed beside the roofline's, a reading only."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch import steps as st
+    from repro_torch.optim import adamw
+
+    cfg = get_config("internlm2-1.8b")
+    shape = ShapeSpec("9b", 1024, 8, "train")
+    lowered, _ = st.lower_cell(cfg, shape, None, device=DEV.type)
+    c = lowered.counts
+    roof = rl.from_trace(c, 1)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 110)
+    state = st.init_train_state(gen, cfg, adamw.AdamWConfig(), st.StepConfig(), device=DEV)
+    tokens = torch.randint(0, cfg.vocab_size, (shape.global_batch, shape.seq_len), generator=gen,
+                           device=DEV, dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    step = st.make_train_step(cfg, adamw.AdamWConfig())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (state, _), first_ms = host_ms(lambda: step(state, batch))
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = []
+    for _ in range(2):
+        (state, _), ms = host_ms(lambda: step(state, batch))
+        step_ms.append(ms)
+    with FlopCounterMode(display=False) as fc:
+        state, _ = step(state, batch)
+    real_flops = fc.get_total_flops()
+    del state
+    check(c.flops == real_flops, f"11b: traced FLOPs {c.flops} != a real step's {real_flops}")
+    rel = abs(c.peak_bytes - peak) / peak
+    check(rel <= PEAK_RTOL, f"11b: traced peak {c.peak_bytes} vs max_memory_allocated {peak}")
+    return {"config": "internlm2-1.8b CONFIG, 8 x 1,024 tokens, accum 4, remat full, bf16 "
+                      "compute copy (9b's one-card cut)",
+            "traced_flops": c.flops, "real_flops": real_flops,
+            "traced_peak_bytes": c.peak_bytes, "max_memory_allocated": peak,
+            "allocated_at_reset": base, "peak_rel_err": rel, "peak_rtol": PEAK_RTOL,
+            "traced_argument_bytes": c.argument_bytes, "trace_s": lowered.seconds,
+            "traces": len(lowered.traces), "roofline": roof.as_dict(),
+            "roofline_step_ms": 1e3 * roof.step_time_s,
+            "step_ms": {"first": first_ms, "next": step_ms}}
+
+
+def p11_retrieval(seed: int, mods: dict) -> tuple:
+    """11c: the retrieval serve step at 9c's shape (minitron-8b CONFIG, a
+    cache of 262,144 positions, batch 1), traced on fake CUDA tensors (one
+    call of each search kernel's op) and run for real after a warm-up step
+    under torch.profiler (exactly one launch of each); each kernel's
+    credited FLOPs and bytes beside its device ms, and the host cost of its
+    operator's dispatch (`p11_dispatch`, on the warm-up step's arguments).
+    Returns (line, the counted launches of the profiled step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core import retrieval_memory as rm
+    from repro_torch.launch import steps as st
+    from repro_torch.models.model import DecoderLM, init_caches
+
+    cfg = get_config("minitron-8b")
+    positions = 262_144
+    mem = rm.RetrievalMemoryConfig()
+    lowered, _ = st.lower_cell(cfg, ShapeSpec("9c", positions, 1, "decode"), None,
+                               retrieval=(mem.n_retrieved, mem.local_window), device=DEV.type)
+    c = lowered.counts
+    traced = {n: f"repro_torch.{n}" for n in P11_KERNELS}
+    for n, op in traced.items():
+        check(c.calls.get(op) == 1, f"11c: the trace counts {c.calls.get(op)} calls of {op}")
+    gen = torch.Generator(device=DEV).manual_seed(seed + 111)
+    model = DecoderLM(cfg, device=DEV, generator=gen)
+    caches = init_caches(cfg, 1, positions, device=DEV)
+    for cache in caches:
+        for state in cache.values():
+            state.normal_(generator=gen)
+    index = rm.build_memory_index(rm.key_summary(caches[0]["k"][0, 0]), mem,
+                                  rm.make_projection(gen, cfg.head_dim))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1), generator=gen, device=DEV)
+    step = st.make_retrieval_serve_step(cfg, mem)
+    args = {}
+    ops = {n: mods[n]._OP for n in P11_KERNELS}
+
+    def capture(n, op):                 # the warm-up step's kernel arguments, for p11_dispatch
+        def call(*a):
+            args[n] = a
+            return op(*a)
+        return call
+
+    for n, op in ops.items():
+        mods[n]._OP = capture(n, op)
+    try:
+        step(model, caches, index, tokens[0], positions - 2)         # warm-up, not counted
+    finally:
+        for n, op in ops.items():
+            mods[n]._OP = op
+    torch.cuda.synchronize()
+    reset(mods)
+    launched = p11_profile(lambda: step(model, caches, index, tokens[1], positions - 1), P11_KERNELS)
+    launches = counts(mods)
+    for n in P11_KERNELS:
+        check(len(launched[n]) == 1 and launches[n] == 1,
+              f"11c: the real step launched {n} {launches[n]} times, profiled {len(launched[n])}")
+    dispatch = p11_dispatch(mods, args)
+    return {"config": "make_retrieval_serve_step, minitron-8b CONFIG, bf16, random weights; "
+                      "RetrievalMemoryConfig's defaults",
+            "reduced": f"cache of {positions} positions (long_500k: 524,288), batch 1",
+            "trace_s": lowered.seconds,
+            "kernels": {n: {"traced_calls": c.calls[op], "profiled_launches": len(launched[n]),
+                            "flops_credited": c.flops_by_op[op],
+                            "bytes_credited": c.bytes_by_op[op],
+                            "device_ms": launched[n][0], "host_us": dispatch[n]}
+                        for n, op in traced.items()}}, launches
+
+
+def p11_real(seed: int) -> tuple:
+    """11b and 11c in a child process (the card to itself): the kernels are
+    built already; returns (11b's line, 11c's line, 11c's launches)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mods = {name: importlib.import_module(f"repro_torch.kernels.{src}")
+            for name, (src, _) in KERNELS.items()}
+    line_b = p11_step(seed)
+    torch.cuda.empty_cache()
+    line_c, launches = p11_retrieval(seed, mods)
+    return line_b, line_c, launches
+
+
+def phase11(seed: int, smi: str) -> list:
+    """Phase 11, the dry run, after every other phase: 11a's cells at once,
+    a child process each (the card idle: nothing else runs), then 11b and
+    11c in a child of their own.  Prints one line per part; returns 11c's
+    counted launches."""
+    import concurrent.futures
+    import multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(len(DRYRUN_CELLS), mp_context=mp.get_context("spawn"),
+                                                max_tasks_per_child=1) as pool:
+        recs = list(pool.map(p11_cell, *zip(*DRYRUN_CELLS)))
+    cells_s = time.perf_counter() - t0
+    for rec in recs:
+        check(rec.get("status") == "OK", f"11a: {rec['arch']} {rec['shape']} {rec['mesh']}: "
+                                         f"{rec.get('status')}")
+        use = rec["roofline"]
+        emit({"phase": "11a", "cell": f"{rec['arch']} {rec['shape']} {rec['mesh']}",
+              "kind": rec["kind"], "nvidia_smi": smi, "fake": "CUDA fake tensors, a fake "
+              "process group of the mesh's size, rank 0 traced; H100 data-sheet roofline",
+              "C_ms": 1e3 * use["compute_s"], "M_ms": 1e3 * use["memory_s"],
+              "X_ms": 1e3 * use["collective_s"], "bottleneck": use["bottleneck"],
+              "model_flops_ratio": rec["model_flops_ratio"],
+              "temp_bytes_per_rank": rec["memory"]["temp_size_in_bytes"],
+              "argument_bytes_per_rank": rec["memory"]["argument_size_in_bytes"],
+              "trace_s": rec["lower_s"], "probe_s": rec.get("probe_s"),
+              "kernel_calls": rec["calls"], "roofline_raw_step_s": rec["roofline_raw"]["step_time_s"]})
+        if rec["retrieval"]:
+            check(all(rec["calls"].get(f"repro_torch.{n}") == 1 for n in P11_KERNELS),
+                  f"11a: the retrieval cell traced {rec['calls']}")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as pool:
+        line_b, line_c, launches = pool.submit(p11_real, seed).result()
+    emit({"phase": "11b", "nvidia_smi": smi, **line_b})
+    emit({"phase": "11c", "nvidia_smi": smi, **line_c})
+    emit({"phase": 11, "nvidia_smi": smi, "cells_seconds": cells_s,
+          "seconds": time.perf_counter() - t0})
+    return [launches]
+
+
 def kernels_line(max_err: dict, timings: dict, launches: dict) -> dict:
     """One entry per kernel: launches on the paths (phase 4's for a kernel
     on no path), largest error against the plain version over every check,
@@ -4364,6 +4623,20 @@ def main() -> int:
     runs = phase2(seed, api, PAPER_GRID, K, mods, timings)
     runs += phase3(seed, api, PROD_GRID, 10, mods, timings)
     runs.append(phase4(seed, mods, timings))
+    runs += phases_5_to_11(seed, api, mods, smi, timings)
+    launches = {name: sum(r[name] for r in runs) for name in KERNELS}
+    emit(kernels_line(max_err, timings, launches))
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def phases_5_to_11(seed, api, mods, smi, timings) -> list:
+    """Phases 5-11 in order; returns their counted runs."""
+    from repro_torch.configs.paper_active_search import K, PAPER_GRID, PROD_GRID
+
+    runs = []
     runs += phase5_paper(seed, api, PAPER_GRID, K, mods, smi)
     runs += phase5_sift(seed, api, PROD_GRID, 10, mods, smi)
     runs += phase6_sharded(seed, api, PAPER_GRID, K, mods, smi)
@@ -4390,12 +4663,9 @@ def main() -> int:
         runs += phase10(seed, smi, ckpt, ckpt_step, losses[ckpt_step:ckpt_step + 2])
     finally:
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    launches = {name: sum(r[name] for r in runs) for name in KERNELS}
-    emit(kernels_line(max_err, timings, launches))
-    print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
-    return 0
+    torch.cuda.empty_cache()
+    runs += phase11(seed, smi)
+    return runs
 
 
 if __name__ == "__main__":

@@ -151,13 +151,40 @@ def make_mesh(shape: dict, device=None) -> Mesh:
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
-    shape = {"pod": 2, "data": 16, "model": 16} if multi_pod else {"data": 16, "model": 16}
-    return make_mesh(shape, device)
+    return make_mesh(production_shape(multi_pod), device)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, device=None) -> Mesh:
     """A (data, model) mesh over the ranks (tests / smoke runs)."""
     return make_mesh({"data": data, "model": model}, device)
+
+
+def make_fake_mesh(shape: dict, device="cuda") -> Mesh:
+    """A mesh of `shape` (axis name -> size) on `device`'s type over a
+    fake process group of as many ranks, of which this process is rank 0:
+    the dry run's stand-in for a cluster (every rank runs the same SPMD
+    program, so rank 0's counts are each chip's).  Its collectives do
+    nothing; the fake tensors they meet give their output shapes.  A
+    process group is process-global: a fake one of another size is
+    replaced, a real one raises."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    world = math.prod(shape.values())
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError("a real process group is running: the dry run needs a process "
+                               "of its own")
+        if dist.get_world_size() != world:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    return Mesh(init_device_mesh(torch.device(device).type, tuple(shape.values()),
+                                 mesh_dim_names=tuple(shape)))
+
+
+def production_shape(multi_pod: bool = False) -> dict:
+    return {"pod": 2, "data": 16, "model": 16} if multi_pod else {"data": 16, "model": 16}
 
 
 def mesh_chips(mesh) -> int:

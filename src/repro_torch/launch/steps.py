@@ -7,10 +7,16 @@ or the caches to the step.  Eager PyTorch has neither: a factory here
 returns a plain function on the device its inputs live on.  The train
 step builds a new state (the old one is freed once the caller drops it);
 the serve steps update the decode caches in place, as
-`DecoderLM.decode_step` does.  The reference's `lower_cell`, the dry
-run's entry point, has no counterpart yet.  The serve factories keep the
-reference's signatures: the `m` of `retrieval=(m, local_window)` shapes
-the reference's jitted step, and nothing reads it here.
+`DecoderLM.decode_step` does.  The serve factories keep the reference's
+signatures: the `m` of `retrieval=(m, local_window)` shapes the
+reference's jitted step, and nothing reads it here.
+
+`lower_cell`, the dry run's entry point, runs a cell's step once on fake
+tensors (`FakeTensorMode`: shapes and dtypes, nothing allocated) and
+counts what it runs (`utils/trace.py`), where the reference lowers the
+jitted step for XLA.  Over a mesh of a fake process group
+(`launch.mesh.make_fake_mesh`) the inputs are this rank's shards, so the
+counts are per chip as the reference's.
 
 With `mesh` (a `launch.mesh.Mesh`; one rank per device) a factory's step
 takes the reference's layouts: the state's leaves are DTensors placed by
@@ -40,8 +46,11 @@ from typing import Callable
 
 import torch
 
+from repro_torch.configs import shapes as shp
 from repro_torch.core import retrieval_memory as rmem
 from repro_torch.core.engine import ActiveSearcher
+from repro_torch.core.grid import GridIndex
+from repro_torch.core.projection import Projection
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
@@ -50,6 +59,8 @@ from repro_torch.optim import adamw, compression
 from repro_torch.parallel import axes
 from repro_torch.parallel import sharding as sh
 from repro_torch.parallel.sharding import P
+from repro_torch.utils import scan as uscan
+from repro_torch.utils import trace
 from repro_torch.utils import tree
 
 
@@ -211,7 +222,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
             p.requires_grad_(True)
         try:
             with on_mesh(mesh, cfg, b):
-                for mb in _microbatches(batch, accum):
+                mbs = _microbatches(batch, accum)
+                for mb in (mbs[i] for i in uscan.steps(accum, "microbatch")):
                     if mesh is not None:
                         mb = _place(mesh, mb, sh.batch_specs(mb, mesh, cfg))
                     used = compute(params)
@@ -377,3 +389,175 @@ def make_retrieval_serve_step(cfg: ModelConfig, mem_cfg: rmem.RetrievalMemoryCon
             return out if mesh is None else _serve_out(mesh, cfg, *out)
 
     return serve_step
+
+
+# ----------------------------------------------------- dry-run cell entry ----
+
+
+@dataclasses.dataclass
+class Lowered:
+    """A traced cell: the counts of one step on this rank (`counts`, a
+    `utils.trace.TraceCounts`), the traces' host seconds, the traces the
+    counts were extrapolated from (`traces`), and the token loops' trip
+    count where the cell has them (`loop_trips`)."""
+
+    counts: trace.TraceCounts
+    seconds: float
+    traces: list
+    loop_trips: int | None = None
+
+
+def _fake(meta: torch.Tensor, device, mesh=None, spec=None):
+    """An empty tensor shaped as `meta` on `device` (under FakeTensorMode:
+    nothing allocated); with `mesh`, this rank's shard of it placed by
+    `spec` as a DTensor."""
+    if mesh is None or spec is None:
+        return torch.empty(meta.shape, dtype=meta.dtype, device=device)
+    part = sh.local_slices(tuple(meta.shape), mesh, spec)
+    local = torch.empty(tuple(p.stop - p.start for p in part), dtype=meta.dtype, device=device)
+    return sh.from_shard(local, mesh, spec, meta.shape)
+
+
+def _fakes(metas, device, mesh=None, specs=None):
+    if mesh is None:
+        return tree.map(lambda m: _fake(m, device), metas)
+    return tree.map(lambda m, s: _fake(m, device, mesh, s if m.dim() else None), metas, specs)
+
+
+def _fake_model(cfg: ModelConfig, device, mesh=None) -> M.DecoderLM:
+    """A serving model of fake weights, placed by `param_specs` on `mesh`."""
+    metas = M.init_params(cfg, "meta")
+    specs = None if mesh is None else sh.param_specs(metas, cfg, mesh)
+    return M.model_from_params(cfg, _fakes(metas, device, mesh, specs))
+
+
+def index_abstract(cfg: ModelConfig, n_keys: int, mem_cfg: rmem.RetrievalMemoryConfig,
+                   device) -> GridIndex:
+    """A memory index of empty tensors shaped as `build_memory_index` over
+    `n_keys` key summaries of `cfg.head_dim` (the reference's
+    `index_abstract`; its build reads data, a bincount's length, so it is
+    not traced)."""
+    g = mem_cfg.grid
+    hd, c = cfg.head_dim, g.n_channels
+
+    def empty(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    i32 = torch.int32
+    levels = tuple(empty((g.padded_size >> lv, g.padded_size >> lv, c), i32)
+                   for lv in range(g.levels))
+    tiles = sum(nb * nb for nb in g.level_nblks)
+    return GridIndex(
+        proj=Projection(empty((hd, 2)), empty((2,)), empty((2,))),
+        points_sorted=empty((n_keys, hd)), coords_sorted=empty((n_keys, 2)),
+        labels_sorted=empty((n_keys,), i32), ids_sorted=empty((n_keys,), i32),
+        offsets=empty((g.padded_size ** 2 + 1,), i32), pyramid=levels, sat=None,
+        pyr_tiles=empty((tiles, g.tile, g.tile, c), i32),
+    )
+
+
+def _cell_step(cfg, shape, mesh, opt_cfg, step_cfg, retrieval, device):
+    """(step, its arguments) of one cell on fake tensors."""
+    if shape.kind == "train":
+        metas = train_state_shapes(cfg, opt_cfg, step_cfg)
+        specs = None if mesh is None else train_state_specs(metas, cfg, mesh)
+        batch = _fakes(shp.batch_specs(cfg, shape), device)
+        return make_train_step(cfg, opt_cfg, step_cfg, mesh=mesh), (
+            _fakes(metas, device, mesh, specs), batch)
+    model = _fake_model(cfg, device, mesh)
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg, mesh=mesh), (model, _fakes(shp.batch_specs(cfg, shape), device))
+    dec = shp.decode_specs(cfg, shape)
+    b = shape.global_batch
+    specs = None if mesh is None else sh.cache_specs(dec["caches"], cfg, mesh, b)
+    caches = _fakes(dec["caches"], device, mesh, specs)
+    token = _fake(dec["token"], device)
+    pos = shape.seq_len - 1     # the steps read it on the host; the cost does not depend on it
+    if retrieval is None:
+        return make_serve_step(cfg, mesh=mesh), (model, caches, token, pos)
+    # e2e: active search INSIDE the traced step (index over one key
+    # summary per cached position)
+    mem_cfg = rmem.RetrievalMemoryConfig(n_retrieved=retrieval[0], local_window=retrieval[1])
+    index = index_abstract(cfg, shape.seq_len, mem_cfg, device)
+    return make_retrieval_serve_step(cfg, mem_cfg, mesh=mesh), (model, caches, index, token, pos)
+
+
+def _trace_cell(cfg, shape, mesh, opt_cfg, step_cfg, retrieval, device) -> trace.TraceCounts:
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        step, args = _cell_step(cfg, shape, mesh, opt_cfg, step_cfg, retrieval, device)
+        _, counts = trace.count_step(step, *args)
+    return counts
+
+
+def lower_cell(
+    cfg: ModelConfig,
+    shape_name,
+    mesh=None,
+    opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
+    step_cfg: StepConfig = StepConfig(),
+    retrieval: tuple[int, int] | None = None,
+    device="cuda",
+):
+    """Trace one (arch x shape x mesh) cell.  Returns (lowered, kind):
+    `lowered` a `Lowered` (the counts of one step on this rank), kind
+    "train" | "prefill" | "decode".
+
+    `shape_name` names a shape of `configs.shapes.SHAPES` (or is a
+    `ShapeSpec`); `mesh` is a `launch.mesh.Mesh` (over a fake process
+    group: `make_fake_mesh`), or None for one device; the fake tensors lie
+    on `device` (the card's type unless the caller asks for the CPU; a
+    retrieval cell traces on the card only, since its search's plain CPU
+    versions read data on the host).  The step's inputs are those the
+    reference's `lower_cell` lowers: the train state or the weights placed
+    by `train_state_specs` / `param_specs`, the global batch, the caches
+    placed by `cache_specs`, a memory index of `shape.seq_len` keys
+    (`retrieval`), and the decode position `seq_len - 1`.
+
+    A cell whose loops repeat alike, the train step's microbatches and
+    the Mamba and sLSTM token loops, is traced with each such loop cut to
+    1 and then 2 of its n iterations (`utils.scan.loop_caps`; both kinds:
+    four traces), and its counts are the affine extrapolation to n
+    (`trace.affine`), one loop kind after the other: exact for every count
+    that each iteration adds alike (the FLOPs, bytes, calls and
+    collectives).  The peak bytes extrapolate the same way along the
+    token loops (where each iteration's states add to it) and are the
+    second microbatch's along the microbatch loop (each later microbatch
+    repeats its memory: the gradients exist from the first on)."""
+    shape = shp.SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
+    args = (cfg, shape, mesh, opt_cfg, step_cfg, retrieval, device)
+
+    raw: list = []
+
+    def traced(caps: dict):
+        with uscan.loop_caps(**caps) as trips:
+            counts = _trace_cell(*args)
+        raw.append(counts)
+        return counts, trips
+
+    first, trips = traced({"token": 1, "microbatch": 1})
+    n = {}
+    for kind, seen in trips.items():
+        if len(seen) > 1:
+            raise ValueError(f"{kind} loops of several lengths {sorted(seen)}: one "
+                             "extrapolation cannot cover them")
+        if seen and max(seen) > 2:
+            n[kind] = max(seen)
+    if not n and all(max(seen, default=1) <= 1 for seen in trips.values()):
+        return Lowered(first, first.seconds, raw), shape.kind   # nothing was cut
+    caps = {kind: (1, 2) if kind in n else (None,) for kind in uscan.LOOP_KINDS}
+    keys = [(kt, km) for kt in caps["token"] for km in caps["microbatch"]]
+    if (1, 1) not in keys:
+        raw.clear()      # the first trace cut a loop of 2 iterations, which runs whole
+    runs = {key: first if key == (1, 1) else traced(dict(zip(uscan.LOOP_KINDS, key)))[0]
+            for key in keys}
+    by_mb = {km: (trace.affine(runs[(1, km)], runs[(2, km)], n["token"]) if "token" in n
+                  else runs[(None, km)]) for km in caps["microbatch"]}
+    if "microbatch" in n:
+        counts = trace.affine(by_mb[1], by_mb[2], n["microbatch"])
+        counts.peak_bytes = by_mb[2].peak_bytes
+    else:
+        counts = by_mb[None]
+    counts.seconds = sum(r.seconds for r in raw)
+    return Lowered(counts, counts.seconds, raw, loop_trips=n.get("token")), shape.kind

@@ -63,7 +63,7 @@ def _head_mask(cfg: ModelConfig, out: torch.Tensor) -> torch.Tensor:
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul over the flattened heads."""
     d, h, k = w.shape
-    return torch.matmul(x, w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+    return axes.unflatten_last(torch.matmul(x, w.to(x.dtype).reshape(d, h * k)), (h, k))
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -192,12 +192,33 @@ def _write_cache(cache: dict, k, v, pos: int) -> None:
         raise IndexError(f"decode position {pos} is outside the cache of {t}")
     for key, new in (("k", k), ("v", v)):
         dst = cache[key]
+        at = pos
         if axes.is_distributed(dst):
-            if any(getattr(p, "dim", None) == 1 for p in dst.placements):
-                raise NotImplementedError("decode into a cache sharded over its positions")
-            new = new.redistribute(dst.device_mesh, dst.placements).to_local()
-            dst = dst.to_local()
-        dst[:, pos] = new[:, 0].to(L.ACT_DTYPE)
+            # a cache sharded over its positions (long_500k's B = 1 gives
+            # the spare DP axes to them): only the rank holding `pos` writes
+            from torch.distributed.tensor import Replicate
+
+            rows = [Replicate() if getattr(p, "dim", None) == 1 else p for p in dst.placements]
+            new = new.redistribute(dst.device_mesh, rows).to_local()
+            start, stop = _positions_held(dst)
+            dst, at = dst.to_local(), pos - start
+            if not start <= pos < stop:
+                continue
+        dst[:, at] = new[:, 0].to(L.ACT_DTYPE)
+
+
+def _positions_held(cache) -> tuple[int, int]:
+    """[start, stop) of the positions (dim 1) this rank's shard of a
+    DTensor cache holds, split as DTensor splits a dim, mesh dims in
+    order (`sharding.local_slices`)."""
+    mesh, coord = cache.device_mesh, cache.device_mesh.get_coordinate()
+    start, stop = 0, cache.shape[1]
+    for i, p in enumerate(cache.placements):
+        if getattr(p, "dim", None) == 1:
+            step = -(-(stop - start) // mesh.size(i))
+            start = min(start + coord[i] * step, stop)
+            stop = min(start + step, stop)
+    return start, stop
 
 
 def decode_attention(params, cfg: ModelConfig, x, cache: dict, pos: int):

@@ -33,6 +33,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import axes
 from repro_torch.parallel.axes import constrain
+from repro_torch.utils import scan as uscan
 
 # weights the reference uses in float32 (the model stores them so)
 F32_WEIGHTS = ("dt_proj", "A_log")
@@ -117,12 +118,12 @@ def mamba_scan(params, cfg: ModelConfig, x_in: torch.Tensor, h0: torch.Tensor,
         if bx.requires_grad or h.requires_grad:
             # training: the same sums, each state a new tensor for autograd
             states = []
-            for i in range(hi - lo):
+            for i in uscan.steps(hi - lo):
                 h = torch.addcmul(bx[:, i], a[:, i], h)
                 states.append(h)
-            bx = torch.stack(states, dim=1)
+            bx = uscan.stack_steps(states, hi - lo, dim=1)
         else:
-            for i in range(hi - lo):
+            for i in uscan.steps(hi - lo):
                 h = torch.addcmul(bx[:, i], a[:, i], h, out=bx[:, i])     # bx[:, i] := h_i
             h = h.clone()                                                 # frees the chunk
         ys.append(torch.einsum("bqds,bqs->bqd", bx, c_ssm[:, lo:hi]))
@@ -140,7 +141,10 @@ def mamba_prefill(params, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tens
     xz = torch.matmul(xd, params["in_proj"].to(xd.dtype))
     xz = constrain(xz, "batch", "seq", "inner")
     x_raw, z = torch.split(xz, din, dim=-1)
-    x_in = _causal_conv(x_raw, params["conv_w"], params["conv_b"])
+    # the pad over the sequence has no DTensor plan on some placements:
+    # on a mesh the conv runs on each rank's batch rows and channels
+    x_in = axes.local_map(_causal_conv, (("batch", "seq", "inner"), (None, "inner"), ("inner",)),
+                          ("batch", "seq", "inner"), x_raw, params["conv_w"], params["conv_b"])
     x_in = F.silu(x_in.to(torch.float32)).to(xd.dtype)
     h0 = torch.zeros((b, din, mc.d_state), dtype=torch.float32, device=x.device)
     # on a mesh the token loop's `addcmul`s have no DTensor rule: the scan

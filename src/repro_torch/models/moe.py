@@ -127,8 +127,8 @@ def _moe_on_mesh(params, cfg: ModelConfig, x) -> tuple:
     def local(h, *leaves):
         r, sq, d = h.shape
         ng, g_, cap = group_shape(cfg, r * sq)
-        y, me, ce = _groups(tree.unflatten(w, iter(leaves)), cfg,
-                            group_tokens(h.reshape(r * sq, d), ng, g_), cap)
+        y, me, ce, _ = _groups(tree.unflatten(w, iter(leaves)), cfg,
+                               group_tokens(h.reshape(r * sq, d), ng, g_), cap)
         return y.reshape(ng * g_, d)[:r * sq].reshape(r, sq, d), me[None], ce[None]
 
     names = ("batch", "seq", "embed")
@@ -161,8 +161,8 @@ def moe_groups(params, cfg: ModelConfig, xt: torch.Tensor,
     in each group -> (y (G, g, d), the Switch aux loss over these groups).
     Groups are independent (each has its own capacity), so a run of whole
     groups gives the same rows as the call over all of them."""
-    y, me, ce = _groups(params, cfg, xt, cap)
-    return y, aux_loss(cfg, me, ce)
+    y, _, _, aux = _groups(params, cfg, xt, cap, aux=True)
+    return y, aux
 
 
 def aux_loss(cfg: ModelConfig, me: torch.Tensor, ce: torch.Tensor) -> torch.Tensor:
@@ -172,8 +172,15 @@ def aux_loss(cfg: ModelConfig, me: torch.Tensor, ce: torch.Tensor) -> torch.Tens
     return torch.sum(me * ce) * (mo.n_experts ** 2) / max(mo.top_k, 1)
 
 
-def _groups(params, cfg: ModelConfig, xt: torch.Tensor, cap: int) -> tuple:
-    """moe_groups' y and the aux loss's statistics over these groups."""
+def _groups(params, cfg: ModelConfig, xt: torch.Tensor, cap: int, aux: bool = False) -> tuple:
+    """moe_groups' y, the aux loss's statistics over these groups, and
+    with `aux` the loss itself (else None).
+
+    The loss and the shared MLP run before the routed experts (the
+    reference computes its loss there too; y = routed + shared adds the
+    same two terms): a remat recompute, which stops at the last tensor
+    the backward saved, then ends before the combine's product, whose
+    output no backward reads, as XLA's rematerialisation leaves it out."""
     mo = cfg.moe
     e = mo.n_total
     r = route(params, cfg, xt, cap)
@@ -181,6 +188,11 @@ def _groups(params, cfg: ModelConfig, xt: torch.Tensor, cap: int) -> tuple:
     mask = F.one_hot(r.top_i, e).to(torch.float32)               # (G, g, k, E)
     me = torch.mean(r.probs, dim=(0, 1))                         # (E,)
     ce = torch.mean(torch.sum(mask, dim=2), dim=(0, 1))
+    loss = aux_loss(cfg, me, ce) if aux else None
+    shared = None
+    if "shared" in params:
+        sh = params["shared"]
+        shared = L.swiglu(xt, sh["wi"], sh["wg"], sh["wo"])
 
     # dispatch / combine: the k slots merged (a token's experts are distinct)
     rank_i = torch.where(r.keep, r.rank, float(cap)).to(torch.int64)   # cap -> dropped
@@ -194,8 +206,6 @@ def _groups(params, cfg: ModelConfig, xt: torch.Tensor, cap: int) -> tuple:
     act = F.silu(gi.to(torch.float32)).to(xt.dtype) * hi
     ye = torch.einsum("GECf,Efd->GECd", act, params["wo"].to(xt.dtype))
     y = torch.einsum("GgEC,GECd->Ggd", combine.to(xt.dtype), ye)
-
-    if "shared" in params:
-        sh = params["shared"]
-        y = y + L.swiglu(xt, sh["wi"], sh["wg"], sh["wo"])
-    return y, me, ce
+    if shared is not None:
+        y = y + shared
+    return y, me, ce, loss

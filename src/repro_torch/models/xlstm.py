@@ -39,7 +39,8 @@ def _sqrt_f32(n: int) -> float:
 
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dh...->bsh...") as one matmul over the flattened heads."""
-    return torch.matmul(x, w.to(x.dtype).reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+    return axes.unflatten_last(torch.matmul(x, w.to(x.dtype).reshape(w.shape[0], -1)),
+                               tuple(w.shape[1:]))
 
 
 # ------------------------------------------------------------------ mLSTM ---
@@ -88,9 +89,19 @@ def _up(params, x: torch.Tensor):
 
 
 def _mlstm_chunk(carry, inp):
-    """One chunk of the chunkwise-parallel form: (c, n) carried in."""
-    c_prev, n_prev = carry
-    qi, ki, vi, lf, ig = inp                                    # (B, Q, nh, ...)
+    """One chunk of the chunkwise-parallel form: (c, n) carried in.  On a
+    mesh it runs on each rank's batch rows (cumsum's backward, a flip, and
+    the chunk's products have no DTensor plan on every placement; the
+    rows are independent)."""
+    parts = (*carry, *inp)
+    names = tuple(("batch",) + (None,) * (t.dim() - 1) for t in parts)
+    c_new, n_new, h = axes.local_map(_mlstm_chunk_rows, names, [names[0], names[1], names[2]],
+                                     *parts)
+    return (c_new, n_new), h
+
+
+def _mlstm_chunk_rows(c_prev, n_prev, qi, ki, vi, lf, ig):
+    """_mlstm_chunk on plain tensors -> (c, n, h)."""
     qc = qi.shape[1]
     clf = torch.cumsum(lf, dim=1)                               # (B, Q, nh)
     # intra-chunk: W[t, u] = exp(clf_t - clf_u) * i_u  for u <= t
@@ -114,7 +125,7 @@ def _mlstm_chunk(carry, inp):
     c_new = c_prev * decay[..., None, None] + torch.einsum(
         "buhk,buhl->bhkl", ki * wk_tail[..., None], vi)
     n_new = n_prev * decay[..., None] + torch.einsum("buhk,buh->bhk", ki, wk_tail)
-    return (c_new, n_new), h
+    return c_new, n_new, h
 
 
 def mlstm_prefill(params, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
@@ -213,7 +224,7 @@ def _slstm_scan(params, cfg: ModelConfig, gx: torch.Tensor, h, c, n, m):
     r = params["r"].to(torch.float32)
     bias = params["bias"]
     hs = []
-    for t in range(gx.shape[1]):
+    for t in uscan.steps(gx.shape[1]):
         rec = torch.einsum("bhk,hkgl->bghl", h.reshape(b, nh, hd), r).reshape(b, 4, din)
         raw = gx[:, t] + rec + bias
         z = torch.tanh(raw[:, 0])
@@ -228,7 +239,7 @@ def _slstm_scan(params, cfg: ModelConfig, gx: torch.Tensor, h, c, n, m):
         h = o * c / torch.clamp_min(n, 1e-6)
         m = m_new
         hs.append(h)
-    return torch.stack(hs, dim=1), (h, c, n, m)
+    return uscan.stack_steps(hs, gx.shape[1], dim=1), (h, c, n, m)
 
 
 def _slstm_gx(params, x: torch.Tensor):

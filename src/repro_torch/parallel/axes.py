@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 from typing import Any
 
 import torch
@@ -192,6 +193,29 @@ def replicated_local(fn, *args):
         return t
 
     return tree.map(wrap, fn(*tree.map(local, list(args))))
+
+
+def unflatten_last(y: torch.Tensor, sizes: tuple) -> torch.Tensor:
+    """`y.unflatten(-1, sizes)`.  On a DTensor whose last dim a mesh dim
+    splits into pieces that are not whole multiples of `sizes[1:]`'s
+    product (DTensor chose to shard a projection's flattened heads, and
+    the heads do not divide over that mesh dim), that mesh dim is
+    replicated first: DTensor cannot split a dim whose shard boundaries
+    fall inside the new trailing dims."""
+    if is_distributed(y):
+        from torch.distributed.tensor import Replicate, Shard
+
+        inner = math.prod(sizes[1:])
+        mesh, place = y.device_mesh, list(y.placements)
+        splits = 1
+        for i, p in enumerate(place):
+            if isinstance(p, Shard) and p.dim in (-1, y.dim() - 1):
+                splits *= mesh.size(i)
+                if sizes[0] % splits:
+                    place[i] = Replicate()
+        if place != list(y.placements):
+            y = y.redistribute(mesh, place)
+    return y.unflatten(-1, sizes)
 
 
 def constrain(x: torch.Tensor, *logical) -> torch.Tensor:

@@ -278,3 +278,135 @@ def cli(rank: int, workdir: str) -> None:
     TT.main(["--device", "cpu", "--smoke", "--steps", "2", "--seq", "16", "--batch", "4",
              "--data", "2", "--model", "2", "--ckpt-dir", os.path.join(workdir, "ckpt"),
              "--ckpt-every", "1"])
+
+
+# ---------------------------------------------- the dry run's mesh repairs ---
+
+
+def _serve_b1(out: dict, mesh) -> int:
+    """internlm2 SMOKE's serve and retrieval serve steps at batch 1 on
+    `mesh`: the batch takes no DP axis, so the caches' positions are
+    sharded over 'data' (64 positions, 32 a rank) and the four decode
+    positions 30-33 cross the shard boundary.  Returns how many writes
+    went to a cache sharded over its positions."""
+    from repro_torch.models import attention as A
+
+    cfg = get_smoke("internlm2-1.8b")
+    params = M.init_params(cfg, "cpu", torch.Generator().manual_seed(5))
+    one = M.model_from_params(cfg, params)
+    on_mesh = M.model_from_params(cfg, sh.distribute_tree(
+        params, sh.param_specs(params, cfg, mesh), mesh))
+    g = torch.Generator().manual_seed(6)
+    t_len = 64
+    caches = [{k: torch.randn(v.shape, generator=g).to(v.dtype) for k, v in c.items()}
+              for c in M.init_caches(cfg, 1, t_len, "cpu")]
+    keys = torch.randn((t_len, cfg.head_dim), generator=g)
+    mem = rmem.RetrievalMemoryConfig(n_retrieved=8, local_window=4,
+                                     grid=GridConfig(**MEMORY_GRID))
+    index = rmem.build_memory_index(keys, mem, rmem.make_projection(g, cfg.head_dim))
+    tokens = torch.randint(0, cfg.vocab_size, (4, 1), generator=g)
+    held = A._positions_held
+    writes = []
+    A._positions_held = lambda cache: writes.append(1) or held(cache)
+    try:
+        for tag, model, m in (("one", one, None), ("mesh", on_mesh, mesh)):
+            for name, fn, args in (
+                    ("serve", st.make_serve_step(cfg, mesh=m), ()),
+                    ("retrieval", st.make_retrieval_serve_step(cfg, mem, mesh=m), (index,))):
+                cs = [{k: v.clone() for k, v in c.items()} for c in caches]
+                for i in range(4):
+                    logits, cs, hidden = fn(model, cs, *args, tokens[i], 30 + i)
+                    out[f"b1_{name}/{tag}/{i}/logits"] = sh.gather(logits).numpy()
+                    out[f"b1_{name}/{tag}/{i}/hidden"] = sh.gather(hidden).numpy()
+                for key in ("k", "v"):
+                    out[f"b1_{name}/{tag}/{key}"] = sh.gather(cs[0][key]).numpy()
+                if m is not None:
+                    out[f"b1_{name}/positions_sharded"] = np.asarray(any(
+                        getattr(p, "dim", None) == 2 for p in cs[0]["k"].placements))
+    finally:
+        A._positions_held = held
+    return len(writes)
+
+
+def _recurrent(out: dict, mesh, arch: str) -> None:
+    """`arch`'s SMOKE prefill step and train step (float32, no compute
+    copy) on `mesh` against one device: Mamba's causal conv and the mLSTM
+    chunk run per rank under `local_map` there."""
+    cfg = get_smoke(arch)
+    params = M.init_params(cfg, "cpu", torch.Generator().manual_seed(7))
+    one = M.model_from_params(cfg, params)
+    on_mesh = M.model_from_params(cfg, sh.distribute_tree(
+        params, sh.param_specs(params, cfg, mesh), mesh))
+    g = torch.Generator().manual_seed(8)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 32), generator=g)
+    for tag, model, m in (("one", one, None), ("mesh", on_mesh, mesh)):
+        logits, caches, hidden = st.make_prefill_step(cfg, mesh=m)(model, {"tokens": tokens})
+        out[f"{arch}/prefill/{tag}/logits"] = sh.gather(logits).numpy()
+        out[f"{arch}/prefill/{tag}/hidden"] = sh.gather(hidden).numpy()
+        for i, c in enumerate(caches):
+            for k, v in c.items():
+                out[f"{arch}/prefill/{tag}/cache/{i}/{k}"] = sh.gather(v).numpy()
+    step_cfg = st.StepConfig(bf16_compute_copy=False)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    for tag, m in (("one", None), ("mesh", mesh)):
+        state = st.init_train_state(torch.Generator().manual_seed(9), cfg, OPT, step_cfg,
+                                    device="cpu", mesh=m)
+        state, metrics = st.make_train_step(cfg, OPT, step_cfg, mesh=m)(state, batch)
+        out.update({f"{arch}/train/{tag}/{k}": v for k, v in _flat(state["params"]).items()})
+        out.update({f"{arch}/train/{tag}/metric/{k}": v.numpy() for k, v in metrics.items()})
+
+
+def _kv_split(out: dict, mesh) -> int:
+    """minitron SMOKE with 6 heads and 3 kv heads, its prefill step on
+    `mesh` (DTensor splits the k and v projections' flattened heads over
+    model 2, as it splits 8 kv heads' over 16 at full size) against one
+    device.  Returns how many projections had their flattened heads split
+    where the heads do not divide the split."""
+    import dataclasses
+
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.parallel import axes
+
+    cfg = dataclasses.replace(get_smoke("minitron-8b"), n_heads=6, n_kv_heads=3)
+    params = M.init_params(cfg, "cpu", torch.Generator().manual_seed(10))
+    one = M.model_from_params(cfg, params)
+    on_mesh = M.model_from_params(cfg, sh.distribute_tree(
+        params, sh.param_specs(params, cfg, mesh), mesh))
+    tokens = torch.randint(0, cfg.vocab_size, (4, 16), generator=torch.Generator().manual_seed(11))
+    unflatten = axes.unflatten_last
+    split = []
+
+    def spy(y, sizes):
+        if axes.is_distributed(y):
+            ways = [y.device_mesh.size(i) for i, p in enumerate(y.placements)
+                    if isinstance(p, Shard) and p.dim in (-1, y.dim() - 1)]
+            split.append(sizes[0] % max(1, int(np.prod(ways))) != 0)
+        return unflatten(y, sizes)
+
+    axes.unflatten_last = spy
+    try:
+        for tag, model, m in (("one", one, None), ("mesh", on_mesh, mesh)):
+            logits, caches, hidden = st.make_prefill_step(cfg, mesh=m)(model, {"tokens": tokens})
+            out[f"kv_split/{tag}/logits"] = sh.gather(logits).numpy()
+            out[f"kv_split/{tag}/hidden"] = sh.gather(hidden).numpy()
+            out[f"kv_split/{tag}/k"] = sh.gather(caches[0]["k"]).numpy()
+    finally:
+        axes.unflatten_last = unflatten
+    return sum(split)
+
+
+def repairs(rank: int, workdir: str) -> None:
+    """The code the dry run's 16 x 16 traces repaired, run with values: a
+    decode at batch 1 into caches sharded over their positions (2 x 2),
+    jamba's and xlstm's prefill and train steps, and a prefill whose kv
+    heads do not divide the model axis, all on 2 x 2; each against one
+    device, float32."""
+    L.ACT_DTYPE = torch.float32
+    out = {}
+    mesh = make_host_mesh(2, 2, device="cpu")
+    out["b1_position_writes"] = np.asarray(_serve_b1(out, mesh))
+    for arch in ("jamba-v0.1-52b", "xlstm-125m"):
+        _recurrent(out, mesh, arch)
+    out["kv_split_replicated"] = np.asarray(_kv_split(out, mesh))
+    _save(workdir, "repairs.npz", out)

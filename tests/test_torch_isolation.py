@@ -51,7 +51,8 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.configs.minitron_8b", "repro_torch.configs.xlstm_125m",
             "repro_torch.utils.scan", "repro_torch.launch.mesh", "repro_torch.parallel.sharding",
             "repro_torch.parallel.axes", "repro_torch.launch.steps",
-            "repro_torch.optim.compression"} <= set(mods)
+            "repro_torch.optim.compression", "repro_torch.launch.dryrun",
+            "repro_torch.launch.roofline", "repro_torch.utils.trace"} <= set(mods)
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():
