@@ -1,0 +1,8 @@
+"""batch_ms_p95: the 95th percentile of every search call's host time, call to synchronize."""
+
+from perfbench.harness.stats import p95
+
+
+def read(run):
+    v = p95(run.times("search"))
+    return None if v is None else 1e3 * v

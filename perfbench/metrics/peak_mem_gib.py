@@ -1,0 +1,5 @@
+"""peak_mem_gib: max_memory_allocated over the window, reset at its start, in GiB."""
+
+
+def read(run):
+    return None if run.peak_bytes is None else run.peak_bytes / 2**30
