@@ -338,7 +338,7 @@ NO_PATH = ("flash_attention",)  # no path of the system calls it: phase 4 only
 PATHS = {name: "phases 2, 3, 5, 6, 7, 8, 9, 10, 11" for name in FUSED_PATH}
 PATHS["brute_knn"] = "phases 2, 3, 5, 6, 7, 8"
 F32_EPS = float(np.finfo(np.float32).eps)
-LOOP_STATS = ("radius", "count", "iters", "converged", "tile_dmas_skipped")
+LOOP_STATS = ("radius", "count", "iters", "converged")
 
 
 def emit(obj) -> None:
@@ -535,14 +535,18 @@ def loop_args(tiles, q_grid, r0, k, k_hi, cfg) -> tuple:
 
 def hold_loop(mods, label, args, metric, early_exit=True) -> dict:
     """The loop kernel and its plain version (the lock-step loop) on the
-    same card tensors, all five stats exactly equal; returns the plain
-    version's stats."""
+    same card tensors, all four outputs exactly equal, and the reference's
+    tile_dmas_skipped from the kernel's outputs (`ref.dmas_skipped`) equal
+    to the lock-step loop's own count; returns the plain version's stats."""
     from repro_torch.kernels import ref
 
     got = mods["radius_search_loop"].radius_search_loop(*args, metric=metric,
                                                         early_exit=early_exit)
     want = ref.radius_search_loop(*args, metric=metric, early_exit=early_exit)
     same_loop_stats(got, want, f"radius_search_loop {label}")
+    check(torch.equal(ref.dmas_skipped(got["iters"], got["converged"], early_exit),
+                      want["tile_dmas_skipped"]),
+          f"radius_search_loop {label}: tile_dmas_skipped differs from the lock-step loop's")
     return want
 
 
@@ -595,8 +599,7 @@ def time_loop(mods, index, cfg, q_grid, k, shape: str) -> dict:
     kernel = mods["radius_search_loop"].radius_search_loop
     ms, _ = time_ms(lambda: kernel(*args, metric=cfg.metric))
     plain_ms, _ = time_ms(lambda: ref.radius_search_loop(*args, metric=cfg.metric), reps=3)
-    # the launch alone, without the wrapper's tile_dmas_skipped reduction
-    # and its host time
+    # the launch alone, without the wrapper's host time
     kernel_ms = device_ms(lambda: kernel(*args, metric=cfg.metric), "radius_search_loop_kernel")
     cells = [circle_cells(q_grid[act], r[act], ref.level_for_radius(r, t, cfg.levels)[act],
                           t, cfg.level_nblks, cfg.metric) for r, act in passes]
@@ -1516,7 +1519,8 @@ def phase2(seed, api, cfg, k, mods, timings, n=1_000_000, b=4096):
     timings["radius_search_loop"], plain_stats = time_loop(mods, s.index, cfg, q_grid, k,
                                                            f"PAPER_GRID B={b}")
     same_stats(plain_stats, res, "phase 2 ref.radius_search_loop")
-    check(torch.equal(plain_stats["tile_dmas_skipped"], stats["tile_dmas_skipped"]),
+    check(torch.equal(plain_stats["tile_dmas_skipped"],
+                      ref.dmas_skipped(stats["iters"], stats["converged"])),
           "phase 2: tile_dmas_skipped differs from the lock-step loop's")
     count_launches = count_at_run("phase 2", s, q, res, mods, chunks=1)
 
@@ -1623,7 +1627,7 @@ def phase2(seed, api, cfg, k, mods, timings, n=1_000_000, b=4096):
         "mean_iters": float(res.iters.float().mean()),
         "converged_frac": float(res.converged.float().mean()),
         "truncated_frac": float(res.truncated.float().mean()),
-        "tile_dmas_skipped": int(stats["tile_dmas_skipped"]),
+        "tile_dmas_skipped": int(ref.dmas_skipped(stats["iters"], stats["converged"])),
         "timed_pass_distinct_cells": distinct,
         "recall_at_k_vs_exact": recall(res.ids, truth.ids, k),
         "class_agreement_vs_exact": {
@@ -1831,7 +1835,7 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
         "mean_iters": float(res.iters.float().mean()),
         "converged_frac": float(res.converged.float().mean()),
         "truncated_frac": float(res.truncated.float().mean()),
-        "tile_dmas_skipped": int(stats["tile_dmas_skipped"]),
+        "tile_dmas_skipped": int(ref.dmas_skipped(stats["iters"], stats["converged"])),
         "recall_at_k_vs_exact": recall(res.ids, truth.ids, k),
         "exact": {"launches_search": exact_launches, **exact_rec},
         "count_at": {"launches": count_launches, "totals_equal_loop_counts": True},

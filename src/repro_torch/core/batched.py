@@ -52,6 +52,7 @@ from repro_torch.core.active_search import (
 from repro_torch.core.grid import GridConfig, GridIndex
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import take_slots, window_slots
+from repro_torch.utils.spans import span
 
 
 # --------------------------------------------------------------- counting ----
@@ -119,12 +120,9 @@ def lockstep_radius_loop(count, r0: torch.Tensor, k: int, k_hi: int, r_max: int,
     None.  Finished lanes freeze while the rest iterate; the loop asks the
     device once per pass whether a lane is still live.  A lane that hits
     keeps its in-loop count; the others are counted once more at their
-    final radius (only they when `masked`, every lane otherwise).
-    `tile_dmas_skipped` is 4 per parked lane per pass plus 4 per converged
-    lane at the recount when `masked` (the 2x2-cover tile loads the
-    reference's TPU kernel elides), else 0.  The sat counter's host loop
-    and the pyramid counter's plain version (`ref.radius_search_loop`) run
-    it."""
+    final radius (only they when `masked`, every lane otherwise).  The sat
+    counter's host loop and the pyramid counter's plain version
+    (`ref.radius_search_loop`) run it."""
     b = r0.shape[0]
     dev = r0.device
     i32 = dict(dtype=torch.int32, device=dev)
@@ -133,7 +131,6 @@ def lockstep_radius_loop(count, r0: torch.Tensor, k: int, k_hi: int, r_max: int,
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     best = torch.full((b,), r_max + 1, **i32)
     n_hit = torch.zeros((b,), **i32)
-    skipped = torch.zeros((), **i32)
 
     while True:
         active = (t < max_iters) & ~done
@@ -148,8 +145,6 @@ def lockstep_radius_loop(count, r0: torch.Tensor, k: int, k_hi: int, r_max: int,
         step = torch.where(n < k, 1, -1).to(torch.int32)
         r_new = torch.where((r_new == r) & ~hit, r + step, r_new)
         r_next = torch.where(hit, r, torch.clamp(r_new, 1, r_max))
-        if masked:
-            skipped = skipped + 4 * (~active).sum(dtype=torch.int32)
         t = torch.where(active, t + 1, t)
         r = torch.where(active, r_next, r)
         # a lane that hits at radius r keeps r as its final radius, so the
@@ -164,7 +159,6 @@ def lockstep_radius_loop(count, r0: torch.Tensor, k: int, k_hi: int, r_max: int,
     )
     if masked:
         n_final = torch.where(converged, n_hit, count(r_final, ~converged))
-        skipped = skipped + 4 * converged.sum(dtype=torch.int32)
     else:
         n_final = count(r_final, None)
     return {
@@ -172,7 +166,6 @@ def lockstep_radius_loop(count, r0: torch.Tensor, k: int, k_hi: int, r_max: int,
         "count": n_final,
         "iters": t,
         "converged": converged,
-        "tile_dmas_skipped": skipped,
     }
 
 
@@ -184,20 +177,19 @@ def radius_search_batched(
     adaptive_r0: bool = False,
     early_exit: bool = True,
 ) -> dict[str, torch.Tensor]:
-    """Eq. 1 for a whole batch: radius, count, iters, converged (B,) and
-    the scalar `tile_dmas_skipped`, lane for lane the reference's.
+    """Eq. 1 for a whole batch: radius, count, iters, converged (B,), lane
+    for lane the reference's.  The reference's count of the 2x2-cover
+    tile loads its TPU kernel elides follows from iters and converged
+    alone: `kernels.ref.dmas_skipped`.
 
     Pyramid counter: ONE `ops.radius_search_loop` call.  On the card that
     is one launch that runs every lane's loop and recount, with no host
     read; on the CPU the plain lock-step loop, where each pass counts the
-    live lanes and finished lanes freeze.  `tile_dmas_skipped` counts the
-    2x2-cover tile loads the reference's TPU kernel elides: 4 per parked
-    lane per lock-step pass and 4 per converged lane at the recount.
+    live lanes and finished lanes freeze.
 
     early_exit=False is the reference's unmasked schedule (every lane
     counted every pass and recounted at the end): the same radius, count,
-    iters and converged, with tile_dmas_skipped 0.  On the card it runs
-    the same kernel.
+    iters and converged.  On the card it runs the same kernel.
 
     The sat counter keeps the lock-step loop on the host (an O(1)
     integral-image lookup, no tiles to skip; one sync per pass).
@@ -411,30 +403,35 @@ def _search_impl(
     d_chunk: int | None,
     adaptive_r0: bool,
 ) -> SearchResult:
-    q_grid = proj_lib.to_grid_coords(index.proj, queries, cfg.grid_size)  # (B, 2)
-    stats = radius_search_batched(index, cfg, q_grid, k, adaptive_r0=adaptive_r0)
+    with span("asnn.project"):
+        q_grid = proj_lib.to_grid_coords(index.proj, queries, cfg.grid_size)  # (B, 2)
+    with span("asnn.loop"):
+        stats = radius_search_batched(index, cfg, q_grid, k, adaptive_r0=adaptive_r0)
     r = stats["radius"]
-    start, end = window_spans(index, cfg, q_grid)                   # (B, w)
-    truncated = ((2 * r + 1) > cfg.window) | torch.any(end - start > cfg.row_cap, dim=-1)
+    with span("asnn.windows"):
+        start, end = window_spans(index, cfg, q_grid)               # (B, w)
+        truncated = ((2 * r + 1) > cfg.window) | torch.any(end - start > cfg.row_cap, dim=-1)
 
-    outd, outi = select(index, cfg, q_grid, queries, (start, end), k, mode, r, d_chunk)
+    with span("asnn.select"):
+        outd, outi = select(index, cfg, q_grid, queries, (start, end), k, mode, r, d_chunk)
 
     # record assembly: one (B, k) gather per field from the padded CSR arrays
-    _pts, _crd, lab, ids, _n, _n_pad = padded_csr(index, cfg.row_cap)
-    sel_valid = torch.isfinite(outd)
-    idx = torch.clamp_min(outi, 0).long()
-    none = torch.full_like(outi, -1)
-    return SearchResult(
-        ids=torch.where(sel_valid, ids[idx], none),
-        dists=outd,
-        labels=torch.where(sel_valid, lab[idx], none),
-        valid=sel_valid,
-        radius=stats["radius"],
-        count=stats["count"],
-        iters=stats["iters"],
-        converged=stats["converged"],
-        truncated=truncated,
-    )
+    with span("asnn.assemble"):
+        _pts, _crd, lab, ids, _n, _n_pad = padded_csr(index, cfg.row_cap)
+        sel_valid = torch.isfinite(outd)
+        idx = torch.clamp_min(outi, 0).long()
+        none = torch.full_like(outi, -1)
+        return SearchResult(
+            ids=torch.where(sel_valid, ids[idx], none),
+            dists=outd,
+            labels=torch.where(sel_valid, lab[idx], none),
+            valid=sel_valid,
+            radius=stats["radius"],
+            count=stats["count"],
+            iters=stats["iters"],
+            converged=stats["converged"],
+            truncated=truncated,
+        )
 
 
 def search(

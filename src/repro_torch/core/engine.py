@@ -55,6 +55,7 @@ from repro_torch.core.grid import (
     flatten_pyramid_tiles,
     resolve_device,
 )
+from repro_torch.utils.spans import span
 
 _MODES = ("refined", "paper")
 
@@ -353,12 +354,13 @@ class ActiveSearcher:
             return dataclasses.replace(
                 self, index=dist.stacked_snapshot(state, self.cfg), mutable=state
             )
-        state, report = mut.insert_tracked(self._mutable_state(), self.cfg, points,
-                                           labels=labels, ids=ids)
-        new = dataclasses.replace(
-            self, index=mut.snapshot(state, self.cfg), mutable=state
-        )
-        return self._carry_mutation_stats(new, report.compactions, report.compact_s)
+        with span("asnn.insert"):
+            state, report = mut.insert_tracked(self._mutable_state(), self.cfg, points,
+                                               labels=labels, ids=ids)
+            new = dataclasses.replace(
+                self, index=mut.snapshot(state, self.cfg), mutable=state
+            )
+            return self._carry_mutation_stats(new, report.compactions, report.compact_s)
 
     def delete(self, ids) -> "ActiveSearcher":
         """Delete by global point id; returns a NEW handle (see `insert`).
@@ -370,11 +372,12 @@ class ActiveSearcher:
             return dataclasses.replace(
                 self, index=dist.stacked_snapshot(state, self.cfg), mutable=state
             )
-        state = mut.delete(self._mutable_state(), self.cfg, ids)
-        new = dataclasses.replace(
-            self, index=mut.snapshot(state, self.cfg), mutable=state
-        )
-        return self._carry_mutation_stats(new, 0, 0.0)
+        with span("asnn.delete"):
+            state = mut.delete(self._mutable_state(), self.cfg, ids)
+            new = dataclasses.replace(
+                self, index=mut.snapshot(state, self.cfg), mutable=state
+            )
+            return self._carry_mutation_stats(new, 0, 0.0)
 
     def snapshot(self) -> "ActiveSearcher":
         """A frozen handle over the current contents.
@@ -441,13 +444,14 @@ class ActiveSearcher:
         mode="refined": candidates re-ranked by the true metric in the
                         original space (recommended).
         """
-        self._check_mode(mode)
-        fn = self._impl("search")
-        q = as_tensor(queries, torch.float32, self.device)
-        return run_chunked(
-            lambda c: fn(self, c, k, mode), q, self.plan.chunk_size,
-            empty=lambda: empty_result(k, self.device),
-        )
+        with span("asnn.search"):
+            self._check_mode(mode)
+            fn = self._impl("search")
+            q = as_tensor(queries, torch.float32, self.device)
+            return run_chunked(
+                lambda c: fn(self, c, k, mode), q, self.plan.chunk_size,
+                empty=lambda: empty_result(k, self.device),
+            )
 
     def classify(self, queries, k: int, mode: str = "refined") -> torch.Tensor:
         """kNN classification: (B, d) -> (B,) int32 class predictions."""

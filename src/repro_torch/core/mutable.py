@@ -72,6 +72,7 @@ from repro_torch.core.grid import (
 )
 from repro_torch.core.projection import Projection
 from repro_torch.kernels.ref import level_tile_offsets
+from repro_torch.utils.spans import span
 
 _I32 = torch.int32
 
@@ -405,10 +406,11 @@ def insert(
         ids = m.next_id + torch.arange(mn, dtype=_I32, device=dev)
     ids = as_tensor(ids, _I32, dev)
 
-    coords, cid, rank, fits = _plan_insert(m, cfg, points)
-
-    n_spill = int((~fits).sum())
-    if n_spill and int(m.spill_used) + n_spill > m.spill_capacity:
+    with span("asnn.insert.plan"):
+        coords, cid, rank, fits = _plan_insert(m, cfg, points)
+        n_spill = int((~fits).sum())
+        full = n_spill > 0 and int(m.spill_used) + n_spill > m.spill_capacity
+    if full:
         if on_overflow == "raise":
             raise BucketOverflow(
                 f"insert of {mn} points needs {n_spill} spill slots but only "
@@ -422,10 +424,12 @@ def insert(
         m = compact(m, cfg, spill_capacity=grow)
         return insert(m, cfg, points, labels, ids, on_overflow="raise")
 
-    out = _apply_insert(m, cfg, points, coords, cid, rank, fits, labels, ids,
-                        has_spill=n_spill > 0)
+    with span("asnn.insert.apply"):
+        out = _apply_insert(m, cfg, points, coords, cid, rank, fits, labels, ids,
+                            has_spill=n_spill > 0)
     g = cfg.padded_size
-    tiles = _refresh_tiles(m.pyr_tiles, out.pyramid, cfg, cid // g, cid % g)
+    with span("asnn.insert.tiles"):
+        tiles = _refresh_tiles(m.pyr_tiles, out.pyramid, cfg, cid // g, cid % g)
     return out._replace(pyr_tiles=tiles)
 
 
@@ -482,26 +486,28 @@ def delete(
     ids = as_tensor(ids, _I32, m.device).reshape(-1)
     if ids.shape[0] == 0:
         return m
-    kill_base, kill_spill = _plan_delete(m, ids)
-    kb, ks = _rows(kill_base), _rows(kill_spill)
-    dead_ids = torch.cat([m.base.ids[kb], m.spill.ids[ks]])
-    n_kill = dead_ids.shape[0]
-    # count matched IDS, not slots: duplicate ids (caller-supplied id
-    # collisions) kill every carrier, which must not read as "id not live"
-    n_asked = torch.unique(ids).numel()
-    n_matched = torch.unique(dead_ids).numel()
-    if strict and n_matched != n_asked:
-        raise KeyError(
-            f"delete: {n_asked - n_matched} of {n_asked} ids are not live in "
-            f"the index (already deleted, or never inserted)"
-        )
-    dead_cell = torch.cat([m.base.cell[kb], m.spill.cell[ks]])
-    dead_lab = torch.cat([m.base.labels[kb], m.spill.labels[ks]])
+    with span("asnn.delete.plan"):
+        kill_base, kill_spill = _plan_delete(m, ids)
+        kb, ks = _rows(kill_base), _rows(kill_spill)
+        dead_ids = torch.cat([m.base.ids[kb], m.spill.ids[ks]])
+        n_kill = dead_ids.shape[0]
+        # count matched IDS, not slots: duplicate ids (caller-supplied id
+        # collisions) kill every carrier, which must not read as "id not live"
+        n_asked = torch.unique(ids).numel()
+        n_matched = torch.unique(dead_ids).numel()
+        if strict and n_matched != n_asked:
+            raise KeyError(
+                f"delete: {n_asked - n_matched} of {n_asked} ids are not live in "
+                f"the index (already deleted, or never inserted)"
+            )
+        dead_cell = torch.cat([m.base.cell[kb], m.spill.cell[ks]])
+        dead_lab = torch.cat([m.base.labels[kb], m.spill.labels[ks]])
 
-    out = _apply_delete(m, cfg, kill_base, kill_spill, dead_cell, dead_lab, n_kill)
-    g = cfg.padded_size
-    tiles = _refresh_tiles(m.pyr_tiles, out.pyramid, cfg, dead_cell // g, dead_cell % g)
-    return out._replace(pyr_tiles=tiles)
+    with span("asnn.delete.apply"):
+        out = _apply_delete(m, cfg, kill_base, kill_spill, dead_cell, dead_lab, n_kill)
+        g = cfg.padded_size
+        tiles = _refresh_tiles(m.pyr_tiles, out.pyramid, cfg, dead_cell // g, dead_cell % g)
+        return out._replace(pyr_tiles=tiles)
 
 
 def _in_spill(m: MutableIndex) -> torch.Tensor:
@@ -594,18 +600,19 @@ def snapshot(m: MutableIndex, cfg: GridConfig) -> GridIndex:
     rebuild.  The pyramid and tiles are the state's own tensors, which no
     later update writes to.
     """
-    pts, crd, lab, ids, offsets = _merge_snapshot(m, cfg)
-    return GridIndex(
-        proj=m.proj,
-        points_sorted=pts,
-        coords_sorted=crd,
-        labels_sorted=lab,
-        ids_sorted=ids,
-        offsets=offsets,
-        pyramid=m.pyramid,
-        sat=integral_lib.build_sat(m.pyramid[0]) if cfg.counter == "sat" else None,
-        pyr_tiles=m.pyr_tiles,
-    )
+    with span("asnn.snapshot"):
+        pts, crd, lab, ids, offsets = _merge_snapshot(m, cfg)
+        return GridIndex(
+            proj=m.proj,
+            points_sorted=pts,
+            coords_sorted=crd,
+            labels_sorted=lab,
+            ids_sorted=ids,
+            offsets=offsets,
+            pyramid=m.pyramid,
+            sat=integral_lib.build_sat(m.pyramid[0]) if cfg.counter == "sat" else None,
+            pyr_tiles=m.pyr_tiles,
+        )
 
 
 def quantized_snapshot(m: MutableIndex, cfg: GridConfig):
@@ -631,10 +638,11 @@ def compact(
     """Re-layout with fresh per-cell slack: spill merged back into buckets,
     tombstones reclaimed.  Order-preserving (snapshot's O(N) merge), so the
     searchable contents are unchanged; only the slack geometry moves."""
-    return from_index(
-        snapshot(m, cfg), cfg, slack=slack, min_slack=min_slack,
-        spill_capacity=spill_capacity, next_id=int(m.next_id),
-    )
+    with span("asnn.compact"):
+        return from_index(
+            snapshot(m, cfg), cfg, slack=slack, min_slack=min_slack,
+            spill_capacity=spill_capacity, next_id=int(m.next_id),
+        )
 
 
 def rebuild(m: MutableIndex, cfg: GridConfig, **layout_kw) -> MutableIndex:

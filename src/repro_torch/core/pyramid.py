@@ -149,9 +149,7 @@ def radius_search(
         r0 = seed_radius(index, cfg, q, k)
     else:
         r0 = torch.full((q.shape[0],), cfg.r0, dtype=torch.int32, device=q.device)
-    out = lockstep_radius_loop(
+    return lockstep_radius_loop(
         lambda r, _active: count_total(index, cfg, q, r), r0, k,
         max(k, math.ceil(k * cfg.k_slack)), cfg.max_radius, cfg.max_iters, masked=False,
     )
-    del out["tile_dmas_skipped"]
-    return out

@@ -38,9 +38,14 @@ def radius_search_loop(
     tiles: torch.Tensor, queries, r0, k, k_hi, r_max, max_iters, tile, nblks, metric="l2",
     early_exit=True,
 ):
-    fn = _rsl.radius_search_loop if tiles.is_cuda else ref.radius_search_loop
-    return fn(tiles, queries, r0, k, k_hi, r_max, max_iters, tile, nblks, metric=metric,
-              early_exit=early_exit)
+    """radius, count, iters and converged on either device (the plain
+    version's own count of skipped tile loads is left out)."""
+    if tiles.is_cuda:
+        return _rsl.radius_search_loop(tiles, queries, r0, k, k_hi, r_max, max_iters, tile,
+                                       nblks, metric=metric, early_exit=early_exit)
+    out = ref.radius_search_loop(tiles, queries, r0, k, k_hi, r_max, max_iters, tile, nblks,
+                                 metric=metric, early_exit=early_exit)
+    return {key: out[key] for key in ("radius", "count", "iters", "converged")}
 
 
 def csr_candidate_topk(

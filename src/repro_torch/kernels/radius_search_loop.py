@@ -116,20 +116,16 @@ def radius_search_loop(
     metric: str = "l2",
     early_exit: bool = True,
 ) -> dict:
-    """radius, count, iters (B,) int32, converged (B,) bool and the scalar
-    tile_dmas_skipped, from the CUDA kernel.  CUDA tensors only.
+    """radius, count, iters (B,) int32 and converged (B,) bool, from the
+    CUDA kernel.  CUDA tensors only.
 
     The launch is the operator `torch.ops.repro_torch.radius_search_loop`
     (CUDA only; on fake tensors it gives the output shapes, and the dry
-    run counts its FLOP and byte formulas).
-
-    Lanes iterate on their own, so the lock-step schedule's statistic is
-    recovered on the card: the lock-step loop runs max(iters) passes, and
-    lane b is parked in max(iters) - iters[b] of them and skips its
-    recount when it converged, 4 tile loads each:
-    4 * (B * max(iters) - sum(iters)) + 4 * sum(converged), or 0 when
-    `early_exit` is False (the reference's unmasked schedule, whose other
-    outputs are the same)."""
+    run counts its FLOP and byte formulas).  Lanes iterate on their own;
+    the lock-step schedule's count of skipped tile loads follows from
+    iters and converged (`ref.dmas_skipped`), and nothing computes it
+    here.  `early_exit` is the reference's schedule switch: both schedules
+    give the same outputs, so the kernel takes no notice of it."""
     check_tile_layout(tiles, tile, nblks)
     dev = tiles.device
     if dev.type != "cuda":
@@ -138,18 +134,10 @@ def radius_search_loop(
     _build.check_tensor(tiles, "tiles", torch.int32, tuple(tiles.shape), dev)
     _build.check_tensor(queries, "queries", torch.float32, (b, 2), dev)
     _build.check_tensor(r0, "r0", torch.int32, (b,), dev)
-    i32 = dict(dtype=torch.int32, device=dev)
     if b == 0:
-        empty = torch.empty((0,), **i32)
+        empty = torch.empty((0,), dtype=torch.int32, device=dev)
         return {"radius": empty, "count": empty.clone(), "iters": empty.clone(),
-                "converged": torch.empty((0,), dtype=torch.bool, device=dev),
-                "tile_dmas_skipped": torch.zeros((), **i32)}
+                "converged": torch.empty((0,), dtype=torch.bool, device=dev)}
     radius, count, iters, converged = _OP(tiles, queries, r0, k, k_hi, r_max, max_iters, tile,
                                           len(nblks), metric == "l1")
-    out = {"radius": radius, "count": count, "iters": iters, "converged": converged}
-    if early_exit:
-        parked = b * iters.max() - iters.sum(dtype=torch.int32)
-        skipped = 4 * (parked + converged.sum(dtype=torch.int32))
-    else:
-        skipped = torch.zeros((), **i32)
-    return {**out, "tile_dmas_skipped": skipped.to(torch.int32)}
+    return {"radius": radius, "count": count, "iters": iters, "converged": converged}

@@ -241,22 +241,48 @@ def radius_search_loop(
     each pass is one `tile_count_multilevel` over every lane at its own
     radius's level, parked lanes masked when `early_exit` (the reference's
     schedule; `early_exit=False` counts every lane every pass and gives
-    the same radius, count, iters and converged, with tile_dmas_skipped 0).
-    Returns radius, count, iters, converged and tile_dmas_skipped.  The
-    schedule is core/batched.py's `lockstep_radius_loop`, which owns Eq. 1."""
+    the same radius, count, iters and converged).  The schedule is
+    core/batched.py's `lockstep_radius_loop`, which owns Eq. 1.
+
+    Returns radius, count, iters, converged and, as the reference's loop
+    does, `tile_dmas_skipped`: the 2x2-cover tile loads its TPU kernel
+    elides, counted pass by pass here, 4 per lane a masked count leaves
+    out (0 when `early_exit` is False).  `ops.radius_search_loop` returns
+    the first four alone, as the kernel does; `dmas_skipped` gives the
+    count from them."""
     # imported here: core.batched imports this module
     from repro_torch.core.batched import lockstep_radius_loop
 
     check_tile_layout(tiles, tile, nblks)
+    skipped = torch.zeros((), dtype=torch.int32, device=queries.device)
 
     def count(r, active):
+        nonlocal skipped
+        if active is not None:
+            skipped = skipped + 4 * (~active).sum(dtype=torch.int32)
         levels = level_for_radius(r, tile, len(nblks))
         return tile_count_multilevel(
             tiles, queries, r.to(torch.float32), levels, tile, nblks, metric=metric,
             active=active,
         ).sum(dim=-1, dtype=torch.int32)
 
-    return lockstep_radius_loop(count, r0, k, k_hi, r_max, max_iters, masked=early_exit)
+    out = lockstep_radius_loop(count, r0, k, k_hi, r_max, max_iters, masked=early_exit)
+    return {**out, "tile_dmas_skipped": skipped}
+
+
+def dmas_skipped(iters: torch.Tensor, converged: torch.Tensor, early_exit: bool = True
+                 ) -> torch.Tensor:
+    """The reference's `tile_dmas_skipped` (int32 scalar) from the loop's
+    per-lane outputs: its lock-step loop runs max(iters) passes, and lane
+    b is parked in max(iters) - iters[b] of them and skips its recount
+    when it converged, 4 tile loads each:
+    4 * (B * max(iters) - sum(iters)) + 4 * sum(converged), or 0 when
+    `early_exit` is False (the unmasked schedule skips nothing)."""
+    zero = torch.zeros((), dtype=torch.int32, device=iters.device)
+    if not early_exit or iters.numel() == 0:
+        return zero
+    parked = iters.shape[0] * iters.max() - iters.sum(dtype=torch.int32)
+    return (4 * (parked + converged.sum(dtype=torch.int32))).to(torch.int32)
 
 
 def window_slots(starts, ends, n_pad: int, n: int, row_cap: int):

@@ -337,8 +337,7 @@ def test_retrieval_cell_traces_one_call_of_each_kernel(on_mesh, monkeypatch, req
              early_exit=True):
         out = torch.ops.repro_torch.radius_search_loop(tiles, queries, r0, k, k_hi, r_max,
                                                        max_iters, tile, len(nblks), False)
-        return {**dict(zip(("radius", "count", "iters", "converged"), out)),
-                "tile_dmas_skipped": torch.zeros((), dtype=torch.int32)}
+        return dict(zip(("radius", "count", "iters", "converged"), out))
 
     def csr(store, starts, ends, queries, k, n, row_cap, metric="l2", radii=None,
             center_cells=False, d_chunk=None):

@@ -217,6 +217,9 @@ def test_plain_radius_search_loop_edge_cases_match_reference(metric, adaptive_r0
                                  cfg.max_iters, cfg.tile, cfg.level_nblks, metric=metric)
     for key in ("radius", "count", "iters", "converged", "tile_dmas_skipped"):
         np.testing.assert_array_equal(np_(got[key]), np_(want[key]), err_msg=key)
+    # the helper's count from the per-lane outputs equals the pass-by-pass one
+    assert torch.equal(ref.dmas_skipped(got["iters"], got["converged"]),
+                       got["tile_dmas_skipped"])
     radius, iters, conv = np_(got["radius"]), np_(got["iters"]), np_(got["converged"])
     assert (radius == 1).any() and ((iters == cfg.max_iters) & ~conv).any() and conv.any()
     assert any(bool((r == cfg.max_radius).any()) for r in passes)
@@ -437,6 +440,8 @@ def test_gpu_radius_search_loop_kernel_matches_plain(grid, metric, c, adaptive_r
     want = ref.radius_search_loop(*args, metric=metric)
     torch.cuda.synchronize()
     assert rsl.launches == before + 1
+    assert set(got) == {"radius", "count", "iters", "converged"}
+    got = {**got, "tile_dmas_skipped": ref.dmas_skipped(got["iters"], got["converged"])}
     for key in ("radius", "count", "iters", "converged", "tile_dmas_skipped"):
         np.testing.assert_array_equal(np_(got[key]), np_(want[key]), err_msg=key)
 

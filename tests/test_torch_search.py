@@ -122,8 +122,9 @@ def test_adaptive_r0_matches_reference(l2_pair):
 
 @pytest.mark.parametrize("adaptive_r0", [True, False])
 def test_radius_loop_stats_match_reference(l2_pair, adaptive_r0):
-    """radius, count, iters, converged and tile_dmas_skipped, lane for lane,
-    from the global r0 and from the pyramid-seeded start radii."""
+    """radius, count, iters, converged and, through `ref.dmas_skipped`,
+    tile_dmas_skipped, lane for lane, from the global r0 and from the
+    pyramid-seeded start radii."""
     js, ts, q = l2_pair
     from repro.core import projection as jproj
 
@@ -132,12 +133,23 @@ def test_radius_loop_stats_match_reference(l2_pair, adaptive_r0):
                                           adaptive_r0=adaptive_r0)
     tgrid = torch.from_numpy(np.asarray(jgrid))
     got = batched.radius_search_batched(ts.index, ts.cfg, tgrid, K, adaptive_r0=adaptive_r0)
-    assert set(got) == set(want)
+    assert set(got) | {"tile_dmas_skipped"} == set(want)
     for key in want:
-        np.testing.assert_array_equal(np_(got[key]), np.asarray(want[key]), err_msg=key)
+        np.testing.assert_array_equal(np_(with_dmas(got)[key]), np.asarray(want[key]),
+                                      err_msg=key)
 
 
 STATS = ("radius", "count", "iters", "converged", "tile_dmas_skipped")
+
+
+def with_dmas(stats: dict, early_exit: bool = True) -> dict:
+    """The loop's four outputs and the reference's tile_dmas_skipped,
+    which `ref.dmas_skipped` computes from them."""
+    from repro_torch.kernels import ref
+
+    assert "tile_dmas_skipped" not in stats
+    return {**stats, "tile_dmas_skipped": ref.dmas_skipped(stats["iters"], stats["converged"],
+                                                           early_exit)}
 
 
 def _reference_loop(js, q, k, **kw):
@@ -162,7 +174,8 @@ def _assert_stats_equal(got, want):
 def test_plain_radius_loop_matches_reference(request, metric, adaptive_r0, early_exit):
     """ref.radius_search_loop (the loop kernel's plain version, on the
     index's tile array) and radius_search_batched against the reference's
-    radius_search_batched: all five stats exact, at PAPER_GRID's
+    radius_search_batched: all five stats exact (radius_search_batched's
+    tile_dmas_skipped through `ref.dmas_skipped`), at PAPER_GRID's
     max_iters = 16 with lanes that never converge."""
     from repro_torch.core import pyramid
     from repro_torch.kernels import ref
@@ -180,8 +193,9 @@ def test_plain_radius_loop_matches_reference(request, metric, adaptive_r0, early
                                  cfg.max_iters, cfg.tile, cfg.level_nblks, metric=cfg.metric,
                                  early_exit=early_exit)
     _assert_stats_equal(got, want)
-    _assert_stats_equal(batched.radius_search_batched(
-        ts.index, cfg, tgrid, K, adaptive_r0=adaptive_r0, early_exit=early_exit), want)
+    _assert_stats_equal(with_dmas(batched.radius_search_batched(
+        ts.index, cfg, tgrid, K, adaptive_r0=adaptive_r0, early_exit=early_exit),
+        early_exit), want)
 
 
 @pytest.mark.parametrize("early_exit", [True, False])
@@ -191,8 +205,8 @@ def test_plain_radius_loop_empty_batch(l2_pair, early_exit):
     come from a one-query call)."""
     js, ts, q = l2_pair
     want, _ = _reference_loop(js, q[:1], K, early_exit=early_exit)
-    got = batched.radius_search_batched(ts.index, ts.cfg, torch.zeros((0, 2)), K,
-                                        early_exit=early_exit)
+    got = with_dmas(batched.radius_search_batched(ts.index, ts.cfg, torch.zeros((0, 2)), K,
+                                                  early_exit=early_exit), early_exit)
     assert set(got) == set(STATS)
     for key in STATS:
         w = np.asarray(want[key])
@@ -203,14 +217,19 @@ def test_plain_radius_loop_empty_batch(l2_pair, early_exit):
 @pytest.mark.parametrize("adaptive_r0", [False, True])
 @pytest.mark.parametrize("metric", ["l2", "l1"])
 def test_dma_skip_identity_holds_on_reference(request, metric, adaptive_r0):
-    """The statistic the loop kernel computes after its launch, from
-    per-lane outputs alone: 4 * sum(max iters - iters) + 4 * sum(converged)
-    equals the reference's lock-step tile_dmas_skipped."""
+    """`ref.dmas_skipped`, from per-lane outputs alone:
+    4 * sum(max iters - iters) + 4 * sum(converged) equals the reference's
+    lock-step tile_dmas_skipped."""
+    from repro_torch.kernels import ref
+
     js, _, q = request.getfixturevalue(f"{metric}_pair")
     want, _ = _reference_loop(js, q, K, adaptive_r0=adaptive_r0)
     it = np.asarray(want["iters"]).astype(np.int64)
     conv = np.asarray(want["converged"]).astype(np.int64)
     assert 4 * (it.max() - it).sum() + 4 * conv.sum() == int(want["tile_dmas_skipped"]) > 0
+    got = ref.dmas_skipped(torch.from_numpy(np.asarray(want["iters"])),
+                           torch.from_numpy(np.asarray(want["converged"])))
+    assert got.dtype == torch.int32 and int(got) == int(want["tile_dmas_skipped"])
 
 
 @pytest.mark.parametrize("counter", ["pyramid", "sat"])
