@@ -82,7 +82,10 @@ per phase:
      registers and shared memory; candidate_topk at the q8 re-rank's shape
      and at hopper_gather's, each with device_ms and `two_call_ms`
      (torch.cdist, the invalid slots masked, torch.topk: no single call
-     computes the function);
+     computes the function); csr_candidate_topk's timed chunk also gives
+     the share of its window slots the walk skips (ref.window_runs) and,
+     at seed 0, is held to ROW2_SLACK times its figure in PERF.md's
+     kernel table (row 2), taken on the same data;
   4  flash_attention, which no path of the system calls, at
      musicgen-medium's attention width (24 heads, head_dim 64) and a 32,768
      sequence, float32, causal, and at S = 4096 at stablelm-12b's width
@@ -131,7 +134,8 @@ per phase:
      radius_search_loop and one csr_candidate_topk per batch, the grown
      datastore equal to `build_index` of the union; decode rows/s, ms per
      batch, insert ms, pad rows, recall@16, peak memory, and
-     csr_candidate_topk at a batch's shape against its plain version;
+     csr_candidate_topk at a batch's shape against its plain version, with
+     the share of its window slots the walk skips;
      6c retrieval memory at minitron-8b's long_500k (524,288 positions,
      8 KV heads of 128, 32 query heads; RetrievalMemoryConfig's defaults)
      in 64 decode steps of 8 rows, one launch of each path kernel a step,
@@ -397,11 +401,13 @@ def check_candidate_static_smem() -> None:
     (candidate_topk.TOPK_SHARED_BYTES, TOPK_CHUNK): hold them against
     ptxas's static shared memory of every candidate entry function.  The
     staged instances (csr_candidate_topk_kernel<true>,
-    candidate_topk_kernel<true>) stage rows, not scores.  A
+    candidate_topk_kernel<true>) stage rows, not scores; csr_candidate_topk
+    adds the prefix of its window rows' runs (PREFIX_SHARED_BYTES).  A
     source built by an earlier run in this checkout has no ptxas report
     (phase 0 marks it cached); a fresh checkout builds and checks all three."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.candidate_topk import TOPK_CHUNK, TOPK_SHARED_BYTES
+    from repro_torch.kernels.csr_candidate_topk import PREFIX_SHARED_BYTES
 
     for source in ("candidate_topk", "csr_candidate_topk", "csr_candidate_topk_q8"):
         if source not in _build.BUILD_LOG:
@@ -410,6 +416,7 @@ def check_candidate_static_smem() -> None:
         check(bool(entries), f"no ptxas report for {source}")
         for entry, info in entries.items():
             want = TOPK_SHARED_BYTES + (0 if "ILb1E" in entry else 4 * TOPK_CHUNK)
+            want += PREFIX_SHARED_BYTES if source == "csr_candidate_topk" else 0
             got = info.get("static_smem_bytes")
             check(got == want, f"{entry}: ptxas gives {got} bytes of static shared memory, "
                                f"the wrappers count {want}")
@@ -1656,6 +1663,26 @@ def phase2(seed, api, cfg, k, mods, timings, n=1_000_000, b=4096):
             run_q["launches"], exact_launches]
 
 
+# csr_candidate_topk's device ms at phase 3's timed chunk in PERF.md's
+# kernel table, row 2 (seed 0's data), from before the kernel walked only
+# the valid slots of a window; at seed 0 the chunk is held to ROW2_SLACK
+# times it (another seed's chunk is other data)
+ROW2_CHUNK_MS = 1.394
+ROW2_SLACK = 1.03
+
+
+def skipped_share(st, en, n_pad: int, n: int, row_cap: int, pairs: int, what: str) -> float:
+    """The share of the window slots csr_candidate_topk's walk skips, 1 -
+    V / (B * w * row_cap), V the valid slots counted from the runs the
+    kernel scans (ref.window_runs); held equal to the `pairs` the caller
+    counted slot by slot."""
+    from repro_torch.kernels import ref
+
+    v = int(ref.window_runs(st, en, n_pad, n, row_cap)[2][:, -1].sum())
+    check(v == pairs, f"{what}: ref.window_runs counts {v} valid slots, the slots {pairs}")
+    return 1.0 - v / (st.numel() * row_cap)
+
+
 def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
     from repro_torch.core import batched, projection
     from repro_torch.core.active_search import gather_candidates, padded_csr, window_spans
@@ -1723,6 +1750,10 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
     valid = (j >= st[:, :, None]) & (j < en[:, :, None]) & (j < n_live)
     pairs = int(valid.sum())
     distinct = int(torch.unique(j[valid]).numel())
+    skipped = skipped_share(st, en, n_pad, n_live, cfg.row_cap, pairs, "phase 3")
+    check(seed != 0 or csr_dev_ms <= ROW2_SLACK * ROW2_CHUNK_MS,
+          f"phase 3: csr_candidate_topk takes {csr_dev_ms:.4f} ms at the timed chunk, over "
+          f"{ROW2_SLACK} x row 2's {ROW2_CHUNK_MS} ms")
     b_ms, b_by = bound(distinct * d * 4 + chunk * (cfg.window * 8 + d * 4 + k * 8),
                        3 * pairs * d)
     # gathered_ms: every (query, row) pair's row read from device memory,
@@ -1732,6 +1763,7 @@ def phase3(seed, api, cfg, k, mods, timings, n=1_000_000, b=10_000, chunk=2048):
         "bound_by": b_by, "gathered_ms": 1e3 * pairs * d * 4 / HBM_BYTES_PER_S,
         "max_abs_err": err, "shape": f"PROD_GRID d={d} B={chunk}", "output_sha256": csr_sha,
         "valid_pairs": pairs, "distinct_rows": distinct, "tie_swaps": swaps,
+        "skipped_share": skipped, "row2_device_ms": ROW2_CHUNK_MS,
         "smem_bytes": mods["csr_candidate_topk"].shared_bytes(d, cfg.window, cfg.row_cap),
         "ptxas": ptxas_of("csr_candidate_topk"),
     }
@@ -2574,12 +2606,14 @@ def phase6_knn_lm(seed, api, mods, smi, n=524_288, requests=256, max_batch=64, i
     j = s_cl[:, :, None] + torch.arange(cfg.grid.row_cap, device=DEV)
     valid = (j >= stt[:, :, None]) & (j < en[:, :, None]) & (j < n_live)
     pairs, distinct = int(valid.sum()), int(torch.unique(j[valid]).numel())
+    skipped = skipped_share(stt, en, n_pad, n_live, cfg.grid.row_cap, pairs, "phase 6b")
     b_ms, b_by = bound(distinct * d * 4 + max_batch * (cfg.grid.window * 8 + d * 4 + cfg.k * 8),
                        3 * pairs * d)
     timing = {"shape": f"kNN-LM d={d} B={max_batch} k={cfg.k}", "ms": ms, "device_ms": dev_ms,
               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
               "gathered_ms": 1e3 * pairs * d * 4 / HBM_BYTES_PER_S, "valid_pairs": pairs,
-              "distinct_rows": distinct, "max_abs_err": err, "tie_swaps": swaps}
+              "distinct_rows": distinct, "skipped_share": skipped, "max_abs_err": err,
+              "tie_swaps": swaps}
     batch_ms = float(np.median(step_ms["batch"]))
     emit({
         "phase": "6b", "config": "kNN-LM head, minitron-8b widths (d_model 4096, vocab 256,000)",

@@ -2,8 +2,9 @@
 
 Wrapper of `csrc/csr_candidate_topk.cu`, the port of the TPU kernel
 `repro/kernels/csr_candidate_topk.py::csr_candidate_topk`.  Each query's
-candidate rows are read straight from the CSR-sorted store; the only
-device-memory output is the (B, k) result pair.  The plain version is
+candidate rows are read straight from the CSR-sorted store, and only the
+valid slots of its window are walked (`ref.window_runs` gives their runs);
+the only device-memory output is the (B, k) result pair.  The plain version is
 `ref.csr_candidate_topk`; `ops.csr_candidate_topk` picks between them by
 device.
 """
@@ -25,6 +26,13 @@ from repro_torch.utils import trace
 
 SOURCE = "csr_candidate_topk"
 launches = 0              # kernel launches so far (chip_smoke resets and reads it)
+# The kernel walks only the valid slots of a window, through the exclusive
+# prefix of its window rows' runs in shared memory, PREFIX_ROWS rows at a
+# time: the prefix (PREFIX_ROWS + 1 ints), each run's row offset
+# (PREFIX_ROWS ints) and the block scan's 8 warp totals, in a struct
+# aligned to 16 bytes.  chip_smoke.py holds the count against ptxas's.
+PREFIX_ROWS = 512
+PREFIX_SHARED_BYTES = -(-4 * (2 * PREFIX_ROWS + 1 + 8) // 16) * 16
 
 
 @functools.cache  # bound once, not on every launch
@@ -38,11 +46,13 @@ def _launcher():
 def shared_bytes(d: int, w: int, row_cap: int) -> int:
     """Shared memory of one block: at d >= TILE_DIMS the ring of staged
     tiles (rows of TILE_DIMS + 4 floats) and their row numbers, below it a
-    chunk of staged distances; the query, and the top-k's buffer and list.
-    It does not grow with the window (w, row_cap)."""
+    chunk of staged distances; the query, the top-k's buffer and list, and
+    the prefix of PREFIX_ROWS window rows' runs.  It does not grow with the
+    window (w, row_cap): a wider window is walked PREFIX_ROWS rows at a
+    time."""
     del w, row_cap
     staged = staged_bytes(TILE_ROWS) if d >= TILE_DIMS else 4 * TOPK_CHUNK
-    return staged + 4 * d + TOPK_SHARED_BYTES
+    return staged + 4 * d + TOPK_SHARED_BYTES + PREFIX_SHARED_BYTES
 
 
 # The launch is the operator `torch.ops.repro_torch.csr_candidate_topk`, as

@@ -300,6 +300,22 @@ def window_slots(starts, ends, n_pad: int, n: int, row_cap: int):
     return j.reshape(b, w * row_cap), ok.reshape(b, w * row_cap)
 
 
+def window_runs(starts, ends, n_pad: int, n: int, row_cap: int):
+    """Each window row's run of valid slots, as csr_candidate_topk.cu scans
+    them.  Window row i covers the row_cap store rows from its clamped start
+    cs (window_slots); its valid rows are one run, [max(cs, start),
+    min(cs + row_cap, end, n)).  Returns (B, w) int64 `lo`, the run's first
+    slot within its row, and `length`, and the (B, w + 1) int64 exclusive
+    prefix of the lengths, whose last column is V, the window's valid slots."""
+    st, en = starts.to(torch.int64), ends.to(torch.int64)
+    cs = torch.clamp(st, 0, max(n_pad - row_cap, 0))
+    first = torch.maximum(cs, st)
+    last = torch.minimum(torch.minimum(cs + row_cap, en), torch.full_like(en, n))
+    length = torch.clamp_min(last - first, 0)
+    prefix = torch.nn.functional.pad(torch.cumsum(length, dim=1), (1, 0))
+    return first - cs, length, prefix
+
+
 def chunked_distance(
     cand: torch.Tensor,     # (B, C, d) float32
     queries: torch.Tensor,  # (B, d) float32

@@ -32,6 +32,25 @@ def assert_dists_close(got, want, err_msg: str = "") -> None:
                                err_msg=err_msg)
 
 
+def assert_ids_equal_up_to_ties(gi, wi, rows, q, metric, rtol=DIST_RTOL):
+    """Selected rows exact, except that near-tied rows may trade places: a
+    query whose id list differs must list equally far rows (distances
+    recomputed in float64 from rows(b, ids), sorted, within rtol).
+    The kernel and the plain version sum a row in different orders, so
+    distances an ulp apart may rank the other way."""
+    gi, wi = gi.cpu(), wi.cpu()
+    for b in (gi != wi).any(dim=1).nonzero().flatten().tolist():
+        ds = []
+        for ids in (gi[b], wi[b]):
+            diff = rows(b, ids.clamp_min(0).long()).double() - q[b].double()
+            dist = diff.abs().sum(-1) if metric == "l1" else diff.pow(2).sum(-1).sqrt()
+            dist = torch.where(ids >= 0, dist, torch.full_like(dist, float("inf")))
+            ds.append(dist.sort().values)
+        np.testing.assert_array_equal(np.isinf(np_(ds[0])), np.isinf(np_(ds[1])))
+        fin = torch.isfinite(ds[1])
+        np.testing.assert_allclose(np_(ds[0][fin]), np_(ds[1][fin]), rtol=rtol, atol=0)
+
+
 def assert_results_match(got, want) -> None:
     """A port SearchResult against a reference one: every field exact but
     `dists`, which is held to DIST_RTOL; shapes and dtypes equal."""

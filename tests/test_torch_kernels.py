@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import DIST_RTOL, assert_dists_close, np_, require_cuda
+from _torch_port import assert_dists_close, assert_ids_equal_up_to_ties, np_, require_cuda
 
 from repro.core import batched as jbatched
 from repro.core import pyramid as jpyr
@@ -629,25 +629,6 @@ def _window_case(case):
 WINDOW_CASES = ["wide_32768", "wide_65536", "d2", "d9", "d13", "d37", "all_invalid"]
 
 
-def _assert_ids_equal_up_to_ties(gi, wi, rows, q, metric):
-    """Selected rows exact, except that near-tied rows may trade places: a
-    query whose id list differs must list equally far rows (distances
-    recomputed in float64 from rows(b, ids), sorted, within DIST_RTOL).
-    The kernel and the plain version sum a row in different orders, so
-    distances an ulp apart may rank the other way."""
-    gi, wi = gi.cpu(), wi.cpu()
-    for b in (gi != wi).any(dim=1).nonzero().flatten().tolist():
-        ds = []
-        for ids in (gi[b], wi[b]):
-            diff = rows(b, ids.clamp_min(0).long()).double() - q[b].double()
-            dist = diff.abs().sum(-1) if metric == "l1" else diff.pow(2).sum(-1).sqrt()
-            dist = torch.where(ids >= 0, dist, torch.full_like(dist, float("inf")))
-            ds.append(dist.sort().values)
-        np.testing.assert_array_equal(np.isinf(np_(ds[0])), np.isinf(np_(ds[1])))
-        fin = torch.isfinite(ds[1])
-        np.testing.assert_allclose(np_(ds[0][fin]), np_(ds[1][fin]), rtol=DIST_RTOL, atol=0)
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", WINDOW_CASES)
 @pytest.mark.parametrize("k", [1, 10, 257, -1])
@@ -669,7 +650,7 @@ def test_gpu_csr_candidate_topk_windows(case, k):
         wd, wi = ref.csr_candidate_topk(*args, k, n_live, rcap, **kw)
         gd, gi = csr.csr_candidate_topk(*[a.to(dev) for a in args], k, n_live, rcap, **kw)
         torch.cuda.synchronize()
-        _assert_ids_equal_up_to_ties(gi, wi, lambda b, ids: args[0][ids], args[3],
+        assert_ids_equal_up_to_ties(gi, wi, lambda b, ids: args[0][ids], args[3],
                                      kw.get("metric", "l2"))
         assert_dists_close(gd, wd)
         if store.shape[1] <= 2:
@@ -731,5 +712,5 @@ def test_gpu_candidate_topk_wide(c, d, k):
             wd, wi = ref.candidate_topk(cand, valid, q, kk, d_chunk=dc)
             gd, gi = ctk.candidate_topk(cand_dev, valid.to(dev), q.to(dev), kk, d_chunk=dc)
             torch.cuda.synchronize()
-            _assert_ids_equal_up_to_ties(gi, wi, lambda b, ids: cand[b][ids], q, "l2")
+            assert_ids_equal_up_to_ties(gi, wi, lambda b, ids: cand[b][ids], q, "l2")
             assert_dists_close(gd, wd)
